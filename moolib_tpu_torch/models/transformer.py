@@ -1,0 +1,366 @@
+"""Causal Transformer LM with pluggable attention: dense or flash.
+
+The port of the JAX package's ``models/transformer.py``: pre-LN blocks,
+learned or rotary positions, grouped-query attention, a one-pass prefill
+that collects every block's K/V, and KV-cache decoding (:func:`generate`).
+
+- ``attention="dense"`` — plain torch dense attention;
+- ``attention="flash"`` — :func:`..ops.flash_attention.flash_attention`,
+  the hand-written CUDA kernel on the card (its plain version on the CPU).
+
+Ring attention, MoE blocks, remat and the paged KV cache come with later
+slices; asking for them raises ``NotImplementedError``.
+
+Numerics follow the flax model exactly: LayerNorm with epsilon 1e-6 computed
+in f32; the tanh-approximate GELU; rotary embedding in rotate-half form
+computed in f32; the Dense layers and embeddings compute in ``dtype``
+(bfloat16 by default) while ``ln_f`` and ``lm_head`` run in f32, so the
+logits are f32.  Flax keeps f32 parameters and casts them to ``dtype`` at
+use; this inference slice stores the weights of the ``dtype`` layers in
+``dtype`` directly (the same rounding, done once at load instead of on every
+call), and the LayerNorm and ``lm_head`` weights in f32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .._device import resolve
+
+LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
+
+
+def apply_rotary(x: torch.Tensor, base: float = 10000.0, offset=0) -> torch.Tensor:
+    """Rotary position embedding (RoPE) on [B, T, H, D], rotate-half form.
+
+    The two halves of each head's features form the rotated pairs (not
+    interleaved neighbours).  Computed in float32 and cast back.  ``offset``
+    shifts the positions: an int or a 0-d tensor (the cache index during
+    decoding), or a [B] tensor when each row sits at its own position.
+    """
+    B, T, H, D = x.shape
+    half = D // 2
+    if D % 2:
+        raise ValueError(f"rotary needs an even head dim, got {D}")
+    dev = x.device
+    freqs = base ** (-torch.arange(0, half, dtype=torch.float32, device=dev) / half)
+    steps = torch.arange(T, dtype=torch.float32, device=dev)
+    if isinstance(offset, torch.Tensor) and offset.ndim == 1:
+        positions = offset.to(device=dev, dtype=torch.float32)[:, None] + steps[None, :]
+        angles = positions[..., None] * freqs  # [B, T, half]
+        cos = torch.cos(angles)[:, :, None, :]
+        sin = torch.sin(angles)[:, :, None, :]
+    else:
+        # A python int stays a kernel argument: no host-to-device copy (and
+        # no stream sync) per call on the decode path.
+        angles = (steps + offset)[:, None] * freqs[None, :]  # [T, half]
+        cos = torch.cos(angles)[None, :, None, :]
+        sin = torch.sin(angles)[None, :, None, :]
+    xf = x.to(torch.float32)
+    x1, x2 = xf[..., :half], xf[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu``: the tanh approximation (torch's default is exact)."""
+    return F.gelu(x, approximate="tanh")
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=float32)``: f32 compute, epsilon 1e-6."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x):
+        return F.layer_norm(x.to(torch.float32), (x.shape[-1],), self.scale, self.bias, LN_EPS)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense(dtype=dtype)``: input and kernel in ``dtype``, output
+    in ``dtype``.  ``kernel`` is [in, out] as in flax."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(d_in, d_out, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device))
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.kernel.t(), self.bias)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed(dtype=dtype)``: the table is cast before the lookup."""
+
+    def __init__(self, num: int, dim: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num, dim, dtype=dtype, device=device))
+
+    def forward(self, idx):
+        return F.embedding(idx.long(), self.embedding)
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block: attention, then a tanh-GELU MLP."""
+
+    def __init__(self, d_model: int, num_heads: int, attention: str, dtype: torch.dtype,
+                 rotary: bool = False, num_kv_heads: Optional[int] = None, device=None):
+        super().__init__()
+        self.d_model, self.num_heads, self.attention = d_model, num_heads, attention
+        self.dtype, self.rotary = dtype, rotary
+        self.num_kv_heads = num_kv_heads or num_heads
+        if num_heads % self.num_kv_heads:
+            raise ValueError(
+                f"num_heads={num_heads} must be divisible by num_kv_heads={self.num_kv_heads}"
+            )
+        hd = d_model // num_heads
+        self.LayerNorm_0 = LayerNorm(d_model, device)
+        self.qkv = Dense(d_model, (num_heads + 2 * self.num_kv_heads) * hd, dtype, device)
+        self.proj = Dense(d_model, d_model, dtype, device)
+        self.LayerNorm_1 = LayerNorm(d_model, device)
+        self.Dense_0 = Dense(d_model, 4 * d_model, dtype, device)
+        self.Dense_1 = Dense(4 * d_model, d_model, dtype, device)
+
+    def _qkv(self, x):
+        B, T, D = x.shape
+        H, Hk = self.num_heads, self.num_kv_heads
+        qkv = self.qkv(self.LayerNorm_0(x)).reshape(B, T, H + 2 * Hk, D // H)
+        # Head-major columns: [H q heads, Hk k heads, Hk v heads].
+        return qkv[:, :, :H], qkv[:, :, H : H + Hk], qkv[:, :, H + Hk :]
+
+    def _finish(self, x, att):
+        B, T, D = x.shape
+        x = x + self.proj(att.reshape(B, T, D))
+        y = self.Dense_0(self.LayerNorm_1(x))
+        y = self.Dense_1(gelu(y))
+        return x + y
+
+    def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Full-sequence (prefill) pass: returns ``(x, k, v)`` with the
+        block's K/V in ``dtype`` at Hk heads — what seeds the decode cache."""
+        q, k, v = self._qkv(x)
+        if self.rotary:
+            q, k = apply_rotary(q), apply_rotary(k)
+        k_cache, v_cache = k.to(self.dtype), v.to(self.dtype)
+        group = self.num_heads // self.num_kv_heads
+        if group > 1:
+            # The attention paths take equal head counts: repeat each KV
+            # head across its query group (transient; the cache keeps Hk).
+            k = torch.repeat_interleave(k, group, dim=2)
+            v = torch.repeat_interleave(v, group, dim=2)
+        if self.attention == "flash":
+            from ..ops.flash_attention import flash_attention
+
+            att = flash_attention(q, k, v, causal=True)
+        else:
+            from ..parallel.ring_attention import full_attention
+
+            att = full_attention(q, k, v, causal=True)
+        return self._finish(x, att), k_cache, v_cache
+
+    def decode(self, x, cache_k, cache_v, t: int):
+        """One-token step against the dense KV cache: writes this position's
+        K/V into ``cache_k``/``cache_v`` ([B, max_len, Hk, hd]) at ``t`` in
+        place, then attends over positions ``<= t``."""
+        from ..ops.paged_attention import gathered_decode_attention
+
+        if x.shape[1] != 1:
+            raise ValueError(f"decode mode steps one token at a time, got T={x.shape[1]}")
+        q, k, v = self._qkv(x)
+        if self.rotary:
+            q, k = apply_rotary(q, offset=t), apply_rotary(k, offset=t)
+        cache_k[:, t] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, t] = v[:, 0].to(cache_v.dtype)
+        att = gathered_decode_attention(q, cache_k, cache_v, t).to(x.dtype)
+        return self._finish(x, att)
+
+
+class TransformerLM(nn.Module):
+    """Causal LM: embeddings, ``num_layers`` blocks, ``ln_f`` and the f32
+    ``lm_head``.  Weights are drawn from ``generator`` (a fresh CPU
+    generator seeded 0 when None) and placed on ``device`` (CUDA by
+    default; pass ``device="cpu"`` to run on the CPU)."""
+
+    def __init__(
+        self,
+        vocab_size: int,
+        d_model: int = 256,
+        num_heads: int = 4,
+        num_kv_heads: Optional[int] = None,
+        num_layers: int = 4,
+        max_len: int = 8192,
+        attention: str = "flash",
+        dtype: torch.dtype = torch.bfloat16,
+        moe_num_experts: int = 0,
+        pos_embedding: str = "learned",
+        kv_num_blocks: int = 0,
+        remat: bool = False,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if attention == "ring":
+            raise NotImplementedError("attention='ring': ring attention comes with a later slice")
+        if attention not in ("dense", "flash"):
+            raise ValueError(f"unknown attention {attention!r}")
+        if moe_num_experts:
+            raise NotImplementedError("MoE blocks come with a later slice")
+        if kv_num_blocks:
+            raise NotImplementedError("the paged KV cache comes with the serving-engine slice")
+        if remat:
+            raise NotImplementedError("remat comes with the training slice (slice 2)")
+        if pos_embedding not in ("learned", "rotary"):
+            raise ValueError(f"unknown pos_embedding {pos_embedding!r}")
+        dev = resolve(device)
+        self.vocab_size, self.d_model, self.num_heads = vocab_size, d_model, num_heads
+        self.num_kv_heads = num_kv_heads
+        self.num_layers, self.max_len, self.attention = num_layers, max_len, attention
+        self.dtype, self.pos_embedding = dtype, pos_embedding
+        self.embed = Embed(vocab_size, d_model, dtype, dev)
+        self.pos = Embed(max_len, d_model, dtype, dev) if pos_embedding == "learned" else None
+        self.blocks = nn.ModuleList(
+            Block(d_model, num_heads, attention, dtype, rotary=pos_embedding == "rotary",
+                  num_kv_heads=num_kv_heads, device=dev)
+            for _ in range(num_layers)
+        )
+        self.ln_f = LayerNorm(d_model, dev)
+        self.lm_head = Dense(d_model, vocab_size, torch.float32, dev)
+        self.reset_parameters(generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.embedding.device
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax's default initialisers, drawn on the CPU from ``generator``:
+        embeddings N(0, 1/d) (variance scaling over the feature axis), Dense
+        kernels truncated-normal with variance 1/fan_in (lecun normal),
+        biases 0, LayerNorm scale 1 and bias 0."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for mod in self.modules():
+            if isinstance(mod, Embed):
+                w = torch.randn(mod.embedding.shape, generator=generator)
+                mod.embedding.copy_(w / math.sqrt(mod.embedding.shape[1]))
+            elif isinstance(mod, Dense):
+                fan_in = mod.kernel.shape[0]
+                # lecun_normal: truncated at 2 sigma, sigma corrected for the cut.
+                std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+                w = torch.empty(mod.kernel.shape)
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+                mod.kernel.copy_(w)
+                mod.bias.zero_()
+            elif isinstance(mod, LayerNorm):
+                mod.scale.fill_(1.0)
+                mod.bias.zero_()
+
+    def _embed(self, tokens, start: int = 0):
+        x = self.embed(tokens)
+        if self.pos is not None:
+            T = tokens.shape[1]
+            x = x + self.pos(torch.arange(start, start + T, device=tokens.device)[None, :])
+        return x
+
+    def _head(self, x):
+        return self.lm_head(self.ln_f(x))
+
+    def forward(self, tokens):
+        """Logits [B, T, V] f32."""
+        return self.prefill(tokens)[0]
+
+    def prefill(self, tokens):
+        """One teacher-forced pass over ``tokens`` [B, T]: ``(logits,
+        kvs)`` where ``kvs`` holds each block's ``(k, v)`` [B, T, Hk, hd] in
+        ``dtype`` (the flax model's ``collect_kv`` prefill)."""
+        x = self._embed(tokens)
+        kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        for block in self.blocks:
+            x, k, v = block(x)
+            kvs.append((k, v))
+        return self._head(x), kvs
+
+    def decode_step(self, tokens, cache_k, cache_v, t: int):
+        """One-token step at position ``t``: ``tokens`` [B, 1]; ``cache_k``
+        / ``cache_v`` are [L, B, max_len, Hk, hd] and get this position's
+        K/V written in place.  Returns logits [B, 1, V]."""
+        x = self._embed(tokens, start=t)
+        for i, block in enumerate(self.blocks):
+            x = block.decode(x, cache_k[i], cache_v[i], t)
+        return self._head(x)
+
+
+def generate(
+    model: TransformerLM,
+    prompt: torch.Tensor,
+    max_new_tokens: int,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Autoregressive sampling with a per-block KV cache.
+
+    ``prompt`` is [B, Tp] integer; returns [B, Tp + max_new_tokens] on the
+    model's device, in the prompt's dtype, with the continuation appended.
+    Prefill is ONE teacher-forced pass over the prompt through the model's
+    own attention kind (the flash kernel on the card); its K/V seed a dense
+    cache of ``max_len`` positions, and each new token is a single-position
+    step against it.  ``temperature=0`` is greedy argmax (first index on
+    ties); otherwise softmax sampling from ``generator``, which must live on
+    the model's device.
+    """
+    B, Tp = prompt.shape
+    if Tp + max_new_tokens > model.max_len:
+        raise ValueError(
+            f"prompt + max_new_tokens = {Tp + max_new_tokens} exceeds the "
+            f"cache capacity max_len={model.max_len}"
+        )
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature > 0 needs an explicit torch.Generator")
+    # Checked where the prompt lies (the host, for served requests): on the
+    # card an out-of-range index is a device-side assert that poisons the
+    # context for every later request, where XLA would have clamped it.
+    if prompt.numel() and (int(prompt.min()) < 0 or int(prompt.max()) >= model.vocab_size):
+        raise ValueError(f"prompt tokens must lie in [0, {model.vocab_size})")
+    dev = model.device
+    tokens = prompt.to(dev)
+    logits, kvs = model.prefill(tokens)
+    last = logits[:, -1]
+    L = model.num_layers
+    Hk = model.num_kv_heads or model.num_heads
+    hd = model.d_model // model.num_heads
+    cache_k = torch.zeros(L, B, model.max_len, Hk, hd, dtype=model.dtype, device=dev)
+    cache_v = torch.zeros_like(cache_k)
+    for i, (k, v) in enumerate(kvs):
+        cache_k[i, :, :Tp] = k
+        cache_v[i, :, :Tp] = v
+    del kvs
+    new = []
+    for step in range(max_new_tokens):
+        if temperature == 0.0:
+            tok = torch.argmax(last, dim=-1)
+        else:
+            probs = torch.softmax(last / temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        new.append(tok)
+        if step + 1 < max_new_tokens:  # the last token's logits go unused
+            last = model.decode_step(tok[:, None], cache_k, cache_v, Tp + step)[:, 0]
+    if not new:
+        return tokens
+    return torch.cat([tokens, torch.stack(new, dim=1).to(tokens.dtype)], dim=1)
+
+
+def sharded_generator(*args, **kwargs):
+    raise NotImplementedError("tensor-parallel generation comes with a later slice")
+
+
+def pipeline_lm_apply(*args, **kwargs):
+    raise NotImplementedError("pipeline-parallel apply comes with a later slice")

@@ -1,0 +1,110 @@
+"""The PyTorch port stands alone: no JAX in its imports, CUDA by default.
+
+``moolib_tpu_torch`` must import neither ``jax``/``flax``/``optax`` nor
+anything of ``moolib_tpu`` (whose ``import`` alone pulls in jax), and its
+entry points must refuse to run on a machine without CUDA unless the caller
+asks for the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "moolib_tpu_torch")
+FORBIDDEN = ("jax", "flax", "optax", "moolib_tpu")
+
+
+def _port_sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _port_modules():
+    for path in _port_sources():
+        rel = os.path.relpath(path, ROOT)
+        if rel == "chip_smoke.py":
+            continue
+        mod = rel[: -len(".py")].replace(os.sep, ".")
+        yield mod[: -len(".__init__")] if mod.endswith(".__init__") else mod
+
+
+def test_import_every_module_leaves_jax_out():
+    mods = list(_port_modules())
+    assert "moolib_tpu_torch.ops.flash_attention" in mods
+    code = "import sys\n" + "".join(f"import {m}\n" for m in mods) + (
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "assert not bad, bad\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in FORBIDDEN:
+                    offenders.append(f"{os.path.relpath(path, ROOT)}:{node.lineno} {name}")
+    assert not offenders, offenders
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the no-CUDA behaviour cannot show")
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
+    from moolib_tpu_torch._device import NoCudaError, resolve
+    from moolib_tpu_torch.examples import lm_serve
+    from moolib_tpu_torch.models.transformer import TransformerLM
+
+    with pytest.raises(NoCudaError, match="device='cpu'"):
+        resolve()
+    with pytest.raises(NoCudaError):
+        resolve("cuda")
+    with pytest.raises(NoCudaError):
+        TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=1)
+    with pytest.raises(NoCudaError):
+        lm_serve.main(["--listen", "127.0.0.1:0"])
+    assert resolve("cpu") == torch.device("cpu")
+    model = TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=1, device="cpu")
+    assert model.device == torch.device("cpu")
+
+
+def test_unported_paths_say_so():
+    from moolib_tpu_torch.examples import lm_serve
+    from moolib_tpu_torch.models.transformer import TransformerLM
+
+    for flags in (["--connect", "127.0.0.1:1"], ["--listen", "x", "--engine", "1"],
+                  ["--listen", "x", "--mesh", "tp=2"]):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            lm_serve.main(flags)
+    for kw in (dict(attention="ring"), dict(moe_num_experts=4), dict(remat=True),
+               dict(kv_num_blocks=8)):
+        with pytest.raises(NotImplementedError):
+            TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=1,
+                          device="cpu", **kw)
