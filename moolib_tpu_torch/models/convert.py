@@ -8,9 +8,11 @@ names mirror flax's (``embed``, ``pos``, ``block{i}`` → ``blocks.{i}``,
 ``Dense_1``, ``ln_f``, ``lm_head``) and its Dense layers keep flax's
 ``kernel`` [in, out] layout, so no tensor is transposed.  The fused ``qkv``
 columns stay head-major in ``[H q, Hk k, Hk v]`` order, which is the order
-the port's Block splits them in.  ``load_state_dict`` casts each tensor to
-the parameter's dtype (bf16 for the layers that compute in bf16) with the
-same round-to-nearest-even rounding flax applies at use.
+the port's Block splits them in.  Every parameter of the port is f32, as
+flax's are, so a converted tree loads without rounding; the layers that
+compute in bf16 round at use, as flax does.  A flax *gradient* tree has the
+same structure and converts the same way (the tests compare gradients by
+name through it).
 """
 
 from __future__ import annotations

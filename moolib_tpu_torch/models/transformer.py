@@ -1,38 +1,53 @@
 """Causal Transformer LM with pluggable attention: dense or flash.
 
 The port of the JAX package's ``models/transformer.py``: pre-LN blocks,
-learned or rotary positions, grouped-query attention, a one-pass prefill
-that collects every block's K/V, and KV-cache decoding (:func:`generate`).
+learned or rotary positions, grouped-query attention, a training forward
+(logits, or the pre-head features for ``ops.xent.lm_head_xent``) with
+optional per-block rematerialisation, a one-pass prefill that collects every
+block's K/V, and KV-cache decoding (:func:`generate`).
 
 - ``attention="dense"`` — plain torch dense attention;
 - ``attention="flash"`` — :func:`..ops.flash_attention.flash_attention`,
-  the hand-written CUDA kernel on the card (its plain version on the CPU).
+  the hand-written CUDA kernels on the card (forward, and the dq and dk/dv
+  passes in the backward; their plain versions on the CPU).
 
-Ring attention, MoE blocks, remat and the paged KV cache come with later
-slices; asking for them raises ``NotImplementedError``.
+Ring attention, MoE blocks and the paged KV cache come with later slices;
+asking for them raises ``NotImplementedError``.
 
-Numerics follow the flax model exactly: LayerNorm with epsilon 1e-6 computed
+Numerics follow the flax model exactly: every parameter is stored in f32
+(flax's ``param_dtype``), and the Dense layers and embeddings cast their
+parameters and inputs to ``dtype`` (bfloat16 by default) at use, so an
+optimizer updates f32 master weights; LayerNorm with epsilon 1e-6 computed
 in f32; the tanh-approximate GELU; rotary embedding in rotate-half form
-computed in f32; the Dense layers and embeddings compute in ``dtype``
-(bfloat16 by default) while ``ln_f`` and ``lm_head`` run in f32, so the
-logits are f32.  Flax keeps f32 parameters and casts them to ``dtype`` at
-use; this inference slice stores the weights of the ``dtype`` layers in
-``dtype`` directly (the same rounding, done once at load instead of on every
-call), and the LayerNorm and ``lm_head`` weights in f32.
+computed in f32; ``ln_f`` and ``lm_head`` run in f32, so the logits are f32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from .._device import resolve
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
+
+# What a rematerialised block saves for the backward (``remat_policy``):
+#   "full"          — nothing: the whole block is recomputed;
+#   "dots"          — every matmul output (jax's ``checkpoint_dots``);
+#   "dots_no_batch" — only weight @ activation products, the matmuls with
+#                     no batch dimension (``checkpoint_dots_with_no_batch_dims``).
+REMAT_POLICIES = ("full", "dots", "dots_no_batch")
+_SAVED_OPS = {
+    "dots": [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default],
+    "dots_no_batch": [torch.ops.aten.mm.default, torch.ops.aten.addmm.default],
+}
 
 
 def apply_rotary(x: torch.Tensor, base: float = 10000.0, offset=0) -> torch.Tensor:
@@ -85,28 +100,55 @@ class LayerNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense(dtype=dtype)``: input and kernel in ``dtype``, output
-    in ``dtype``.  ``kernel`` is [in, out] as in flax."""
+    """flax ``nn.Dense(dtype=dtype)``: f32 parameters; input, kernel and
+    bias are cast to ``dtype`` at use and the output is in ``dtype``.
+    ``kernel`` is [in, out] as in flax."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device=None):
         super().__init__()
         self.dtype = dtype
-        self.kernel = nn.Parameter(torch.empty(d_in, d_out, dtype=dtype, device=device))
-        self.bias = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device))
+        self.kernel = nn.Parameter(torch.empty(d_in, d_out, device=device))
+        self.bias = nn.Parameter(torch.zeros(d_out, device=device))
+        self.cast = None  # (kernel, bias) in dtype, set by cast_weights_once
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.kernel.t(), self.bias)
+        kernel, bias = self.cast or (self.kernel.to(self.dtype), self.bias.to(self.dtype))
+        return F.linear(x.to(self.dtype), kernel.t(), bias)
 
 
 class Embed(nn.Module):
-    """flax ``nn.Embed(dtype=dtype)``: the table is cast before the lookup."""
+    """flax ``nn.Embed(dtype=dtype)``: an f32 table, cast to ``dtype``
+    before the lookup."""
 
     def __init__(self, num: int, dim: int, dtype: torch.dtype, device=None):
         super().__init__()
-        self.embedding = nn.Parameter(torch.empty(num, dim, dtype=dtype, device=device))
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.empty(num, dim, device=device))
+        self.cast = None  # the table in dtype, set by cast_weights_once
 
     def forward(self, idx):
-        return F.embedding(idx.long(), self.embedding)
+        table = self.embedding.to(self.dtype) if self.cast is None else self.cast
+        return F.embedding(idx.long(), table)
+
+
+@contextlib.contextmanager
+def cast_weights_once(model: nn.Module):
+    """Inside the block, every Dense and Embed of ``model`` uses one cast of
+    its f32 parameters to its ``dtype`` instead of casting at each call:
+    generation calls each layer once per token, and the per-call casts
+    (~100 extra launches per decode step) slow the host-bound decode.  The
+    same rounding, so the same numbers.  For inference only: the casts do
+    not follow parameter updates made inside the block."""
+    mods = [m for m in model.modules() if isinstance(m, (Dense, Embed))]
+    with torch.no_grad():
+        for m in mods:
+            m.cast = ((m.kernel.to(m.dtype), m.bias.to(m.dtype)) if isinstance(m, Dense)
+                      else m.embedding.to(m.dtype))
+    try:
+        yield model
+    finally:
+        for m in mods:
+            m.cast = None
 
 
 class Block(nn.Module):
@@ -144,17 +186,12 @@ class Block(nn.Module):
         y = self.Dense_1(gelu(y))
         return x + y
 
-    def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Full-sequence (prefill) pass: returns ``(x, k, v)`` with the
-        block's K/V in ``dtype`` at Hk heads — what seeds the decode cache."""
-        q, k, v = self._qkv(x)
-        if self.rotary:
-            q, k = apply_rotary(q), apply_rotary(k)
-        k_cache, v_cache = k.to(self.dtype), v.to(self.dtype)
+    def _attend(self, x, q, k, v):
         group = self.num_heads // self.num_kv_heads
         if group > 1:
             # The attention paths take equal head counts: repeat each KV
             # head across its query group (transient; the cache keeps Hk).
+            # Autograd sums the repeated heads' gradients back.
             k = torch.repeat_interleave(k, group, dim=2)
             v = torch.repeat_interleave(v, group, dim=2)
         if self.attention == "flash":
@@ -165,7 +202,23 @@ class Block(nn.Module):
             from ..parallel.ring_attention import full_attention
 
             att = full_attention(q, k, v, causal=True)
-        return self._finish(x, att), k_cache, v_cache
+        return self._finish(x, att)
+
+    def _qkv_positions(self, x):
+        q, k, v = self._qkv(x)
+        if self.rotary:
+            q, k = apply_rotary(q), apply_rotary(k)
+        return q, k, v
+
+    def forward(self, x):
+        """Full-sequence (training) pass: the block's output only."""
+        return self._attend(x, *self._qkv_positions(x))
+
+    def prefill(self, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Full-sequence pass that also returns ``(x, k, v)`` with the
+        block's K/V in ``dtype`` at Hk heads — what seeds the decode cache."""
+        q, k, v = self._qkv_positions(x)
+        return self._attend(x, q, k, v), k.to(self.dtype), v.to(self.dtype)
 
     def decode(self, x, cache_k, cache_v, t: int):
         """One-token step against the dense KV cache: writes this position's
@@ -204,6 +257,7 @@ class TransformerLM(nn.Module):
         pos_embedding: str = "learned",
         kv_num_blocks: int = 0,
         remat: bool = False,
+        remat_policy: str = "full",
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -216,8 +270,12 @@ class TransformerLM(nn.Module):
             raise NotImplementedError("MoE blocks come with a later slice")
         if kv_num_blocks:
             raise NotImplementedError("the paged KV cache comes with the serving-engine slice")
-        if remat:
-            raise NotImplementedError("remat comes with the training slice (slice 2)")
+        # Validated even when remat is off, as the flax model does: bench
+        # rows are keyed by this string, so a typo must never run silently.
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy must be one of {'|'.join(REMAT_POLICIES)}, got {remat_policy!r}"
+            )
         if pos_embedding not in ("learned", "rotary"):
             raise ValueError(f"unknown pos_embedding {pos_embedding!r}")
         dev = resolve(device)
@@ -225,6 +283,7 @@ class TransformerLM(nn.Module):
         self.num_kv_heads = num_kv_heads
         self.num_layers, self.max_len, self.attention = num_layers, max_len, attention
         self.dtype, self.pos_embedding = dtype, pos_embedding
+        self.remat, self.remat_policy = remat, remat_policy
         self.embed = Embed(vocab_size, d_model, dtype, dev)
         self.pos = Embed(max_len, d_model, dtype, dev) if pos_embedding == "learned" else None
         self.blocks = nn.ModuleList(
@@ -274,9 +333,29 @@ class TransformerLM(nn.Module):
     def _head(self, x):
         return self.lm_head(self.ln_f(x))
 
-    def forward(self, tokens):
-        """Logits [B, T, V] f32."""
-        return self.prefill(tokens)[0]
+    def _block(self, block: Block, x):
+        """One block of the training forward, rematerialised in the
+        backward when ``remat`` is on and gradients are being recorded."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return block(x)
+        if self.remat_policy == "full":
+            return checkpoint(block, x, use_reentrant=False)
+        # Selective: the matmul outputs the policy names are saved, the
+        # rest (norms, activations, and the flash node, which is no matmul)
+        # is recomputed in the backward.
+        ops = _SAVED_OPS[self.remat_policy]
+        return checkpoint(block, x, use_reentrant=False,
+                          context_fn=lambda: create_selective_checkpoint_contexts(ops))
+
+    def forward(self, tokens, return_features: bool = False):
+        """Logits [B, T, V] f32 — or, with ``return_features=True``, the f32
+        ``ln_f`` output [B, T, D] that ``ops.xent.lm_head_xent`` feeds its
+        chunked head.  Builds no K/V cache."""
+        x = self._embed(tokens)
+        for block in self.blocks:
+            x = self._block(block, x)
+        x = self.ln_f(x)
+        return x if return_features else self.lm_head(x)
 
     def prefill(self, tokens):
         """One teacher-forced pass over ``tokens`` [B, T]: ``(logits,
@@ -285,7 +364,7 @@ class TransformerLM(nn.Module):
         x = self._embed(tokens)
         kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
         for block in self.blocks:
-            x, k, v = block(x)
+            x, k, v = block.prefill(x)
             kvs.append((k, v))
         return self._head(x), kvs
 
@@ -330,32 +409,34 @@ def generate(
     # context for every later request, where XLA would have clamped it.
     if prompt.numel() and (int(prompt.min()) < 0 or int(prompt.max()) >= model.vocab_size):
         raise ValueError(f"prompt tokens must lie in [0, {model.vocab_size})")
-    dev = model.device
-    tokens = prompt.to(dev)
-    logits, kvs = model.prefill(tokens)
-    last = logits[:, -1]
-    L = model.num_layers
-    Hk = model.num_kv_heads or model.num_heads
-    hd = model.d_model // model.num_heads
-    cache_k = torch.zeros(L, B, model.max_len, Hk, hd, dtype=model.dtype, device=dev)
-    cache_v = torch.zeros_like(cache_k)
-    for i, (k, v) in enumerate(kvs):
-        cache_k[i, :, :Tp] = k
-        cache_v[i, :, :Tp] = v
-    del kvs
-    new = []
-    for step in range(max_new_tokens):
-        if temperature == 0.0:
-            tok = torch.argmax(last, dim=-1)
-        else:
-            probs = torch.softmax(last / temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        new.append(tok)
-        if step + 1 < max_new_tokens:  # the last token's logits go unused
-            last = model.decode_step(tok[:, None], cache_k, cache_v, Tp + step)[:, 0]
-    if not new:
-        return tokens
-    return torch.cat([tokens, torch.stack(new, dim=1).to(tokens.dtype)], dim=1)
+    # One cast of the f32 weights serves the prefill and every decode step.
+    with cast_weights_once(model):
+        dev = model.device
+        tokens = prompt.to(dev)
+        logits, kvs = model.prefill(tokens)
+        last = logits[:, -1]
+        L = model.num_layers
+        Hk = model.num_kv_heads or model.num_heads
+        hd = model.d_model // model.num_heads
+        cache_k = torch.zeros(L, B, model.max_len, Hk, hd, dtype=model.dtype, device=dev)
+        cache_v = torch.zeros_like(cache_k)
+        for i, (k, v) in enumerate(kvs):
+            cache_k[i, :, :Tp] = k
+            cache_v[i, :, :Tp] = v
+        del kvs
+        new = []
+        for step in range(max_new_tokens):
+            if temperature == 0.0:
+                tok = torch.argmax(last, dim=-1)
+            else:
+                probs = torch.softmax(last / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            new.append(tok)
+            if step + 1 < max_new_tokens:  # the last token's logits go unused
+                last = model.decode_step(tok[:, None], cache_k, cache_v, Tp + step)[:, 0]
+        if not new:
+            return tokens
+        return torch.cat([tokens, torch.stack(new, dim=1).to(tokens.dtype)], dim=1)
 
 
 def sharded_generator(*args, **kwargs):

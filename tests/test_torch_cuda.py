@@ -1,4 +1,4 @@
-"""The PyTorch port's CUDA kernel on the card.
+"""The PyTorch port's CUDA kernels on the card.
 
 These tests need a CUDA card and skip without one.  They import neither jax
 nor the JAX package, so on the machine with the card they run without the
@@ -51,11 +51,73 @@ def test_flash_kernel_takes_strided_views(card):
     assert (out - want).abs().max().item() <= 1e-4
 
 
-def test_flash_kernel_backward_raises(card):
-    q = torch.randn(1, 64, 2, 64, device=card, requires_grad=True)
-    out = fa.flash_attention(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        out.sum().backward()
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # x max(1, max|ref|)
+
+
+def _backward_case(card, B, T, H, D, causal, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g, device=card).to(dtype)
+                   for _ in range(4))
+    g_lse = torch.randn(B, T, H, generator=g, device=card)
+    out, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
+    return q, k, v, out, lse, do, g_lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [1, 77, 200, 513])
+def test_flash_backward_kernels_match_plain_version(card, T, D, causal, dtype):
+    q, k, v, out, lse, do, g_lse = _backward_case(card, 2, T, 3, D, causal, dtype, T + D)
+    fa.reset_launches()
+    got = fa._flash_bwd_cuda(q, k, v, out, lse, do, g_lse, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq_launches(), fa.flash_bwd_dkv_launches()) == (1, 1)
+    want = fa._flash_backward_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                    do.float(), g_lse, causal)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        err = (a.float() - b).abs().max().item()
+        assert err <= BWD_TOL[dtype] * max(1.0, b.abs().max().item()), (name, err)
+
+
+def test_flash_backward_through_autograd_launches_both_kernels(card):
+    q, k, v = (torch.randn(1, 130, 2, 64, device=card, requires_grad=True) for _ in range(3))
+    fa.reset_launches()
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    (out.square().sum() + lse.sum()).backward()
+    assert (fa.flash_fwd_launches(), fa.flash_bwd_dq_launches(),
+            fa.flash_bwd_dkv_launches()) == (1, 1, 1)
+    qd, kd, vd = (x.detach().cpu().requires_grad_() for x in (q, k, v))
+    o2, l2 = fa.flash_attention(qd, kd, vd, return_lse=True)  # the plain versions
+    (o2.square().sum() + l2.sum()).backward()
+    for a, b in zip((q, k, v), (qd, kd, vd)):
+        assert (a.grad.cpu() - b.grad).abs().max().item() <= 1e-4
+
+
+def test_flash_backward_is_bitwise_reproducible(card):
+    case = _backward_case(card, 2, 300, 4, 128, True, torch.bfloat16, 7)
+    first = fa._flash_bwd_cuda(*case, True)
+    second = fa._flash_bwd_cuda(*case, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_model_gradients_match_dense_model_on_card(card):
+    cfg = dict(vocab_size=128, d_model=128, num_heads=2, num_kv_heads=1, num_layers=2,
+               max_len=160, dtype=torch.float32, pos_embedding="rotary", device=card)
+    tokens = torch.randint(0, 128, (2, 150), generator=torch.Generator().manual_seed(2))
+    tokens = tokens.to(card)
+    grads = []
+    for attention in ("flash", "dense"):
+        m = TransformerLM(attention=attention, generator=torch.Generator().manual_seed(0), **cfg)
+        logp = torch.log_softmax(m(tokens)[:, :-1], -1)
+        loss = -logp.gather(-1, tokens[:, 1:, None]).mean()
+        loss.backward()
+        grads.append((loss.item(), {n: p.grad for n, p in m.named_parameters()}))
+    (lf, gf), (ld, gd) = grads
+    assert abs(lf - ld) <= 1e-5 * abs(ld)
+    for name in gd:
+        assert (gf[name] - gd[name]).abs().max().item() <= 1e-3 * gd[name].abs().max().item(), name
 
 
 def test_flash_model_matches_dense_model_on_card(card):

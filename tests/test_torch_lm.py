@@ -1,0 +1,102 @@
+"""The port's LM trainer (examples/lm.py) against the JAX package's.
+
+The optimizer is held to ``optax.adamw`` on identical gradients (after a
+loss, gradients differ by roundoff and AdamW's sign-like first step would
+amplify it), the batches to the JAX ``make_batch`` for the same seed, and
+the whole trainer to the JAX example's learning bar on the copy task.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+import optax
+
+from moolib_tpu.examples import lm as jlm
+from moolib_tpu_torch.examples import lm
+
+torch.set_num_threads(1)
+
+
+def test_adamw_matches_optax_on_identical_gradients():
+    rng = np.random.default_rng(0)
+    shapes = {"w": (8, 5), "b": (5,), "scale": (5,)}
+    params = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+             for _ in range(3)]
+    opt = optax.adamw(3e-3)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = opt.init(jp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in params.items()}
+    topt = lm.make_optimizer(tp.values(), 3e-3)
+    for g in grads:
+        up, state = opt.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
+        jp = optax.apply_updates(jp, up)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        topt.step()
+    for k in shapes:
+        np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]), atol=1e-6,
+                                   rtol=0, err_msg=k)
+    assert topt.defaults["weight_decay"] == 1e-4 and len(topt.param_groups) == 1
+
+
+def test_make_batch_equals_jax_make_batch():
+    argv = ["--vocab", "40", "--seq_len", "18", "--batch_size", "5"]
+    a, b = np.random.default_rng(3), np.random.default_rng(3)
+    for _ in range(3):
+        np.testing.assert_array_equal(lm.make_batch(a, lm.make_flags(argv)),
+                                      jlm.make_batch(b, jlm.make_flags(argv)))
+
+
+def test_copy_task_loss_matches_jax_loss():
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal((3, 16, 11)).astype(np.float32)
+    tokens = rng.integers(0, 11, (3, 16)).astype(np.int32)
+    half = 8
+    pred = jnp.asarray(logits)[:, half - 1 : -1]
+    tgt = jnp.asarray(tokens)[:, half:]
+    logp = jax.nn.log_softmax(pred, axis=-1)
+    want = -jnp.take_along_axis(logp, tgt[..., None], axis=-1)[..., 0].mean()
+    want_acc = (pred.argmax(-1) == tgt).mean()
+    loss, acc = lm.copy_task_loss(torch.from_numpy(logits), torch.from_numpy(tokens), half)
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-6)
+    assert float(acc) == float(want_acc)
+
+
+@pytest.mark.parametrize("attention", ["dense", "flash"])
+def test_lm_trains_single_device_on_cpu(attention):
+    # The bar of tests/test_lm_example.py::test_lm_trains_dense_single_device.
+    stats = []
+    out = lm.train(lm.make_flags([
+        "--mesh", "", "--attention", attention, "--seq_len", "32", "--batch_size", "16",
+        "--steps", "120", "--quiet", "--device", "cpu",
+    ]), on_stats=stats.append)
+    assert out["acc"] > 0.9, out
+    assert out["steps"] == 120 and out["mfu"] is None and out["tokens_per_s"] > 0
+    assert [s["step"] for s in stats] == [50, 100]
+
+
+def test_lm_trains_with_remat_on_cpu():
+    out = lm.train(lm.make_flags([
+        "--mesh", "", "--attention", "flash", "--seq_len", "16", "--batch_size", "4",
+        "--steps", "4", "--remat", "--remat_policy", "dots", "--quiet", "--device", "cpu",
+    ]))
+    assert out["steps"] == 4 and np.isfinite(out["loss"])
+
+
+@pytest.mark.parametrize("argv,slice_", [
+    ([], 9),  # the JAX defaults: --mesh dp=2,sp=4 --attention ring
+    (["--mesh", "", "--attention", "ring"], 9),
+    (["--mesh", "", "--attention", "dense", "--moe_experts", "4"], 9),
+    (["--mesh", "", "--attention", "dense", "--connect", "127.0.0.1:1"], 4),
+    (["--mesh", "", "--attention", "dense", "--overlap_grads"], 4),
+    (["--mesh", "", "--attention", "dense", "--publish_every", "2"], 5),
+    (["--mesh", "", "--attention", "dense", "--checkpoint_dir", "x"], 7),
+    (["--mesh", "", "--attention", "dense", "--compile_cache_dir", "x"], 7),
+])
+def test_unported_flags_exit_with_a_message(argv, slice_):
+    with pytest.raises(SystemExit, match=rf"not yet ported \(slice {slice_}\)"):
+        lm.train(lm.make_flags(argv + ["--device", "cpu"]))

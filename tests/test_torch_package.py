@@ -79,7 +79,7 @@ def no_cuda():
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     from moolib_tpu_torch._device import NoCudaError, resolve
-    from moolib_tpu_torch.examples import lm_serve
+    from moolib_tpu_torch.examples import lm, lm_serve
     from moolib_tpu_torch.models.transformer import TransformerLM
 
     with pytest.raises(NoCudaError, match="device='cpu'"):
@@ -90,6 +90,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
         TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=1)
     with pytest.raises(NoCudaError):
         lm_serve.main(["--listen", "127.0.0.1:0"])
+    with pytest.raises(NoCudaError):
+        lm.train(lm.make_flags(["--mesh", "", "--attention", "flash"]))
     assert resolve("cpu") == torch.device("cpu")
     model = TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=1, device="cpu")
     assert model.device == torch.device("cpu")
@@ -103,8 +105,7 @@ def test_unported_paths_say_so():
                   ["--listen", "x", "--mesh", "tp=2"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             lm_serve.main(flags)
-    for kw in (dict(attention="ring"), dict(moe_num_experts=4), dict(remat=True),
-               dict(kv_num_blocks=8)):
+    for kw in (dict(attention="ring"), dict(moe_num_experts=4), dict(kv_num_blocks=8)):
         with pytest.raises(NotImplementedError):
             TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=1,
                           device="cpu", **kw)

@@ -139,3 +139,147 @@ def test_from_flax_keeps_qkv_head_major_columns():
     np.testing.assert_array_equal(sd["blocks.0.qkv.kernel"].numpy(), k)
     assert k.shape == (D, (H + 2 * 1) * (D // H))
     assert set(sd) == set(tm.state_dict())
+
+
+def _copy_task_loss_jax(logits, tokens, half):
+    # moolib_tpu/examples/lm.py's loss_fn, as written there.
+    pred = logits[:, half - 1 : -1]
+    tgt = tokens[:, half:]
+    logp = jax.nn.log_softmax(pred.astype(jnp.float32), axis=-1)
+    ll = jnp.take_along_axis(logp, tgt[..., None], axis=-1)[..., 0]
+    return -ll.mean()
+
+
+def _port_loss_and_grads(tm, tokens, half):
+    from moolib_tpu_torch.examples.lm import copy_task_loss
+
+    tm.zero_grad(set_to_none=True)
+    t = torch.from_numpy(tokens)
+    loss, _ = copy_task_loss(tm(t), t, half)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in tm.named_parameters()}
+
+
+@pytest.mark.parametrize("kv_heads", [None, 1])
+@pytest.mark.parametrize("pos", ["learned", "rotary"])
+@pytest.mark.parametrize("attention", ["dense", "flash"])
+def test_loss_and_every_gradient_match_jax(attention, pos, kv_heads):
+    # lm.py's loss through both models from the same (converted) weights;
+    # the JAX flash path runs its Pallas backward kernels in interpret mode.
+    jm, params, tm, tokens = _models(attention, pos, kv_heads)
+    half = T // 2
+    want_loss, want_grads = jax.value_and_grad(
+        lambda p: _copy_task_loss_jax(jm.apply(p, jnp.asarray(tokens)), jnp.asarray(tokens), half)
+    )(params)
+    want = from_flax(jax.tree_util.tree_map(np.asarray, want_grads))
+    got_loss, got = _port_loss_and_grads(tm, tokens, half)
+    np.testing.assert_allclose(got_loss, float(want_loss), rtol=1e-4, atol=1e-4)
+    assert set(got) == set(want)
+    for name, grad in got.items():
+        np.testing.assert_allclose(grad.numpy(), want[name].numpy(), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+
+
+def _remat_model(remat, policy="full", attention="flash"):
+    return ttf.TransformerLM(vocab_size=V, d_model=D, num_heads=H, num_layers=L, max_len=T,
+                             attention=attention, dtype=torch.float32, remat=remat,
+                             remat_policy=policy, device="cpu",
+                             generator=torch.Generator().manual_seed(3))
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_no_batch"])
+def test_remat_policies_match_no_remat(policy):
+    tokens = np.random.default_rng(5).integers(0, V, (2, T)).astype(np.int32)
+    l0, g0 = _port_loss_and_grads(_remat_model(False), tokens, T // 2)
+    l1, g1 = _port_loss_and_grads(_remat_model(True, policy), tokens, T // 2)
+    np.testing.assert_allclose(l1, l0, rtol=1e-6)
+    for name in g0:
+        np.testing.assert_allclose(g1[name].numpy(), g0[name].numpy(), rtol=2e-5, atol=2e-5,
+                                   err_msg=name)
+
+
+def test_remat_policies_save_what_they_name():
+    # Count the matmuls the backward recomputes: "full" reruns every one,
+    # "dots_no_batch" only the activation @ activation products (bmm),
+    # "dots" none.  Then the policies really differ in what they save.
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMatmuls(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {"mm": 0, "bmm": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in ("mm", "addmm"):
+                self.n["mm"] += 1
+            elif name == "bmm":
+                self.n["bmm"] += 1
+            return func(*args, **(kwargs or {}))
+
+    # Dense attention: its matmuls are visible to the policy.
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(0, V, (2, 32)))
+    counts = {}
+    for policy in ("none", "full", "dots", "dots_no_batch"):
+        m = _remat_model(policy != "none", "full" if policy == "none" else policy, "dense")
+        loss = m(tokens).sum()
+        with CountMatmuls() as c:
+            loss.backward()
+        counts[policy] = c.n
+    base = counts["none"]
+    assert counts["dots"] == base
+    assert counts["dots_no_batch"]["mm"] == base["mm"]
+    assert counts["dots_no_batch"]["bmm"] > base["bmm"]
+    assert counts["full"]["mm"] > base["mm"] and counts["full"]["bmm"] > base["bmm"]
+
+
+def test_unknown_remat_policy_raises():
+    with pytest.raises(ValueError, match="remat_policy"):
+        _remat_model(False, "nope")
+    assert ttf.REMAT_POLICIES == jtf.REMAT_POLICIES
+
+
+def test_parameters_are_f32_and_bf16_logits_match_flax():
+    cfg = dict(vocab_size=V, d_model=D, num_heads=H, num_layers=L, max_len=T,
+               attention="dense", pos_embedding="learned")
+    jm = jtf.TransformerLM(dtype=jnp.bfloat16, **cfg)
+    tokens = np.random.default_rng(7).integers(0, V, (2, 64)).astype(np.int32)
+    params = jm.init(jax.random.key(2), jnp.asarray(tokens))
+    tm = ttf.TransformerLM(dtype=torch.bfloat16, device="cpu", **cfg)
+    assert {p.dtype for p in tm.parameters()} == {torch.float32}
+    sd = from_flax(jax.tree_util.tree_map(np.asarray, params))
+    tm.load_state_dict(sd)
+    # f32 parameters load without rounding.
+    np.testing.assert_array_equal(tm.blocks[0].qkv.kernel.detach().numpy(),
+                                  np.asarray(params["params"]["block0"]["qkv"]["kernel"]))
+    want = np.asarray(jm.apply(params, jnp.asarray(tokens)))
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(tokens)).numpy()
+    assert got.dtype == np.float32
+    # bf16 compute on both sides, rounded at the same points; the matmuls
+    # sum in different orders, so logits of magnitude ~4 differ by up to a
+    # few bf16 ulps (one ulp there is 1.6e-2; measured 2.0e-2).
+    np.testing.assert_allclose(got, want, atol=5e-2, rtol=0)
+
+
+def test_features_path_is_ln_f_output():
+    _, _, tm, tokens = _models("dense", "learned", None)
+    with torch.inference_mode():
+        t = torch.from_numpy(tokens)
+        feats = tm(t, return_features=True)
+        logits, head = tm(t), tm.lm_head(feats)
+    assert feats.dtype == torch.float32 and feats.shape == (2, T, D)
+    torch.testing.assert_close(head, logits, rtol=0, atol=0)
+
+
+def test_cast_weights_once_gives_the_per_call_numbers():
+    tm = ttf.TransformerLM(vocab_size=V, d_model=D, num_heads=H, num_layers=L, max_len=T,
+                           attention="dense", dtype=torch.bfloat16, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(0, V, (2, 16)))
+    with torch.inference_mode():
+        per_call = tm(tokens)
+        with ttf.cast_weights_once(tm):
+            assert tm.blocks[0].qkv.cast[0].dtype == torch.bfloat16
+            once = tm(tokens)
+    torch.testing.assert_close(once, per_call, rtol=0, atol=0)
+    assert all(m.cast is None for m in tm.modules() if isinstance(m, (ttf.Dense, ttf.Embed)))
