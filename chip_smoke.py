@@ -9,7 +9,11 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. device — require CUDA; print the card's name and power limit.
 2. build — compile every kernel source under moolib_tpu_torch/ops/csrc
-   (one nvcc each, all at once); print ptxas's register and spill lines.
+   (one nvcc each, all at once); print ptxas's register and spill lines
+   and, from `cuobjdump -sass` of each library, every kernel's
+   tensor-core instructions (HGMMA, HMMA).  Fails if a bfloat16
+   forward or dk/dv kernel has none, or if a bfloat16 build of their
+   CUDA-core kernels exists.
 3. kernels — at the serving prefill shape, the training shape and others,
    causal and full, float32 and bfloat16: flash_fwd against its plain
    version, and the backward's dq and dk/dv kernels against the plain
@@ -36,9 +40,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    examples.lm_serve.serve() to 4 concurrent 1024-token prompts from a
    client Rpc; replies must equal the port's own generate() on the same
    batch, and the prefill must have launched flash_fwd once per layer.
+   Prefill and generate() times, the host's time to enqueue one prefill,
+   and a torch.profiler window of each.
 
-The last two lines are the kernel summary {"kernels": [...]} and
-{"ok": true, "device": {...}}.
+The last two lines are the kernel summary {"kernels": [...]}, with each
+kernel's time, TFLOP/s, share of bound and tensor-core instruction count
+at the training shape, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
+import re
 import socket
 import subprocess
 import sys
@@ -112,6 +121,21 @@ def median_call_ms(fn, reps: int) -> tuple:
     return float(np.median(times)), min(times), max(times)
 
 
+def enqueue_ms(fn, reps: int) -> float:
+    """Median host milliseconds to enqueue one call of ``fn``, the card idle
+    at the start of each and not waited for at the end.  Where it is most of
+    the call's CUDA-event time, the call is bound by the host."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
 def bound_ms(ops: float, nbytes: float, dtype) -> tuple:
     """The least time for the work: the larger of its operations over the
     peak rate for ``dtype`` and its bytes over the memory rate."""
@@ -120,20 +144,20 @@ def bound_ms(ops: float, nbytes: float, dtype) -> tuple:
 
 
 def flash_bounds(B, T, H, D, dtype, causal: bool) -> dict:
-    """Bounds of the three kernels on these inputs.  Per attended (query,
-    key) pair: the forward does 2 products of 2*D operations, the dq pass 3
-    (s, dp, dq) and the dk/dv pass 4 (s, dp, dv, dk).  Bytes: each [B, T,
-    H, D] tensor read or written once (forward: q, k, v, out; dq pass: q,
-    k, v, dO, dq; dk/dv pass: q, k, v, dO, dk, dv) plus the f32 row tables
-    (forward: lse; backward: lse and delta)."""
+    """(bound ms, bound by, operations) of the three kernels on these
+    inputs.  Per attended (query, key) pair: the forward does 2 products of
+    2*D operations, the dq pass 3 (s, dp, dq) and the dk/dv pass 4 (s, dp,
+    dv, dk).  Bytes: each [B, T, H, D] tensor read or written once
+    (forward: q, k, v, out; dq pass: q, k, v, dO, dq; dk/dv pass: q, k, v,
+    dO, dk, dv) plus the f32 row tables (forward: lse; backward: lse and
+    delta)."""
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     tensor = B * T * H * D * (torch.finfo(dtype).bits // 8)
     row = B * T * H * 4
-    return {
-        "flash_fwd": bound_ms(4 * D * pairs, 4 * tensor + row, dtype),
-        "flash_bwd_dq": bound_ms(6 * D * pairs, 5 * tensor + 2 * row, dtype),
-        "flash_bwd_dkv": bound_ms(8 * D * pairs, 6 * tensor + 2 * row, dtype),
-    }
+    work = {"flash_fwd": (4 * D * pairs, 4 * tensor + row),
+            "flash_bwd_dq": (6 * D * pairs, 5 * tensor + 2 * row),
+            "flash_bwd_dkv": (8 * D * pairs, 6 * tensor + 2 * row)}
+    return {name: (*bound_ms(ops, nbytes, dtype), ops) for name, (ops, nbytes) in work.items()}
 
 
 def device_profile(fn, top: int = 10) -> dict:
@@ -158,7 +182,9 @@ def profile_summary(prof, wall_ms: float, top: int = 10) -> dict:
     busy_ms = sum(r[1] for r in rows)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": sum(r[2] for r in rows),
-            "top": [[name, ms, n] for name, ms, n in rows[:top]]}
+            "top": [[name, ms, n] for name, ms, n in rows[:top]],
+            # The flash kernels' own device time, wherever they rank.
+            "flash": [[name, ms, n] for name, ms, n in rows if "flash_" in name]}
 
 
 def phase_device() -> str:
@@ -177,35 +203,80 @@ def phase_device() -> str:
     return smi
 
 
-def ptxas_report(nvcc_log: str) -> dict:
-    """ptxas -v's registers and spills per compiled kernel, keyed
-    ``kernel<dtype,D,causal>`` from the mangled names (which carry the
-    template arguments: ``__nv_bfloat16`` or ``f``, ``Li<D>E``, ``Lb<0|1>E``)."""
-    import re
+def kernel_label(mangled: str) -> str:
+    """``kernel<dtype,D,causal|full>`` from a mangled kernel name, which
+    carries the template arguments (``Li<D>E``, ``Lb<0|1>E``) and the
+    pointer types (``__nv_bfloat16`` or ``f``)."""
+    kernel = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_wgmma)?_kernel)", mangled)
+    d = re.search(r"Li(\d+)E", mangled)
+    causal = re.search(r"Lb([01])E", mangled)
+    return (f"{kernel.group(1) if kernel else mangled}"
+            f"<{'bf16' if 'bfloat16' in mangled else 'f32'},"
+            f"{d.group(1) if d else '?'},"
+            f"{'causal' if causal and causal.group(1) == '1' else 'full'}>")
 
+
+def ptxas_report(nvcc_log: str) -> dict:
+    """ptxas -v's registers and spills per compiled kernel (its shared
+    memory line counts static shared memory; these kernels take theirs
+    dynamically, sized in the sources)."""
     out, name = {}, None
     for ln in nvcc_log.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
-            mangled = m.group(1)
-            kernel = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)", mangled)
-            d = re.search(r"Li(\d+)E", mangled)
-            causal = re.search(r"Lb([01])E", mangled)
-            name = (f"{kernel.group(1) if kernel else mangled}"
-                    f"<{'bf16' if 'bfloat16' in mangled else 'f32'},"
-                    f"{d.group(1) if d else '?'},{'causal' if causal and causal.group(1) == '1' else 'full'}>")
+            name = kernel_label(m.group(1))
             out[name] = []
         elif name is not None and ("spill" in ln or "Used" in ln):
             out[name].append(ln.split(":", 1)[-1].strip())
     return out
 
 
-def phase_build() -> None:
+def sass_report(lib_path: str) -> dict:
+    """Tensor-core instructions (``HGMMA``: wgmma; ``HMMA``: mma.sync) in
+    each kernel's machine code, read with cuobjdump from the built library."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = kernel_label(m.group(1))
+            out[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name is not None:
+            for op in out[name]:
+                out[name][op] += bool(re.search(rf"\b{op}\.", ln))
+    return out
+
+
+def check_tensor_cores(sass: dict) -> None:
+    """Every bfloat16 instantiation of the forward and dk/dv kernels runs on
+    the tensor cores: a wgmma kernel for each (D, causal) with HGMMA
+    instructions in it, and no bfloat16 build of their CUDA-core kernels."""
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+        for d in (64, 128):
+            for mode in ("causal", "full"):
+                name = f"{kernel}<bf16,{d},{mode}>"
+                if not sass.get(name, {}).get("HGMMA"):
+                    raise AssertionError(f"build: {name} has no HGMMA instruction ({sass.get(name)})")
+    cuda_core = [n for n in sass
+                 if n.startswith(("flash_fwd_kernel<bf16", "flash_bwd_dkv_kernel<bf16"))]
+    if cuda_core:
+        raise AssertionError(f"build: bf16 CUDA-core kernels were built: {cuda_core}")
+
+
+def phase_build() -> dict:
     t0 = time.perf_counter()
     paths = _build.build_all()
-    log({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": paths,
+    seconds = time.perf_counter() - t0
+    sass = {name: sass_report(path) for name, path in paths.items()}
+    log({"phase": "build", "seconds": seconds, "libraries": paths,
          "ptxas": {name: ptxas_report(info["log"])
-                   for name, info in _build.build_info.items()}})
+                   for name, info in _build.build_info.items()},
+         "sass_tensor_core_instructions": sass})
+    merged = {k: v for lib in sass.values() for k, v in lib.items()}
+    check_tensor_cores(merged)
+    return merged
 
 
 def _rel_err(got, want) -> tuple:
@@ -294,7 +365,10 @@ def phase_kernels(gen: torch.Generator) -> dict:
                         "dkv_ms": dkv_ms, "plain_bwd_ms": plain_bwd_ms,
                         "sdpa_bwd_ms": sdpa_bwd_ms,
                         "bound_ms": {n: b[0] for n, b in bounds.items()},
-                        "bound_by": {n: b[1] for n, b in bounds.items()}}
+                        "bound_by": {n: b[1] for n, b in bounds.items()},
+                        "tflops": {n: bounds[n][2] / t / 1e9 for n, t in
+                                   (("flash_fwd", ms), ("flash_bwd_dq", dq_ms),
+                                    ("flash_bwd_dkv", dkv_ms))}}
                 log(case)
                 if causal and dtype == torch.bfloat16:
                     cases[(B, T, H, D)] = case
@@ -574,19 +648,24 @@ def phase_slice(seed: int) -> dict:
         # Phase times on the same batch, outside the served run.
         dev_batch = batch.cuda()
         prefill_ms, _, _ = median_call_ms(lambda: model.prefill(dev_batch), reps=5)
+        prefill_enqueue_ms = enqueue_ms(lambda: model.prefill(dev_batch), reps=5)
         gen_ms, gen_min, gen_max = median_call_ms(lambda: generate(model, dev_batch, new),
                                                   reps=5)
         profile = device_profile(lambda: generate(model, dev_batch, new))
+        prefill_profile = device_profile(lambda: model.prefill(dev_batch))
     decode_ms = (gen_ms - prefill_ms) / (new - 1)
     out = {"phase": "slice", "model": "TransformerLM vocab=32768 d=1024 L=12 H=8x128 bf16 rotary",
            "batch": B, "prompt_len": Tp, "max_new_tokens": new, "init_s": init_s,
            "flash_fwd_launches": launches, "request_latency_ms": latency_ms,
-           "prefill_ms": prefill_ms, "generate_ms": gen_ms, "generate_ms_min": gen_min,
+           "prefill_ms": prefill_ms, "prefill_enqueue_ms": prefill_enqueue_ms,
+           "generate_ms": gen_ms, "generate_ms_min": gen_min,
            "generate_ms_max": gen_max, "decode_ms_per_token": decode_ms,
            "max_memory_allocated": peak_bytes, "native_codec": serialization.native_available(),
            "replies_equal_generate": True}
     log(out)
     log({"phase": "profile", "window": "generate(4 x 1024 prompt, 32 new tokens)", **profile})
+    log({"phase": "prefill_profile", "window": "model.prefill(4 x 1024 prompt)",
+         **prefill_profile})
     return out
 
 
@@ -595,7 +674,7 @@ def main(argv=None) -> None:
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     phase_device()
-    phase_build()
+    sass = phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     kern = phase_kernels(gen)
     phase_model(gen)
@@ -609,6 +688,10 @@ def main(argv=None) -> None:
     times = {"flash_fwd": (case["ms"], case["plain_ms"], case["sdpa_ms"]),
              "flash_bwd_dq": (case["dq_ms"], case["plain_bwd_ms"], case["sdpa_bwd_ms"]),
              "flash_bwd_dkv": (case["dkv_ms"], case["plain_bwd_ms"], case["sdpa_bwd_ms"])}
+    # The instantiation the training shape runs (bf16, D 128, causal).
+    built = {"flash_fwd": "flash_fwd_wgmma_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+             "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
+    instance = {name: f"{kernel}<bf16,128,causal>" for name, kernel in built.items()}
     log({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -624,6 +707,10 @@ def main(argv=None) -> None:
         "bound_by": case["bound_by"][name],
         "library_ms": times[name][2],
         "shape": case["shape"],
+        "kernel": instance[name],
+        "tensor_core_instructions": sum(sass[instance[name]].values()),
+        "tflops": case["tflops"][name],
+        "share_of_bound": case["bound_ms"][name] / times[name][0],
     } for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, which the kernel's wrapper loads with
 ctypes and calls with ``data_ptr()``s and the current stream.  The library
-lands in ``moolib_tpu_torch/_build/``, keyed by a hash of the source and the
-compiler flags, so an edited source rebuilds and an unchanged one is reused.
+lands in ``moolib_tpu_torch/_build/``, keyed by :func:`source_digest`: the
+source, every header under ``csrc/`` and the compiler flags, so an edited
+source or header rebuilds and an unchanged tree is reused.
 No ninja and no PyTorch headers are involved (a source that includes
 PyTorch's headers takes minutes to compile; these take seconds).
 
@@ -54,14 +55,26 @@ def nvcc() -> str:
     return path
 
 
+def source_digest(name: str, csrc: str = _CSRC) -> str:
+    """Key of the library ``name``: a hash of everything that builds it —
+    ``<name>.cu``, every header under ``csrc`` (``*.cuh``, ``*.h``: any of
+    them may be included) and every flag passed to nvcc."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith((".cuh", ".h")))
+    for fname in (f"{name}.cu", *headers):
+        with open(os.path.join(csrc, fname), "rb") as f:
+            data = f.read()
+        digest.update(f"{fname}\0{len(data)}\0".encode())
+        digest.update(data)
+    digest.update("\0".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless a library for this exact source
-    and flags exists; returns the library's path."""
+    """Compile ``csrc/<name>.cu`` unless a library with its
+    :func:`source_digest` exists; returns the library's path."""
     src = os.path.join(_CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read())
-    digest.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name}_{source_digest(name)}.so")
     if os.path.exists(out):
         build_info[name] = {"seconds": 0.0, "log": "", "path": out}
         return out
@@ -83,9 +96,9 @@ def build(name: str) -> str:
     return out
 
 
-def kernel_names() -> List[str]:
-    """Every kernel source under ``csrc/``."""
-    return sorted(f[:-3] for f in os.listdir(_CSRC) if f.endswith(".cu"))
+def kernel_names(csrc: str = _CSRC) -> List[str]:
+    """Every kernel source under ``csrc`` (``*.cu``; headers are not kernels)."""
+    return sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
 
 
 def build_all() -> Dict[str, str]:

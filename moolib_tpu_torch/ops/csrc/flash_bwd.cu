@@ -2,8 +2,9 @@
 //
 // Replaces the two Pallas TPU kernels of moolib_tpu/ops/flash_attention.py
 // launched by `_flash_backward`:
-//   - `_flash_bwd_dq_kernel`  -> flash_bwd_dq_kernel below (the dq pass);
-//   - `_flash_bwd_dkv_kernel` -> flash_bwd_dkv_kernel below (the dk/dv pass).
+//   - `_flash_bwd_dq_kernel` (:249, launched at :399) -> flash_bwd_dq_kernel;
+//   - `_flash_bwd_dkv_kernel` (:296, launched at :417) -> the dk/dv pass,
+//     flash_bwd_dkv_wgmma_kernel in bfloat16, flash_bwd_dkv_kernel in float32.
 // FlashAttention-2 math, scale D**-0.5, per attended (query i, key j) pair:
 //   p    = exp(s - lse_i),  s = q_i . k_j * scale  (masked pairs: p = 0)
 //   dp   = dO_i . v_j
@@ -16,30 +17,56 @@
 // [B, Tq, H] f32; dq in q's dtype, dk/dv in k's.  Any T >= 1: tail tiles are
 // masked.  Tiles wholly above the diagonal are skipped under causal.
 //
-// Design.  Two passes and no atomics, as on the TPU: the dq pass runs one
-// CTA per (batch*head, 64-row query tile) sweeping 32-key K/V tiles; the
-// dk/dv pass runs one CTA per (batch*head, 32-row key tile) sweeping 32-row
-// Q/dO tiles.  Every gradient element then has exactly one writer and a
-// fixed summation order, so results are bitwise reproducible run to run.
-// Tiles are staged through shared memory as f32 (bf16 widened on load, as
-// in flash_fwd.cu), 128 threads per CTA: thread (ty, tx) = (tid / 8, tid % 8)
-// owns R consecutive tile rows (R = 4 in the dq pass, 2 in the dk/dv pass)
-// and the 4 score columns tx + 8*j; its accumulators are the dims
-// 4*tx + 32*c .. +3 of its rows.  The dk/dv pass keeps two f32 accumulators
-// per row, so it takes half the rows per thread to stay near the forward's
-// register count.  Score tiles go to shared memory and are read back only
-// by the warp that wrote them, so a warp barrier orders the two products.
+// Two passes and no atomics, as on the TPU: the dq pass owns a query tile
+// and sweeps K/V, the dk/dv pass owns a K/V tile and sweeps Q/dO.  Every
+// gradient element has one writer and a fixed summation order, so results
+// are bitwise reproducible run to run.
 //
 // What bounds it on the card.  At the training shape (16, 1024, 8, 128) bf16
-// causal the dq pass does 6*D and the dk/dv pass 8*D operations per attended
+// causal the dq pass does 6 D and the dk/dv pass 8 D operations per attended
 // pair against ~5 and ~6 [B, T, H, D] tensors of traffic: both are bound by
-// arithmetic.  These first kernels run their products on the f32 CUDA cores
-// (FMA), not the tensor cores; mma/wgmma, TMA and warp specialisation are
-// later work.
+// the tensor cores' arithmetic (989 TFLOP/s bf16 dense).
+//
+// dk/dv pass in bfloat16: flash_bwd_dkv_wgmma_kernel, on the tensor cores.
+//   - One CTA of one warpgroup (128 threads) per (batch * head, 64-key
+//     tile), two CTAs an SM.  K and V stay in shared memory; 64-query Q and
+//     dO tiles, with their rows of lse and delta, stream through a ring of
+//     two stages filled by cp.async while the warpgroup computes on the
+//     other.  Tiles stay bf16 in the 128-byte swizzled layout of hopper.cuh.
+//     Under causal the first key tiles, which see the most queries, launch
+//     first.
+//   - The TPU kernel's transposed scores: S^T = K Q^T and dP^T = V dO^T
+//     are two wgmma m64n64k16 chains (all operands K-major from shared
+//     memory) into f32 registers.  P^T = exp(S^T - lse) and
+//     dS^T = P^T (dP^T - delta) scale are formed in f32 on that fragment.
+//   - P^T and dS^T are rounded to bf16 (the TPU kernel's casts, :323-335)
+//     and are already the register A operands of dV += P^T dO and
+//     dK += dS^T Q; dO and Q are read MN-major through the descriptor's
+//     transpose bit, one m64n64k16 per 64-column panel.  The two [64, D] f32
+//     accumulators stay in registers for the whole sweep.
+//
+// dq pass (both dtypes), and the dk/dv pass in float32: the CUDA-core design
+// of the first port, unchanged.  A float32 product on the tensor cores would
+// be TF32, too coarse for the float32 tolerances (1e-4).  The dq pass runs
+// one CTA per (batch * head, 64-row query tile) sweeping 32-key K/V tiles;
+// the dk/dv pass one CTA per (batch * head, 32-row key tile) sweeping 32-row
+// Q/dO tiles.  Tiles are staged through shared memory as f32 (bf16 widened
+// on load), 128 threads a CTA: thread (ty, tx) = (tid / 8, tid % 8) owns R
+// consecutive tile rows (4 in the dq pass, 2 in the dk/dv pass) and the 4
+// score columns tx + 8 j; its accumulators are the dims 4 tx + 32 c .. +3
+// of its rows, and score tiles go through shared memory, read back only by
+// the warp that wrote them.  The dq pass's redesign for the tensor cores is
+// still to come.
+//
+// The dtype dispatch is in run(): a bfloat16 dk/dv call reaches only the
+// tensor-core kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -333,6 +360,159 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D, R>(dv, acc_dv, b, h, k0, Tk, H, ty, tx);
 }
 
+// ---- dk/dv pass, bfloat16: tensor cores --------------------------------
+
+constexpr int TC_KEYS = 64;     // keys per CTA
+constexpr int TC_QROWS = 64;    // queries per Q/dO tile
+constexpr int TC_THREADS = 128;  // one warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct DkvTcSmem {  // K, V, then Q and dO of stages 0 and 1, then the row tables
+  static constexpr int TILE = 64 * D * 2;  // one [64, D] bf16 tile
+  static constexpr int ROWS = 2 * TC_QROWS * 4;  // lse and delta of one stage
+  static constexpr int BYTES = 6 * TILE + 2 * ROWS + 1024;  // 1024 B to align
+};
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                           int Tq, int Tk, int H, float scale) {
+  using namespace hopper;
+  using S = DkvTcSmem<D>;
+  constexpr int PANELS = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023) & ~1023u, sV = sK + S::TILE;
+  const uint8_t* rows_base = smem_raw + (sK - raw) + 6 * S::TILE;  // generic pointer
+
+  const int64_t b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int k0 = blockIdx.y * TC_KEYS;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const int key0 = k0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+  const float scale_log2 = scale * LOG2E;
+
+  // Causal: queries before the tile's first key see none of its keys.
+  const int q_begin = CAUSAL ? k0 : 0;
+  const int n_tiles = q_begin < Tq ? (Tq - q_begin + TC_QROWS - 1) / TC_QROWS : 0;
+
+  // Stage `stage` of the ring: Q, dO, and the tile's lse and delta rows.
+  auto load_stage = [&](int stage, int i0) {
+    const uint32_t sQ = sK + (2 + 2 * stage) * S::TILE;
+    hopper::load_tile<TC_QROWS, D, TC_THREADS>(sQ, q, b, h, i0, Tq, H);
+    hopper::load_tile<TC_QROWS, D, TC_THREADS>(sQ + S::TILE, dout, b, h, i0, Tq, H);
+    const int r = tid % TC_QROWS;
+    const bool valid = i0 + r < Tq;
+    const int64_t row = (b * Tq + (valid ? i0 + r : 0)) * H + h;
+    cp_async_4(sK + 6 * S::TILE + stage * S::ROWS + tid * 4, (tid < TC_QROWS ? lse : delta) + row,
+               valid);
+  };
+
+  if (n_tiles > 0) {
+    hopper::load_tile<TC_KEYS, D, TC_THREADS>(sK, k, b, h, k0, Tk, H);
+    hopper::load_tile<TC_KEYS, D, TC_THREADS>(sV, v, b, h, k0, Tk, H);
+    load_stage(0, q_begin);
+    cp_async_commit();
+  }
+
+  float dk_acc[PANELS][32], dv_acc[PANELS][32];
+#pragma unroll
+  for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int i0 = q_begin + j * TC_QROWS;
+    // Stage j & 1 has landed and the warpgroup is done with the other one.
+    cp_async_wait_all();
+    __syncthreads();
+    if (j + 1 < n_tiles) {
+      load_stage((j + 1) & 1, i0 + TC_QROWS);
+      cp_async_commit();
+    }
+    const uint32_t sQ = sK + (2 + 2 * (j & 1)) * S::TILE, sdO = sQ + S::TILE;
+    const float* lse_s = reinterpret_cast<const float*>(rows_base + (j & 1) * S::ROWS);
+    const float* delta_s = lse_s + TC_QROWS;
+
+    // S^T = K Q^T and dP^T = V dO^T: keys key0 / key0 + 8, queries
+    // i0 + 8 (i / 4) + 2 t + i % 2.
+    float st[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(st, desc_k<TC_KEYS>(sK, kk), desc_k<TC_QROWS>(sQ, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dpt, desc_k<TC_KEYS>(sV, kk), desc_k<TC_QROWS>(sdO, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    const bool masked_tile =
+        i0 + TC_QROWS > Tq || k0 + TC_KEYS > Tk || (CAUSAL && i0 < k0 + TC_KEYS - 1);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * (i / 4) + 2 * t + (i & 1);
+      float p = exp2f(fmaf(st[i], scale_log2, -lse_s[c] * LOG2E));
+      if (masked_tile) {
+        // Masked pairs get weight exactly 0.
+        const int qp = i0 + c, kp = key0 + 8 * ((i / 2) & 1);
+        if (qp >= Tq || kp >= Tk || (CAUSAL && qp < kp)) p = 0.f;
+      }
+      dpt[i] = p * (dpt[i] - delta_s[c]) * scale;
+      st[i] = p;
+    }
+    uint32_t pa[TC_QROWS / 16][4], dsa[TC_QROWS / 16][4];  // P^T, dS^T in bf16
+    to_a_operand(st, pa);
+    to_a_operand(dpt, dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      fence_regs(dv_acc[p]);
+      fence_regs(dk_acc[p]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < TC_QROWS / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p) {
+        wgmma_rs_n64_mn(dv_acc[p], pa[kk], desc_mn<TC_QROWS>(sdO, p, kk));
+        wgmma_rs_n64_mn(dk_acc[p], dsa[kk], desc_mn<TC_QROWS>(sQ, p, kk));
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      fence_regs(dv_acc[p]);
+      fence_regs(dk_acc[p]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= Tk) continue;
+    const int64_t base = ((b * Tk + key) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int e = 4 * jj + 2 * r;
+        *reinterpret_cast<uint32_t*>(dk + base + 64 * p + 8 * jj) =
+            pack_bf16(dk_acc[p][e], dk_acc[p][e + 1]);
+        *reinterpret_cast<uint32_t*>(dv + base + 64 * p + 8 * jj) =
+            pack_bf16(dv_acc[p][e], dv_acc[p][e + 1]);
+      }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -357,37 +537,46 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool CAUSAL>
-cudaError_t launch_dkv(const Args& a) {
-  auto kernel = flash_bwd_dkv_kernel<T, D, CAUSAL>;
+template <int D, bool CAUSAL>
+cudaError_t launch_dkv_f32(const Args& a) {
+  auto kernel = flash_bwd_dkv_kernel<float, D, CAUSAL>;
   const int smem = DkvSmem<D>::BYTES;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.B * a.H, (a.Tk + DKV_BK - 1) / DKV_BK);
   kernel<<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.g0),
-      static_cast<T*>(a.g1), a.Tq, a.Tk, a.H, a.scale);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<float*>(a.g0), static_cast<float*>(a.g1), a.Tq, a.Tk, a.H, a.scale);
   return cudaGetLastError();
 }
 
-// Pass: 0 = dq, 1 = dk/dv.
-template <typename T, int D, bool CAUSAL>
-cudaError_t launch_pass(int pass, const Args& a) {
-  return pass == 0 ? launch_dq<T, D, CAUSAL>(a) : launch_dkv<T, D, CAUSAL>(a);
+template <int D, bool CAUSAL>
+cudaError_t launch_dkv_wgmma(const Args& a) {
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D, CAUSAL>;
+  const int smem = DkvTcSmem<D>::BYTES;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  using bf16 = __nv_bfloat16;
+  dim3 grid(a.B * a.H, (a.Tk + TC_KEYS - 1) / TC_KEYS);
+  kernel<<<grid, TC_THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.g0), static_cast<bf16*>(a.g1), a.Tq, a.Tk, a.H, a.scale);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int pass, int D, int causal, const Args& a) {
-  switch (D) {
-    case 64:
-      return causal ? launch_pass<T, 64, true>(pass, a) : launch_pass<T, 64, false>(pass, a);
-    case 128:
-      return causal ? launch_pass<T, 128, true>(pass, a) : launch_pass<T, 128, false>(pass, a);
-    default:
-      return cudaErrorInvalidValue;
-  }
+// Pass 0 = dq, 1 = dk/dv; dtype 0 = float32, 1 = bfloat16.  The dk/dv pass
+// in bfloat16 is the tensor-core kernel, every other pair a CUDA-core one.
+template <int D, bool CAUSAL>
+cudaError_t launch_pass(int pass, int dtype, const Args& a) {
+  if (dtype == 0)
+    return pass == 0 ? launch_dq<float, D, CAUSAL>(a) : launch_dkv_f32<D, CAUSAL>(a);
+  if (dtype == 1)
+    return pass == 0 ? launch_dq<__nv_bfloat16, D, CAUSAL>(a) : launch_dkv_wgmma<D, CAUSAL>(a);
+  return cudaErrorInvalidValue;
 }
 
 int run(int pass, const void* q, const void* k, const void* v, const void* dout,
@@ -396,9 +585,15 @@ int run(int pass, const void* q, const void* k, const void* v, const void* dout,
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), g0, g1, B, Tq, Tk, H, scale,
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch<float>(pass, D, causal, a);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(pass, D, causal, a);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 64:
+      return causal ? launch_pass<64, true>(pass, dtype, a) : launch_pass<64, false>(pass, dtype, a);
+    case 128:
+      return causal ? launch_pass<128, true>(pass, dtype, a)
+                    : launch_pass<128, false>(pass, dtype, a);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -13,7 +13,10 @@ choice is made by the tensors' device alone: a CUDA tensor the kernels
 cannot take raises, it is never rerouted.
 
 Layout [B, T, H, D].  The kernels take any T >= 1 (tail tiles are masked)
-and head dims 64 and 128, in float32 or bfloat16.
+and head dims 64 and 128, in float32 or bfloat16.  In bfloat16 the forward
+and the dk/dv pass run on the tensor cores (wgmma); float32, whose
+tolerances TF32 would break, and the dq pass run on the CUDA cores.  The C
+entry points choose by dtype; nothing here reroutes a failed launch.
 """
 
 from __future__ import annotations

@@ -81,6 +81,77 @@ def test_flash_backward_kernels_match_plain_version(card, T, D, causal, dtype):
         assert err <= BWD_TOL[dtype] * max(1.0, b.abs().max().item()), (name, err)
 
 
+# The bfloat16 tensor-core kernels' tiles: the forward takes 128 query rows
+# against 128-key K/V tiles, the dk/dv pass 64 keys against 64-query tiles.
+# T = 1 and each tile size - 1, + 0, + 1.
+EDGE_T = [1, 63, 64, 65, 127, 128, 129]
+
+
+def _check_forward(card, B, Tq, Tk, H, D, causal, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(B, Tq, H, D, generator=g, device=card).to(dtype)
+    k, v = (torch.randn(B, Tk, H, D, generator=g, device=card).to(dtype) for _ in range(2))
+    out, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
+    p_out, p_lse = fa._blockwise_attention_plain(q.float(), k.float(), v.float(), causal)
+    tol_out, tol_lse = TOL[dtype]
+    assert out.dtype == dtype and out.shape == q.shape and lse.shape == (B, Tq, H)
+    assert (out.float() - p_out).abs().max().item() <= tol_out
+    assert (lse - p_lse).abs().max().item() <= tol_lse
+
+
+def _check_backward(card, B, Tq, Tk, H, D, causal, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, do = (torch.randn(B, Tq, H, D, generator=g, device=card).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, Tk, H, D, generator=g, device=card).to(dtype) for _ in range(2))
+    g_lse = torch.randn(B, Tq, H, generator=g, device=card)
+    out, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
+    got = fa._flash_bwd_cuda(q, k, v, out, lse, do, g_lse, causal)
+    want = fa._flash_backward_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                    do.float(), g_lse, causal)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        err = (a.float() - b).abs().max().item()
+        assert err <= BWD_TOL[dtype] * max(1.0, b.abs().max().item()), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", EDGE_T)
+def test_flash_forward_at_tile_edges(card, T, D, causal, dtype):
+    _check_forward(card, 2, T, T, 3, D, causal, dtype, 11 * T + D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", EDGE_T)
+def test_flash_backward_at_tile_edges(card, T, D, causal, dtype):
+    _check_backward(card, 2, T, T, 3, D, causal, dtype, 13 * T + D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Tq,Tk", [(130, 257), (257, 130)])
+def test_flash_kernels_with_other_key_length(card, Tq, Tk, causal, dtype):
+    _check_forward(card, 2, Tq, Tk, 3, 128, causal, dtype, Tq + Tk)
+    _check_backward(card, 2, Tq, Tk, 3, 128, causal, dtype, Tq + Tk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_long_sequence(card, dtype):
+    _check_forward(card, 1, 4096, 4096, 2, 128, True, dtype, 4096)
+    _check_backward(card, 1, 4096, 4096, 2, 128, True, dtype, 4097)
+
+
+def test_flash_dkv_kernel_is_bitwise_reproducible_at_training_heads(card):
+    q, k, v, out, lse, do, _ = _backward_case(card, 2, 1024, 8, 128, True, torch.bfloat16, 5)
+    ops = fa._bwd_operands(q, k, v, out, lse, do, None)
+    first = fa._flash_bwd_dkv_cuda(*ops, True)
+    second = fa._flash_bwd_dkv_cuda(*ops, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_flash_backward_through_autograd_launches_both_kernels(card):
     q, k, v = (torch.randn(1, 130, 2, 64, device=card, requires_grad=True) for _ in range(3))
     fa.reset_launches()
