@@ -12,7 +12,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    (one nvcc each, all at once); print ptxas's register and spill lines
    and, from `cuobjdump -sass` of each library, every kernel's
    tensor-core instructions (HGMMA, HMMA).  Fails if a bfloat16
-   forward or dk/dv kernel has none, or if a bfloat16 build of their
+   forward, dq or dk/dv kernel has none, or if a bfloat16 build of their
    CUDA-core kernels exists.
 3. kernels — at the serving prefill shape, the training shape and others,
    causal and full, float32 and bfloat16: flash_fwd against its plain
@@ -21,7 +21,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    backward twice, bitwise equal; one lse-cotangent case per shape.  One
    JSON line per case with the errors and CUDA-event times of the kernels,
    the plain versions and torch's scaled_dot_product_attention (timed as a
-   yardstick only; the port never calls it).
+   yardstick only; the port never calls it): its forward, and its backward
+   alone as the median, min and max of 5 timings of 10 calls.
 4. model — small float32 TransformerLMs on the card: flash attention (the
    kernels) against dense attention (plain torch) on the same weights, in
    the forward, the greedy tokens and every parameter gradient; and the
@@ -250,17 +251,18 @@ def sass_report(lib_path: str) -> dict:
 
 
 def check_tensor_cores(sass: dict) -> None:
-    """Every bfloat16 instantiation of the forward and dk/dv kernels runs on
-    the tensor cores: a wgmma kernel for each (D, causal) with HGMMA
-    instructions in it, and no bfloat16 build of their CUDA-core kernels."""
-    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+    """Every bfloat16 instantiation of the three kernels runs on the tensor
+    cores: a wgmma kernel for each (D, causal) with HGMMA instructions in
+    it, and no bfloat16 build of their CUDA-core kernels."""
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                   "flash_bwd_dkv_wgmma_kernel"):
         for d in (64, 128):
             for mode in ("causal", "full"):
                 name = f"{kernel}<bf16,{d},{mode}>"
                 if not sass.get(name, {}).get("HGMMA"):
                     raise AssertionError(f"build: {name} has no HGMMA instruction ({sass.get(name)})")
-    cuda_core = [n for n in sass
-                 if n.startswith(("flash_fwd_kernel<bf16", "flash_bwd_dkv_kernel<bf16"))]
+    cuda_core = [n for n in sass if n.startswith(
+        ("flash_fwd_kernel<bf16", "flash_bwd_dq_kernel<bf16", "flash_bwd_dkv_kernel<bf16"))]
     if cuda_core:
         raise AssertionError(f"build: bf16 CUDA-core kernels were built: {cuda_core}")
 
@@ -284,18 +286,24 @@ def _rel_err(got, want) -> tuple:
     return err, err / max(1.0, want.abs().max().item())
 
 
-def _sdpa_bwd_ms(q, k, v, g, causal: bool) -> float:
-    """SDPA forward+backward minus its forward (the library row)."""
+def _sdpa_bwd_ms(q, k, v, g, causal: bool) -> dict:
+    """SDPA's whole backward (the library row): its forward runs once with
+    the graph kept, then only ``torch.autograd.grad(..., retain_graph=True)``
+    is timed by CUDA events: the median, min and max ms of 5 timings of 10
+    calls each.  Beside them the device time of one call's kernels
+    (torch.profiler), which the host's time to issue the call cannot
+    inflate."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    gt = g.transpose(1, 2)
+    out, gt = sdpa(qt, kt, vt, is_causal=causal), g.transpose(1, 2)
 
-    def fwd_bwd():
-        torch.autograd.grad(sdpa(qt, kt, vt, is_causal=causal), (qt, kt, vt), gt)
+    def bwd():
+        torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
 
-    with torch.no_grad():
-        fwd = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), reps=10)
-    return cuda_ms(fwd_bwd, reps=10) - fwd
+    times = [cuda_ms(bwd, reps=10, warmup=2 if i == 0 else 0) for i in range(5)]
+    return {"sdpa_bwd_ms": float(np.median(times)), "sdpa_bwd_ms_min": min(times),
+            "sdpa_bwd_ms_max": max(times),
+            "sdpa_bwd_device_ms": device_profile(bwd)["device_busy_ms"]}
 
 
 def phase_kernels(gen: torch.Generator) -> dict:
@@ -355,7 +363,6 @@ def phase_kernels(gen: torch.Generator) -> dict:
                 sdpa_ms = cuda_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal), reps=20)
-                sdpa_bwd_ms = _sdpa_bwd_ms(q, k, v, g, causal)
                 bounds = flash_bounds(B, T, H, D, dtype, causal)
                 case = {"case": "flash", "shape": [B, T, H, D], "causal": causal,
                         "dtype": str(dtype).replace("torch.", ""), "err_out": err_out,
@@ -363,7 +370,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
                         "err_dv": errs["dv"], "bitwise_repeat": True, "ms": ms,
                         "plain_ms": plain_ms, "sdpa_ms": sdpa_ms, "dq_ms": dq_ms,
                         "dkv_ms": dkv_ms, "plain_bwd_ms": plain_bwd_ms,
-                        "sdpa_bwd_ms": sdpa_bwd_ms,
+                        **_sdpa_bwd_ms(q, k, v, g, causal),
                         "bound_ms": {n: b[0] for n, b in bounds.items()},
                         "bound_by": {n: b[1] for n, b in bounds.items()},
                         "tflops": {n: bounds[n][2] / t / 1e9 for n, t in
@@ -689,7 +696,7 @@ def main(argv=None) -> None:
              "flash_bwd_dq": (case["dq_ms"], case["plain_bwd_ms"], case["sdpa_bwd_ms"]),
              "flash_bwd_dkv": (case["dkv_ms"], case["plain_bwd_ms"], case["sdpa_bwd_ms"])}
     # The instantiation the training shape runs (bf16, D 128, causal).
-    built = {"flash_fwd": "flash_fwd_wgmma_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+    built = {"flash_fwd": "flash_fwd_wgmma_kernel", "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
              "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
     instance = {name: f"{kernel}<bf16,128,causal>" for name, kernel in built.items()}
     log({"kernels": [{

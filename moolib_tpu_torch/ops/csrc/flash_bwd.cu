@@ -2,7 +2,8 @@
 //
 // Replaces the two Pallas TPU kernels of moolib_tpu/ops/flash_attention.py
 // launched by `_flash_backward`:
-//   - `_flash_bwd_dq_kernel` (:249, launched at :399) -> flash_bwd_dq_kernel;
+//   - `_flash_bwd_dq_kernel` (:249, launched at :399) -> the dq pass,
+//     flash_bwd_dq_wgmma_kernel in bfloat16, flash_bwd_dq_kernel in float32;
 //   - `_flash_bwd_dkv_kernel` (:296, launched at :417) -> the dk/dv pass,
 //     flash_bwd_dkv_wgmma_kernel in bfloat16, flash_bwd_dkv_kernel in float32.
 // FlashAttention-2 math, scale D**-0.5, per attended (query i, key j) pair:
@@ -14,52 +15,64 @@
 // as the JAX package computes it outside Pallas.  Accumulation is f32.
 //
 // Layout: q, dO [B, Tq, H, D]; k, v [B, Tk, H, D] (contiguous); lse, delta
-// [B, Tq, H] f32; dq in q's dtype, dk/dv in k's.  Any T >= 1: tail tiles are
-// masked.  Tiles wholly above the diagonal are skipped under causal.
+// [B, Tq, H] f32; dq in q's dtype, dk/dv in k's.  Any T >= 1: rows at or
+// past T load as zeros and tail tiles are masked.  Causal alignment is at
+// position 0 (q_pos >= k_pos); tiles wholly above the diagonal are skipped.
 //
 // Two passes and no atomics, as on the TPU: the dq pass owns a query tile
 // and sweeps K/V, the dk/dv pass owns a K/V tile and sweeps Q/dO.  Every
 // gradient element has one writer and a fixed summation order, so results
 // are bitwise reproducible run to run.
 //
-// What bounds it on the card.  At the training shape (16, 1024, 8, 128) bf16
-// causal the dq pass does 6 D and the dk/dv pass 8 D operations per attended
-// pair against ~5 and ~6 [B, T, H, D] tensors of traffic: both are bound by
-// the tensor cores' arithmetic (989 TFLOP/s bf16 dense).
+// What bounds it on the card.  Per attended pair the dq pass does 6 D
+// operations (s, dp, dq) and the dk/dv pass 8 D (s, dp, dv, dk), against ~5
+// and ~6 [B, T, H, D] tensors of traffic.  At the training shape
+// (16, 1024, 8, 128) bf16 causal that is 51.6 and 68.8 GFLOP against 169
+// and 202 MB: both passes are bound by the tensor cores' arithmetic
+// (989 TFLOP/s bf16 dense), so all their products run on wgmma.
 //
-// dk/dv pass in bfloat16: flash_bwd_dkv_wgmma_kernel, on the tensor cores.
-//   - One CTA of one warpgroup (128 threads) per (batch * head, 64-key
-//     tile), two CTAs an SM.  K and V stay in shared memory; 64-query Q and
-//     dO tiles, with their rows of lse and delta, stream through a ring of
-//     two stages filled by cp.async while the warpgroup computes on the
-//     other.  Tiles stay bf16 in the 128-byte swizzled layout of hopper.cuh.
-//     Under causal the first key tiles, which see the most queries, launch
-//     first.
-//   - The TPU kernel's transposed scores: S^T = K Q^T and dP^T = V dO^T
-//     are two wgmma m64n64k16 chains (all operands K-major from shared
-//     memory) into f32 registers.  P^T = exp(S^T - lse) and
-//     dS^T = P^T (dP^T - delta) scale are formed in f32 on that fragment.
-//   - P^T and dS^T are rounded to bf16 (the TPU kernel's casts, :323-335)
-//     and are already the register A operands of dV += P^T dO and
-//     dK += dS^T Q; dO and Q are read MN-major through the descriptor's
-//     transpose bit, one m64n64k16 per 64-column panel.  The two [64, D] f32
-//     accumulators stay in registers for the whole sweep.
+// bfloat16: one CTA of one warpgroup (128 threads) per (batch * head,
+// 64-row tile), two CTAs an SM (six [64, D] bf16 tiles, 97 KB at D = 128).
+// The CTA's own tile and its partner stay in shared memory; 64-row tiles of
+// the other side stream through a ring of two stages, filled by cp.async
+// while the warpgroup computes on the other stage.  Tiles stay bf16 in the
+// 128-byte swizzled layout of hopper.cuh.  Both score products are wgmma
+// m64n64k16 chains with every operand K-major from shared memory, into f32
+// registers; p and ds are formed in f32 on that accumulator fragment, and
+// rounded to bf16 they are the register A operands of the gradient
+// products, whose B operand is read MN-major through the descriptor's
+// transpose bit, one m64n64k16 per 64-column panel of D.  Only tiles that
+// cross the diagonal or a ragged end pay for the per-pair mask.
+//   - dq pass, flash_bwd_dq_wgmma_kernel: the CTA owns 64 query rows (Q and
+//     dO stay), K and V stream.  Scores in the natural layout, S = Q K^T
+//     and dP = dO V^T, [queries x keys]: each thread holds two query rows,
+//     so their lse and delta sit in registers for the whole sweep.  dS,
+//     rounded to bf16 where the TPU kernel casts it (:282), is already the
+//     A operand of dq += dS K.  The [64, D] f32 dq accumulator stays in
+//     registers.  Under causal the last query tiles, which see the most
+//     keys, launch first, and the sweep stops at the first key tile wholly
+//     above the tile's diagonal.
+//   - dk/dv pass, flash_bwd_dkv_wgmma_kernel: the CTA owns 64 keys (K and V
+//     stay), Q and dO stream with their rows of lse and delta.  The TPU
+//     kernel's transposed scores, S^T = K Q^T and dP^T = V dO^T, so that
+//     P^T and dS^T (rounded as at :323-335) are the A operands of
+//     dV += P^T dO and dK += dS^T Q; both [64, D] accumulators stay in
+//     registers.  Under causal the first key tiles launch first.
 //
-// dq pass (both dtypes), and the dk/dv pass in float32: the CUDA-core design
-// of the first port, unchanged.  A float32 product on the tensor cores would
-// be TF32, too coarse for the float32 tolerances (1e-4).  The dq pass runs
-// one CTA per (batch * head, 64-row query tile) sweeping 32-key K/V tiles;
-// the dk/dv pass one CTA per (batch * head, 32-row key tile) sweeping 32-row
-// Q/dO tiles.  Tiles are staged through shared memory as f32 (bf16 widened
-// on load), 128 threads a CTA: thread (ty, tx) = (tid / 8, tid % 8) owns R
-// consecutive tile rows (4 in the dq pass, 2 in the dk/dv pass) and the 4
-// score columns tx + 8 j; its accumulators are the dims 4 tx + 32 c .. +3
-// of its rows, and score tiles go through shared memory, read back only by
-// the warp that wrote them.  The dq pass's redesign for the tensor cores is
-// still to come.
+// float32: flash_bwd_dq_kernel and flash_bwd_dkv_kernel, the CUDA-core
+// design of the first port, the only products still off the tensor cores.
+// A float32 product on the tensor cores would be TF32, too coarse for the
+// float32 tolerances (1e-4).  The dq pass runs one CTA per (batch * head,
+// 64-row query tile) sweeping 32-key K/V tiles; the dk/dv pass one CTA per
+// (batch * head, 32-row key tile) sweeping 32-row Q/dO tiles.  Tiles are
+// staged through shared memory as f32, 128 threads a CTA: thread (ty, tx) =
+// (tid / 8, tid % 8) owns R consecutive tile rows (4 in the dq pass, 2 in
+// the dk/dv pass) and the 4 score columns tx + 8 j; its accumulators are
+// the dims 4 tx + 32 c .. +3 of its rows, and score tiles go through shared
+// memory, read back only by the warp that wrote them.
 //
-// The dtype dispatch is in run(): a bfloat16 dk/dv call reaches only the
-// tensor-core kernel.
+// The dtype dispatch is in launch_pass(): a bfloat16 call reaches only the
+// tensor-core kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,6 +82,8 @@
 #include "hopper.cuh"
 
 namespace {
+
+// ---- float32: CUDA cores ------------------------------------------------
 
 constexpr int THREADS = 128;  // 16 row groups x 8 lanes
 constexpr int NCOL = 32;      // score columns per tile: tx + 8*j, j < 4
@@ -83,34 +98,18 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  uint2 raw = *reinterpret_cast<const uint2*>(p);
-  float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-  float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&a);
-  raw.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ float lane(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
-// Stage rows [row0, row0 + ROWS) of one head into smem as f32; rows at or
-// past T are zero-filled.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t b, int h,
+// Stage rows [row0, row0 + ROWS) of one head into smem; rows at or past T
+// are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t b, int h,
                                           int row0, int T_len, int H) {
   constexpr int CHUNKS = D / 4;
   for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
@@ -183,8 +182,8 @@ __device__ __forceinline__ void tile_accum(const float* P, const float* M, int t
   }
 }
 
-template <typename T, int D, int R>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[R][D / 32][4],
+template <int D, int R>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[R][D / 32][4],
                                            int64_t b, int h, int row0, int T_len, int H,
                                            int ty, int tx) {
 #pragma unroll
@@ -226,12 +225,12 @@ struct DkvSmem {  // K, V (DKV_BK rows), Q, dO (NCOL rows), P, dS
       4 * (2 * DKV_BK * Row<D>::ROW + 2 * NCOL * Row<D>::ROW + 2 * DKV_BK * PROW);
 };
 
-template <typename T, int D, bool CAUSAL>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int Tq, int Tk, int H, float scale) {
+                    float* __restrict__ dq, int Tq, int Tk, int H, float scale) {
   constexpr int ROW = Row<D>::ROW;
   constexpr int R = DQ_R;
   extern __shared__ float4 smem4[];
@@ -248,8 +247,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x >> 3;
   const int tx = threadIdx.x & 7;
 
-  load_tile<T, D, DQ_BQ>(Qs, q, b, h, q0, Tq, H);
-  load_tile<T, D, DQ_BQ>(dOs, dout, b, h, q0, Tq, H);
+  load_tile<D, DQ_BQ>(Qs, q, b, h, q0, Tq, H);
+  load_tile<D, DQ_BQ>(dOs, dout, b, h, q0, Tq, H);
   float lse_r[R], delta_r[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -265,8 +264,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = CAUSAL ? min(Tk, q0 + DQ_BQ) : Tk;
   for (int k0 = 0; k0 < kv_end; k0 += NCOL) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, D, NCOL>(Ks, k, b, h, k0, Tk, H);
-    load_tile<T, D, NCOL>(Vs, v, b, h, k0, Tk, H);
+    load_tile<D, NCOL>(Ks, k, b, h, k0, Tk, H);
+    load_tile<D, NCOL>(Vs, v, b, h, k0, Tk, H);
     __syncthreads();
 
     float s[R][4], dp[R][4];
@@ -287,15 +286,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tile_accum<D, R>(Ss, Ks, ty, tx, acc);  // dq += dS K
     __syncwarp();  // dS reads done before the next tile overwrites it
   }
-  store_rows<T, D, R>(dq, acc, b, h, q0, Tq, H, ty, tx);
+  store_rows<D, R>(dq, acc, b, h, q0, Tq, H, ty, tx);
 }
 
-template <typename T, int D, bool CAUSAL>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H,
+                     float* __restrict__ dk, float* __restrict__ dv, int Tq, int Tk, int H,
                      float scale) {
   constexpr int ROW = Row<D>::ROW;
   constexpr int R = DKV_R;
@@ -314,8 +313,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x >> 3;
   const int tx = threadIdx.x & 7;
 
-  load_tile<T, D, DKV_BK>(Ks, k, b, h, k0, Tk, H);
-  load_tile<T, D, DKV_BK>(Vs, v, b, h, k0, Tk, H);
+  load_tile<D, DKV_BK>(Ks, k, b, h, k0, Tk, H);
+  load_tile<D, DKV_BK>(Vs, v, b, h, k0, Tk, H);
   float acc_dk[R][D / 32][4], acc_dv[R][D / 32][4];
   zero<D, R>(acc_dk);
   zero<D, R>(acc_dv);
@@ -324,8 +323,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_begin = CAUSAL ? (k0 / NCOL) * NCOL : 0;
   for (int q0 = q_begin; q0 < Tq; q0 += NCOL) {
     __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile<T, D, NCOL>(Qs, q, b, h, q0, Tq, H);
-    load_tile<T, D, NCOL>(dOs, dout, b, h, q0, Tq, H);
+    load_tile<D, NCOL>(Qs, q, b, h, q0, Tq, H);
+    load_tile<D, NCOL>(dOs, dout, b, h, q0, Tq, H);
     __syncthreads();
 
     float lse_c[4], delta_c[4];
@@ -356,23 +355,156 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tile_accum<D, R>(Ss, Qs, ty, tx, acc_dk);   // dk += dS^T Q
     __syncwarp();
   }
-  store_rows<T, D, R>(dk, acc_dk, b, h, k0, Tk, H, ty, tx);
-  store_rows<T, D, R>(dv, acc_dv, b, h, k0, Tk, H, ty, tx);
+  store_rows<D, R>(dk, acc_dk, b, h, k0, Tk, H, ty, tx);
+  store_rows<D, R>(dv, acc_dv, b, h, k0, Tk, H, ty, tx);
 }
 
-// ---- dk/dv pass, bfloat16: tensor cores --------------------------------
+// ---- bfloat16: tensor cores ---------------------------------------------
 
-constexpr int TC_KEYS = 64;     // keys per CTA
-constexpr int TC_QROWS = 64;    // queries per Q/dO tile
+constexpr int TC_ROWS = 64;      // rows of every tile: a CTA's own, and each ring stage's
 constexpr int TC_THREADS = 128;  // one warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-struct DkvTcSmem {  // K, V, then Q and dO of stages 0 and 1, then the row tables
-  static constexpr int TILE = 64 * D * 2;  // one [64, D] bf16 tile
-  static constexpr int ROWS = 2 * TC_QROWS * 4;  // lse and delta of one stage
-  static constexpr int BYTES = 6 * TILE + 2 * ROWS + 1024;  // 1024 B to align
+struct TcSmem {  // the CTA's two tiles, then the two tiles of stages 0 and 1
+  static constexpr int TILE = TC_ROWS * D * 2;  // one [64, D] bf16 tile
+  static constexpr int ROWS = 2 * TC_ROWS * 4;  // lse and delta of one dk/dv stage
+  static constexpr int DQ_BYTES = 6 * TILE + 1024;  // 1024 B to align
+  static constexpr int DKV_BYTES = 6 * TILE + 2 * ROWS + 1024;
 };
+
+// Store a [64, D] f32 accumulator (PANELS of m64n64 fragments) as bf16
+// rows row0 and row0 + 8 of head h of a [B, T, H, D] tensor, rows at or
+// past T left out.
+template <int PANELS>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[PANELS][32],
+                                          int64_t b, int h, int row0, int T, int H, int t) {
+  constexpr int D = 64 * PANELS;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= T) continue;
+    __nv_bfloat16* dst = out + ((b * T + row) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int e = 4 * jj + 2 * r;
+        *reinterpret_cast<uint32_t*>(dst + 64 * p + 8 * jj) =
+            hopper::pack_bf16(acc[p][e], acc[p][e + 1]);
+      }
+  }
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int Tq, int Tk, int H, float scale) {
+  using namespace hopper;
+  using S = TcSmem<D>;
+  constexpr int PANELS = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u, sdO = sQ + S::TILE;
+
+  const int64_t b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  // Causal: the last query tiles, which see the most keys, launch first.
+  const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * TC_ROWS;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const int row0 = q0 + 16 * warp + g;  // this thread's queries: row0, row0 + 8
+  const float scale_log2 = scale * LOG2E;
+
+  // Causal: keys past the tile's last query row are masked for every row.
+  const int kv_end = CAUSAL ? min(Tk, q0 + TC_ROWS) : Tk;
+  const int n_tiles = (kv_end + TC_ROWS - 1) / TC_ROWS;
+
+  // Stage `stage` of the ring: the K and V tiles from key k0.
+  auto load_stage = [&](int stage, int k0) {
+    const uint32_t sK = sQ + (2 + 2 * stage) * S::TILE;
+    hopper::load_tile<TC_ROWS, D, TC_THREADS>(sK, k, b, h, k0, Tk, H);
+    hopper::load_tile<TC_ROWS, D, TC_THREADS>(sK + S::TILE, v, b, h, k0, Tk, H);
+  };
+  hopper::load_tile<TC_ROWS, D, TC_THREADS>(sQ, q, b, h, q0, Tq, H);
+  hopper::load_tile<TC_ROWS, D, TC_THREADS>(sdO, dout, b, h, q0, Tq, H);
+  load_stage(0, 0);
+  cp_async_commit();
+
+  // lse (in log2 units) and delta of this thread's two rows, for the sweep.
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool valid = row0 + 8 * r < Tq;
+    const int64_t row = (b * Tq + row0 + 8 * r) * H + h;
+    lse2[r] = valid ? lse[row] * LOG2E : 0.f;
+    dlt[r] = valid ? delta[row] : 0.f;
+  }
+  float dq_acc[PANELS][32];
+#pragma unroll
+  for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[p][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * TC_ROWS;
+    // Stage j & 1 has landed and the warpgroup is done with the other one.
+    cp_async_wait_all();
+    __syncthreads();
+    if (j + 1 < n_tiles) {
+      load_stage((j + 1) & 1, k0 + TC_ROWS);
+      cp_async_commit();
+    }
+    const uint32_t sK = sQ + (2 + 2 * (j & 1)) * S::TILE, sV = sK + S::TILE;
+
+    // S = Q K^T and dP = dO V^T: queries row0 / row0 + 8, keys
+    // k0 + 8 (i / 4) + 2 t + i % 2.
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_k<TC_ROWS>(sQ, kk), desc_k<TC_ROWS>(sK, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k<TC_ROWS>(sdO, kk), desc_k<TC_ROWS>(sV, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool masked_tile =
+        q0 + TC_ROWS > Tq || k0 + TC_ROWS > Tk || (CAUSAL && k0 + TC_ROWS - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) & 1;
+      float p = exp2f(fmaf(s[i], scale_log2, -lse2[r]));
+      if (masked_tile) {
+        // Masked pairs get weight exactly 0.
+        const int qp = row0 + 8 * r, kp = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        if (qp >= Tq || kp >= Tk || (CAUSAL && qp < kp)) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - dlt[r]) * scale;  // dS
+    }
+    uint32_t dsa[TC_ROWS / 16][4];  // dS in bf16, the A operand of dq += dS K
+    to_a_operand(dp, dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) fence_regs(dq_acc[p]);
+#pragma unroll
+    for (int kk = 0; kk < TC_ROWS / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p)
+        wgmma_rs_n64_mn(dq_acc[p], dsa[kk], desc_mn<TC_ROWS>(sK, p, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) fence_regs(dq_acc[p]);
+  }
+  store_acc(dq, dq_acc, b, h, row0, Tq, H, t);
+}
 
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(TC_THREADS, 2)
@@ -384,7 +516,7 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                            int Tq, int Tk, int H, float scale) {
   using namespace hopper;
-  using S = DkvTcSmem<D>;
+  using S = TcSmem<D>;
   constexpr int PANELS = D / 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -393,7 +525,7 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int64_t b = blockIdx.x / H;
   const int h = blockIdx.x % H;
-  const int k0 = blockIdx.y * TC_KEYS;
+  const int k0 = blockIdx.y * TC_ROWS;
   const int tid = threadIdx.x;
   const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
   const int key0 = k0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
@@ -401,23 +533,23 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Causal: queries before the tile's first key see none of its keys.
   const int q_begin = CAUSAL ? k0 : 0;
-  const int n_tiles = q_begin < Tq ? (Tq - q_begin + TC_QROWS - 1) / TC_QROWS : 0;
+  const int n_tiles = q_begin < Tq ? (Tq - q_begin + TC_ROWS - 1) / TC_ROWS : 0;
 
   // Stage `stage` of the ring: Q, dO, and the tile's lse and delta rows.
   auto load_stage = [&](int stage, int i0) {
     const uint32_t sQ = sK + (2 + 2 * stage) * S::TILE;
-    hopper::load_tile<TC_QROWS, D, TC_THREADS>(sQ, q, b, h, i0, Tq, H);
-    hopper::load_tile<TC_QROWS, D, TC_THREADS>(sQ + S::TILE, dout, b, h, i0, Tq, H);
-    const int r = tid % TC_QROWS;
+    hopper::load_tile<TC_ROWS, D, TC_THREADS>(sQ, q, b, h, i0, Tq, H);
+    hopper::load_tile<TC_ROWS, D, TC_THREADS>(sQ + S::TILE, dout, b, h, i0, Tq, H);
+    const int r = tid % TC_ROWS;
     const bool valid = i0 + r < Tq;
     const int64_t row = (b * Tq + (valid ? i0 + r : 0)) * H + h;
-    cp_async_4(sK + 6 * S::TILE + stage * S::ROWS + tid * 4, (tid < TC_QROWS ? lse : delta) + row,
+    cp_async_4(sK + 6 * S::TILE + stage * S::ROWS + tid * 4, (tid < TC_ROWS ? lse : delta) + row,
                valid);
   };
 
   if (n_tiles > 0) {
-    hopper::load_tile<TC_KEYS, D, TC_THREADS>(sK, k, b, h, k0, Tk, H);
-    hopper::load_tile<TC_KEYS, D, TC_THREADS>(sV, v, b, h, k0, Tk, H);
+    hopper::load_tile<TC_ROWS, D, TC_THREADS>(sK, k, b, h, k0, Tk, H);
+    hopper::load_tile<TC_ROWS, D, TC_THREADS>(sV, v, b, h, k0, Tk, H);
     load_stage(0, q_begin);
     cp_async_commit();
   }
@@ -429,17 +561,17 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int i0 = q_begin + j * TC_QROWS;
+    const int i0 = q_begin + j * TC_ROWS;
     // Stage j & 1 has landed and the warpgroup is done with the other one.
     cp_async_wait_all();
     __syncthreads();
     if (j + 1 < n_tiles) {
-      load_stage((j + 1) & 1, i0 + TC_QROWS);
+      load_stage((j + 1) & 1, i0 + TC_ROWS);
       cp_async_commit();
     }
     const uint32_t sQ = sK + (2 + 2 * (j & 1)) * S::TILE, sdO = sQ + S::TILE;
     const float* lse_s = reinterpret_cast<const float*>(rows_base + (j & 1) * S::ROWS);
-    const float* delta_s = lse_s + TC_QROWS;
+    const float* delta_s = lse_s + TC_ROWS;
 
     // S^T = K Q^T and dP^T = V dO^T: keys key0 / key0 + 8, queries
     // i0 + 8 (i / 4) + 2 t + i % 2.
@@ -447,17 +579,17 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(st, desc_k<TC_KEYS>(sK, kk), desc_k<TC_QROWS>(sQ, kk), kk > 0);
+      wgmma_ss_n64(st, desc_k<TC_ROWS>(sK, kk), desc_k<TC_ROWS>(sQ, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(dpt, desc_k<TC_KEYS>(sV, kk), desc_k<TC_QROWS>(sdO, kk), kk > 0);
+      wgmma_ss_n64(dpt, desc_k<TC_ROWS>(sV, kk), desc_k<TC_ROWS>(sdO, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(st);
     fence_regs(dpt);
 
     const bool masked_tile =
-        i0 + TC_QROWS > Tq || k0 + TC_KEYS > Tk || (CAUSAL && i0 < k0 + TC_KEYS - 1);
+        i0 + TC_ROWS > Tq || k0 + TC_ROWS > Tk || (CAUSAL && i0 < k0 + TC_ROWS - 1);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int c = 8 * (i / 4) + 2 * t + (i & 1);
@@ -470,7 +602,7 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       dpt[i] = p * (dpt[i] - delta_s[c]) * scale;
       st[i] = p;
     }
-    uint32_t pa[TC_QROWS / 16][4], dsa[TC_QROWS / 16][4];  // P^T, dS^T in bf16
+    uint32_t pa[TC_ROWS / 16][4], dsa[TC_ROWS / 16][4];  // P^T, dS^T in bf16
     to_a_operand(st, pa);
     to_a_operand(dpt, dsa);
     wgmma_fence();
@@ -480,11 +612,11 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       fence_regs(dk_acc[p]);
     }
 #pragma unroll
-    for (int kk = 0; kk < TC_QROWS / 16; ++kk)
+    for (int kk = 0; kk < TC_ROWS / 16; ++kk)
 #pragma unroll
       for (int p = 0; p < PANELS; ++p) {
-        wgmma_rs_n64_mn(dv_acc[p], pa[kk], desc_mn<TC_QROWS>(sdO, p, kk));
-        wgmma_rs_n64_mn(dk_acc[p], dsa[kk], desc_mn<TC_QROWS>(sQ, p, kk));
+        wgmma_rs_n64_mn(dv_acc[p], pa[kk], desc_mn<TC_ROWS>(sdO, p, kk));
+        wgmma_rs_n64_mn(dk_acc[p], dsa[kk], desc_mn<TC_ROWS>(sQ, p, kk));
       }
     wgmma_commit();
     wgmma_wait_all();
@@ -494,24 +626,11 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       fence_regs(dk_acc[p]);
     }
   }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
-    if (key >= Tk) continue;
-    const int64_t base = ((b * Tk + key) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int p = 0; p < PANELS; ++p)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int e = 4 * jj + 2 * r;
-        *reinterpret_cast<uint32_t*>(dk + base + 64 * p + 8 * jj) =
-            pack_bf16(dk_acc[p][e], dk_acc[p][e + 1]);
-        *reinterpret_cast<uint32_t*>(dv + base + 64 * p + 8 * jj) =
-            pack_bf16(dv_acc[p][e], dv_acc[p][e + 1]);
-      }
-  }
+  store_acc(dk, dk_acc, b, h, key0, Tk, H, t);
+  store_acc(dv, dv_acc, b, h, key0, Tk, H, t);
 }
+
+// ---- launch -------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v, *dout;
@@ -522,60 +641,40 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool CAUSAL>
-cudaError_t launch_dq(const Args& a) {
-  auto kernel = flash_bwd_dq_kernel<T, D, CAUSAL>;
-  const int smem = DqSmem<D>::BYTES;
+// Launch `kernel` over (batch * head, tiles of `rows` along a length of
+// `len`) with `smem` bytes of dynamic shared memory, on the caller's stream;
+// `args` are cast to the kernel's parameter types.  Returns the launch's
+// error.
+template <typename... P, typename... A>
+cudaError_t launch(void (*kernel)(P...), const Args& a, int len, int rows, int threads,
+                   int smem, A... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.H, (a.Tq + DQ_BQ - 1) / DQ_BQ);
-  kernel<<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.g0), a.Tq, a.Tk,
-      a.H, a.scale);
+  dim3 grid(a.B * a.H, (len + rows - 1) / rows);
+  kernel<<<grid, threads, smem, a.stream>>>(static_cast<P>(args)...);
   return cudaGetLastError();
 }
 
-template <int D, bool CAUSAL>
-cudaError_t launch_dkv_f32(const Args& a) {
-  auto kernel = flash_bwd_dkv_kernel<float, D, CAUSAL>;
-  const int smem = DkvSmem<D>::BYTES;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.H, (a.Tk + DKV_BK - 1) / DKV_BK);
-  kernel<<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-      static_cast<float*>(a.g0), static_cast<float*>(a.g1), a.Tq, a.Tk, a.H, a.scale);
-  return cudaGetLastError();
-}
-
-template <int D, bool CAUSAL>
-cudaError_t launch_dkv_wgmma(const Args& a) {
-  auto kernel = flash_bwd_dkv_wgmma_kernel<D, CAUSAL>;
-  const int smem = DkvTcSmem<D>::BYTES;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  using bf16 = __nv_bfloat16;
-  dim3 grid(a.B * a.H, (a.Tk + TC_KEYS - 1) / TC_KEYS);
-  kernel<<<grid, TC_THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-      static_cast<bf16*>(a.g0), static_cast<bf16*>(a.g1), a.Tq, a.Tk, a.H, a.scale);
-  return cudaGetLastError();
-}
-
-// Pass 0 = dq, 1 = dk/dv; dtype 0 = float32, 1 = bfloat16.  The dk/dv pass
-// in bfloat16 is the tensor-core kernel, every other pair a CUDA-core one.
+// Pass 0 = dq, 1 = dk/dv; dtype 0 = float32 (CUDA cores), 1 = bfloat16
+// (tensor cores).
 template <int D, bool CAUSAL>
 cudaError_t launch_pass(int pass, int dtype, const Args& a) {
-  if (dtype == 0)
-    return pass == 0 ? launch_dq<float, D, CAUSAL>(a) : launch_dkv_f32<D, CAUSAL>(a);
-  if (dtype == 1)
-    return pass == 0 ? launch_dq<__nv_bfloat16, D, CAUSAL>(a) : launch_dkv_wgmma<D, CAUSAL>(a);
+  using S = TcSmem<D>;
+  if (dtype == 0 && pass == 0)
+    return launch(flash_bwd_dq_kernel<D, CAUSAL>, a, a.Tq, DQ_BQ, THREADS, DqSmem<D>::BYTES,
+                  a.q, a.k, a.v, a.dout, a.lse, a.delta, a.g0, a.Tq, a.Tk, a.H, a.scale);
+  if (dtype == 0 && pass == 1)
+    return launch(flash_bwd_dkv_kernel<D, CAUSAL>, a, a.Tk, DKV_BK, THREADS, DkvSmem<D>::BYTES,
+                  a.q, a.k, a.v, a.dout, a.lse, a.delta, a.g0, a.g1, a.Tq, a.Tk, a.H, a.scale);
+  if (dtype == 1 && pass == 0)
+    return launch(flash_bwd_dq_wgmma_kernel<D, CAUSAL>, a, a.Tq, TC_ROWS, TC_THREADS,
+                  S::DQ_BYTES, a.q, a.k, a.v, a.dout, a.lse, a.delta, a.g0, a.Tq, a.Tk, a.H,
+                  a.scale);
+  if (dtype == 1 && pass == 1)
+    return launch(flash_bwd_dkv_wgmma_kernel<D, CAUSAL>, a, a.Tk, TC_ROWS, TC_THREADS,
+                  S::DKV_BYTES, a.q, a.k, a.v, a.dout, a.lse, a.delta, a.g0, a.g1, a.Tq, a.Tk,
+                  a.H, a.scale);
   return cudaErrorInvalidValue;
 }
 

@@ -82,8 +82,9 @@ def test_flash_backward_kernels_match_plain_version(card, T, D, causal, dtype):
 
 
 # The bfloat16 tensor-core kernels' tiles: the forward takes 128 query rows
-# against 128-key K/V tiles, the dk/dv pass 64 keys against 64-query tiles.
-# T = 1 and each tile size - 1, + 0, + 1.
+# against 128-key K/V tiles, the dq pass 64 query rows against 64-key
+# tiles, the dk/dv pass 64 keys against 64-query tiles.  T = 1 and each
+# tile size - 1, + 0, + 1.
 EDGE_T = [1, 63, 64, 65, 127, 128, 129]
 
 
@@ -144,11 +145,20 @@ def test_flash_kernels_at_long_sequence(card, dtype):
     _check_backward(card, 1, 4096, 4096, 2, 128, True, dtype, 4097)
 
 
-def test_flash_dkv_kernel_is_bitwise_reproducible_at_training_heads(card):
+def test_flash_dq_kernel_stops_early_on_ragged_tiles(card):
+    # Causal with Tq = 65 < Tk = 1000: the dq sweep stops after 2 of 16 key
+    # tiles, the second query tile holds one row and the last key tile 40.
+    _check_backward(card, 2, 65, 1000, 3, 64, True, torch.bfloat16, 65)
+
+
+@pytest.mark.parametrize("pass_", ["dq", "dkv"])
+def test_flash_bwd_kernel_is_bitwise_reproducible_at_training_heads(card, pass_):
     q, k, v, out, lse, do, _ = _backward_case(card, 2, 1024, 8, 128, True, torch.bfloat16, 5)
     ops = fa._bwd_operands(q, k, v, out, lse, do, None)
-    first = fa._flash_bwd_dkv_cuda(*ops, True)
-    second = fa._flash_bwd_dkv_cuda(*ops, True)
+    run = getattr(fa, f"_flash_bwd_{pass_}_cuda")
+    first, second = run(*ops, True), run(*ops, True)
+    if pass_ == "dq":
+        first, second = (first,), (second,)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
