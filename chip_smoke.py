@@ -1,11 +1,14 @@
 """Drive the PyTorch port on one CUDA card: build its kernels, hold each
 against its plain version, train the d=1024/L=12 TransformerLM through
-examples.lm.train(), run the lm_bench step, then serve the same widths over
-loopback Rpc and check the replies.
+examples.lm.train(), run the lm_bench step, serve the same widths over
+loopback Rpc and check the replies, then run the IMPALA learner at the
+reference Atari shape, fed once by EnvPool workers through the Batcher.
 
     python3 chip_smoke.py [--seed N]
 
-Phases (any failure exits non-zero, and no result line is printed):
+Before anything touches CUDA, an EnvPool of SyntheticAtariEnv (4 worker
+processes, 32 envs, 2 batches) is forked for phase 9.  Phases (any failure
+exits non-zero, and no result line is printed):
 
 1. device — require CUDA; print the card's name and power limit.
 2. build — compile every kernel source under moolib_tpu_torch/ops/csrc
@@ -43,6 +46,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    batch, and the prefill must have launched flash_fwd once per layer.
    Prefill and generate() times, the host's time to enqueue one prefill,
    and a torch.profiler window of each.
+8. impala_parity — ImpalaNet (feed-forward and LSTM, 84x84x4, f32 and
+   bf16) and ActorCriticNet (LSTM, f32) on the card against the same model
+   on the CPU, same weights and inputs: logits and baselines, then one
+   step of examples.vtrace.experiment's compute_loss, backward and its
+   clip + rmsprop update: the loss and every updated parameter, each
+   within 1e-4 (f32) or 2e-2 (bf16) of max(1, max|CPU value|).
+9. impala_learner — the slice: moolib_tpu_torch.bench's learner step
+   (ImpalaNet (16, 32, 32) bf16, V-trace loss, backward, RMSProp) at
+   T=20, B=32, 84x84x4, 6 actions, 200 steps: step times, frames/s,
+   analytic TFLOP/s and MFU, peak memory, a torch.profiler window of 5
+   steps (idle share, launches and device busy time per step, top device
+   ops) and the host's time to issue one step.  Then the data
+   path: actor forwards (T=1) and sampling on the card, actions back to the
+   EnvPool through its CUDA-tensor seam, 21-step unrolls through
+   Batcher(device="cuda") into 10 learner steps; each learner batch's
+   frames must equal the shared-memory frames they came from.
 
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
@@ -53,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import functools
 import json
 import os
 import re
@@ -65,8 +85,15 @@ import time
 import numpy as np
 import torch
 
+from moolib_tpu_torch import bench, telemetry
+from moolib_tpu_torch.batcher import Batcher
+from moolib_tpu_torch.envpool import EnvPool
+from moolib_tpu_torch.envs import SyntheticAtariEnv
 from moolib_tpu_torch.examples import lm
 from moolib_tpu_torch.examples.lm_serve import serve
+from moolib_tpu_torch.examples.vtrace import experiment
+from moolib_tpu_torch.models.actor_critic import ActorCriticNet
+from moolib_tpu_torch.models.impala import ImpalaNet
 from moolib_tpu_torch.models.transformer import TransformerLM, generate
 from moolib_tpu_torch.ops import _build
 from moolib_tpu_torch.ops import flash_attention as fa
@@ -87,6 +114,10 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # backward, x max(1, max|
 TRAIN_STEPS = 20
 # The repo's LM at lm_bench's widths (benchmarks/lm_bench.py:54-57,109-114).
 LM_WIDTHS = ["--vocab", "32768", "--d_model", "1024", "--layers", "12", "--heads", "8"]
+# impala_parity: card against CPU, error over max(1, max|CPU value|).
+PARITY_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# impala_learner's data path: the actor fleet of one learner.
+POOL = dict(num_processes=4, batch_size=32, num_batches=2)
 
 
 def log(obj) -> None:
@@ -676,18 +707,229 @@ def phase_slice(seed: int) -> dict:
     return out
 
 
+def _rl_batch(T1: int, B: int, obs, num_actions: int, seed: int, frames: bool) -> dict:
+    rng = np.random.default_rng(seed)
+    done = rng.random((T1, B)) < 0.2
+    done[0, 0] = True
+    return {
+        "state": (rng.integers(0, 256, (T1, B, *obs), dtype=np.uint8) if frames
+                  else rng.normal(size=(T1, B, *obs)).astype(np.float32)),
+        "reward": rng.normal(size=(T1, B)).astype(np.float32),
+        "done": done,
+        "prev_action": rng.integers(0, num_actions, (T1, B)),
+        "action": rng.integers(0, num_actions, (T1, B)),
+        "policy_logits": rng.normal(size=(T1, B, num_actions)).astype(np.float32),
+    }
+
+
+def _parity_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |card - CPU| over max(1, max |CPU|)."""
+    want = want.detach().float()
+    err = (got.detach().cpu().float() - want).abs().max().item()
+    return err / max(1.0, want.abs().max().item())
+
+
+def _learner_run(model, device, batch: dict, state: tuple, flags) -> dict:
+    """Forward, then one compute_loss + backward + clip/rmsprop step."""
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    state = tuple(torch.from_numpy(x).to(device) for x in state)
+    with torch.no_grad():
+        outputs, _ = model(batch, state)
+    opt = experiment.make_optimizer(model.parameters(), flags)
+    loss, _ = experiment.compute_loss(batch, state, model, flags)
+    loss.backward()
+    opt.step()
+    return {**outputs, "loss": loss.detach()}
+
+
+def phase_impala_parity(seed: int, device="cuda", obs=(84, 84, 4), T1: int = 5,
+                        B: int = 4) -> dict:
+    """The RL models and one learner step on the card against the CPU."""
+    flags = experiment.make_flags([])  # lr 1e-3, clip 40, the JAX example's costs
+    A = 6
+    cases = {
+        "impala_ff": (functools.partial(ImpalaNet, A, obs, use_lstm=False,
+                                        dtype=torch.float32), obs),
+        "impala_lstm": (functools.partial(ImpalaNet, A, obs, use_lstm=True,
+                                          dtype=torch.float32), obs),
+        "actor_critic_lstm": (functools.partial(ActorCriticNet, A, obs_size=8, use_lstm=True),
+                              (8,)),
+        "impala_ff_bf16": (functools.partial(ImpalaNet, A, obs, use_lstm=False,
+                                             dtype=torch.bfloat16), obs),
+    }
+    out = {}
+    for i, (name, (make, shape)) in enumerate(cases.items()):
+        host = make(device="cpu", generator=torch.Generator().manual_seed(seed + i))
+        card = make(device=device)
+        card.load_state_dict(host.state_dict())
+        batch = _rl_batch(T1, B, shape, A, seed + i, frames=len(shape) == 3)
+        rng = np.random.default_rng(seed + 100 + i)
+        state = tuple(rng.normal(size=(B, host.core.hidden)).astype(np.float32)
+                      for _ in range(2)) if host.use_lstm else ()
+        want = _learner_run(host, "cpu", batch, state, flags)
+        got = _learner_run(card, device, batch, state, flags)
+        errs = {k: _parity_err(got[k], want[k]) for k in ("policy_logits", "baseline", "loss")}
+        params = dict(host.named_parameters())
+        errs["updated_params"] = max(_parity_err(p, params[n])
+                                     for n, p in card.named_parameters())
+        tol = PARITY_TOL[host.dtype]
+        if not max(errs.values()) <= tol:
+            raise AssertionError(f"impala_parity {name}: errors {errs} (tol {tol})")
+        out[name] = {"errors": errs, "tol": tol, "loss": want["loss"].item()}
+    res = {"phase": "impala_parity", "obs": list(obs), "T+1": T1, "B": B,
+           "step": "compute_loss + backward + clip_by_global_norm(40) + rmsprop(1e-3, 0.99, "
+           "0.01)", "cases": out}
+    log(res)
+    return res
+
+
+def max_pool_bytes(obs, channels, frames: int, itemsize: int = 2) -> int:
+    """Least bytes the encoder's three SAME max-pools move in one learner
+    step: forward reads each input and writes each output once; backward
+    reads the output gradient and the input and writes the input
+    gradient."""
+    h, w, _ = obs
+    total = 0
+    for ch in channels:
+        n_in, h, w = frames * h * w * ch, -(-h // 2), -(-w // 2)
+        n_out = frames * h * w * ch
+        total += (n_in + n_out) + (n_out + 2 * n_in)
+    return total * itemsize
+
+
+def _learner_bench(device, obs, T: int, B: int, steps: int, profile_steps: int) -> dict:
+    """bench.py's learner step at [T+1, B]: times, rates, memory, profile."""
+    dev = torch.device(device)
+    step, _, _, _ = bench.build_step(dev, T, B, obs=obs)
+    _, warm = bench.step_times_ms(step, 10, dev)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = bench.step_times_ms(step, steps, dev)
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(lambda: [step() for _ in range(profile_steps)], top=15)
+    issue_ms = enqueue_ms(step, reps=10)
+    losses = [float(x) for x in warm + losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"impala_learner: non-finite losses {losses}")
+    median = float(np.median(times))
+    flops = 3.0 * bench.analytic_forward_flops(bench.REF_CHANNELS, obs, T + 1, B)
+    res = {"phase": "impala_learner", "model": "ImpalaNet (16, 32, 32) bf16, no LSTM, "
+           "V-trace loss, rmsprop(1e-3, 0.99, 0.01)", "obs": list(obs), "T": T, "B": B,
+           "metric": bench.metric_name(T, B, bench.REF_CHANNELS), "steps": steps,
+           "step_ms_median": median, "step_ms_min": min(times), "step_ms_max": max(times),
+           "frames_per_s": T * B / (median / 1e3), "model_tflop_per_step": flops / 1e12,
+           "tflops": flops / (median / 1e3) / 1e12,
+           "mfu": flops / (median / 1e3) / bench.PEAK_BF16_FLOPS,
+           "max_memory_allocated": peak, "first_loss": losses[0], "last_loss": losses[-1],
+           "launches_per_step": prof["kernel_launches"] / profile_steps,
+           "idle_share": prof["idle_share"],
+           # Host-bound where the host's time to issue a step exceeds the
+           # device's busy time in one.
+           "host_issue_ms_per_step": issue_ms,
+           "device_busy_ms_per_step": prof["device_busy_ms"] / profile_steps,
+           "max_pool_bound_ms_per_step": max_pool_bytes(obs, bench.REF_CHANNELS, (T + 1) * B)
+           / PEAK_BYTES_PER_S * 1e3}
+    log(res)
+    log({"phase": "impala_learner_profile", "window": f"{profile_steps} learner steps", **prof})
+    return res
+
+
+def _data_path(pool: EnvPool, device, seed: int, T: int, learn_steps: int) -> dict:
+    """Actors on the card step the pool; their unrolls go through the
+    Batcher into learner steps."""
+    dev = torch.device(device)
+    obs = pool.obs_spec["state"][0]
+    model, opt = bench.build_learner(dev, obs=obs, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nb, envs = pool.num_batches, pool.batch_size
+    batchers = [Batcher(T + 1, device=dev, host=True, name=f"learn{b}") for b in range(nb)]
+    frames = [[] for _ in range(nb)]
+    prev = [torch.zeros(envs, dtype=torch.int64, device=dev) for _ in range(nb)]
+    futs = [pool.step(b, np.zeros(envs, np.int64)) for b in range(nb)]
+    act_ms, learner_events, losses, env_steps = [], [], [], 0
+    h2d = telemetry.get_registry().counter_values().get("batcher_h2d_bytes_total", 0.0)
+    t0 = time.perf_counter()
+    while len(losses) < learn_steps:
+        for b in range(nb):
+            env_out = futs[b].result()
+            ta = time.perf_counter()
+            # Copied before the next step() lets the workers overwrite them.
+            host = {k: v.copy() for k, v in env_out.items()}
+            inputs = {k: torch.from_numpy(v).to(dev)[None] for k, v in host.items()}
+            inputs["prev_action"] = prev[b][None]
+            with torch.no_grad():
+                out, _ = model(inputs, (), sample_generator=gen)
+            action = out["action"][0]
+            futs[b] = pool.step(b, action)  # the CUDA-tensor seam
+            act_ms.append((time.perf_counter() - ta) * 1e3)
+            env_steps += envs
+            batchers[b].stack({**host, "prev_action": prev[b], "action": action,
+                               "policy_logits": out["policy_logits"][0]})
+            frames[b].append(host["state"])
+            prev[b] = action
+            if batchers[b].empty() or len(losses) == learn_steps:
+                continue
+            batch = batchers[b].get()
+            if batch["state"].device.type != dev.type:
+                raise AssertionError(f"impala_learner: the learner batch is on "
+                                     f"{batch['state'].device}, not {dev}")
+            if not torch.equal(batch["state"].cpu(), torch.from_numpy(np.stack(frames[b]))):
+                raise AssertionError("impala_learner: the learner batch's frames are not "
+                                     "the shared-memory frames of its unroll")
+            frames[b] = []
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            losses.append(bench.learner_step(model, opt, batch))
+            end.record()
+            learner_events.append((start, end))
+    for f in futs:
+        f.result()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"impala_learner data path: non-finite losses {losses}")
+    seam = all(p is not None for p in pool._stepper._pinned)
+    if dev.type == "cuda" and not seam:
+        raise AssertionError("impala_learner: actions did not pass the CUDA-tensor seam")
+    res = {"phase": "impala_learner_data_path",
+           "pool": {"num_processes": pool._num_processes, "batch_size": envs,
+                    "num_batches": nb},
+           "obs": list(obs), "unroll": T + 1, "learner_steps": len(losses),
+           "env_steps": env_steps, "wall_s": wall_s, "env_steps_per_s": env_steps / wall_s,
+           "act_ms_median": float(np.median(act_ms)),
+           "learner_ms_median": float(np.median([a.elapsed_time(b)
+                                                 for a, b in learner_events])),
+           "losses": losses, "frames_equal_shm": True, "cuda_action_seam": seam,
+           "batcher_h2d_bytes": telemetry.get_registry().counter_values().get(
+               "batcher_h2d_bytes_total", 0.0) - h2d}
+    log(res)
+    return res
+
+
+def phase_impala_learner(pool: EnvPool, seed: int, device="cuda", obs=(84, 84, 4),
+                         T: int = 20, B: int = 32, steps: int = 200, profile_steps: int = 5,
+                         learn_steps: int = 10) -> dict:
+    # The slice's path: counts start at 0 here and are read right after.
+    fa.reset_launches()
+    res = _learner_bench(device, obs, T, B, steps, profile_steps)
+    res["data_path"] = _data_path(pool, device, seed, T, learn_steps)
+    res["flash_launches"] = _counts()
+    return res
+
+
+def make_pool() -> EnvPool:
+    """The data path's EnvPool, forked before the first CUDA call."""
+    return EnvPool(SyntheticAtariEnv, **POOL)
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    phase_device()
-    sass = phase_build()
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    kern = phase_kernels(gen)
-    phase_model(gen)
-    train = phase_train(args.seed)
-    phase_lm_bench(args.seed)
-    sl = phase_slice(args.seed)
+    pool = make_pool()
+    try:
+        kern, sass, train, sl, rl = _phases(pool, args.seed)
+    finally:
+        pool.close()
     case = kern["train"]
     replaces = {"flash_fwd": "moolib_tpu/ops/flash_attention.py:54",
                 "flash_bwd_dq": "moolib_tpu/ops/flash_attention.py:249",
@@ -706,7 +948,8 @@ def main(argv=None) -> None:
         "replaces": replaces[name],
         "launches": train["launches"][name],
         "launches_by_path": {"train": train["launches"][name],
-                             "serve": sl["flash_fwd_launches"] if name == "flash_fwd" else 0},
+                             "serve": sl["flash_fwd_launches"] if name == "flash_fwd" else 0,
+                             "impala_learner": rl["flash_launches"][name]},
         "max_abs_err": kern["worst"][name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
@@ -721,6 +964,20 @@ def main(argv=None) -> None:
     } for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
+
+
+def _phases(pool: EnvPool, seed: int) -> tuple:
+    phase_device()
+    sass = phase_build()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kern = phase_kernels(gen)
+    phase_model(gen)
+    train = phase_train(seed)
+    phase_lm_bench(seed)
+    sl = phase_slice(seed)
+    phase_impala_parity(seed)
+    rl = phase_impala_learner(pool, seed)
+    return kern, sass, train, sl, rl
 
 
 if __name__ == "__main__":

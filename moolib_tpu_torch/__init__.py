@@ -2,12 +2,26 @@
 
 A second package beside the JAX one, with the same module paths and names
 so each piece can be found next to its counterpart.  It imports ``torch``
-and never ``jax`` or anything from ``moolib_tpu``.  This slice carries the
-RPC plane (serialization, native codec and transport, ``Rpc``), the
-TransformerLM with its hand-written flash-attention prefill kernel, and the
-dynamic-batching LM server (``examples.lm_serve``).
+and never ``jax`` or anything from ``moolib_tpu``.  What it has so far:
 
-Entry points run on CUDA unless the caller passes ``device="cpu"``.
+- the RPC plane: serialization, the native codec and transport, ``Rpc``;
+- the TransformerLM (``models.transformer``) with the hand-written
+  flash-attention kernels (``ops.flash_attention``: forward, dq and dk/dv
+  passes for Hopper), ``ops.xent``, LM training (``examples.lm``) and the
+  dynamic-batching LM server (``examples.lm_serve``);
+- the IMPALA/A2C learner and its data plane: the numpy envs (``envs``),
+  ``envpool.EnvPool`` with its shared-memory doorbells (``native``),
+  ``batcher.Batcher``, ``models.impala.ImpalaNet``,
+  ``models.actor_critic.ActorCriticNet``, ``ops.vtrace`` and
+  ``ops.returns``, the optax-form optimizers (``examples.common``), the
+  losses of ``examples.vtrace.experiment`` and ``examples.a2c``, and
+  ``bench``, the learner-step benchmark;
+- telemetry (metrics, tracing, exporters, recovery phases), ``watchdog``
+  and ``utils``.
+
+The cohort plane (Broker, Group, Accumulator) and the training loops that
+need it come next (ROADMAP Queue 1).  Entry points run on CUDA unless the
+caller passes ``device="cpu"``.
 """
 
 from . import telemetry  # noqa: F401  (stdlib-only; rpc/core depends on it)

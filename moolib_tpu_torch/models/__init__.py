@@ -1,1 +1,2 @@
-"""Models of the port: the TransformerLM and its flax weight converter."""
+"""Models of the port: the TransformerLM, the IMPALA ResNet and the
+recurrent actor-critic, and their flax weight converters."""

@@ -8,18 +8,22 @@ the port compiles its own copies with g++ into ``~/.cache/moolib_tpu_torch``
   out-of-band zero-copy arrays, pickle fallback).  The port's dlopen'd copy
   fills the codec's accelerator-array slot with ``torch.Tensor``.
 - ``libmoolib_net`` (``native/transport.cc``, bound in :mod:`.transport`).
+- ``libmoolib_shmq`` (``native/shmq.cc``): futex semaphores + SPSC rings in
+  shared memory (ctypes), EnvPool's doorbells.
 
-Both are accelerators of the host plane: without a compiler the pure-python
+All are accelerators of the host plane: without a compiler the pure-python
 paths are used and everything still works.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import importlib.util
 import os
 import subprocess
 import sysconfig
+from typing import Optional
 
 from .. import utils
 
@@ -117,3 +121,128 @@ def _register_torch(codec_mod) -> None:
         return x if x.flags.owndata else x.copy()
 
     codec_mod.register_jax(torch.Tensor, to_numpy, from_numpy)
+
+
+def _load_shmq():
+    src = os.path.join(_SRC_DIR, "shmq.cc")
+    if not os.path.exists(src):
+        return None
+    out = os.path.join(_cache_dir(), f"libmoolib_shmq_{_source_hash(src)}.so")
+    if not os.path.exists(out):
+        tmp = f"{out}.{os.getpid()}.tmp"
+        if not _build(src, tmp):
+            return None
+        os.replace(tmp, out)
+    try:
+        lib = ctypes.CDLL(out)
+    except OSError as e:
+        utils.log_error("native shmq load failed: %s", e)
+        return None
+    lib.moolib_sem_size.restype = ctypes.c_size_t
+    lib.moolib_sem_init.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.moolib_sem_post.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.moolib_sem_wait.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.moolib_sem_wait.restype = ctypes.c_int
+    lib.moolib_sem_value.argtypes = [ctypes.c_void_p]
+    lib.moolib_sem_value.restype = ctypes.c_int32
+    lib.moolib_ring_size.argtypes = [ctypes.c_uint32]
+    lib.moolib_ring_size.restype = ctypes.c_size_t
+    lib.moolib_ring_init.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
+    lib.moolib_ring_push.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64]
+    lib.moolib_ring_push.restype = ctypes.c_int
+    lib.moolib_ring_pop.argtypes = [
+        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+    ]
+    lib.moolib_ring_pop.restype = ctypes.c_int
+    return lib
+
+
+_shmq = None
+_shmq_tried = False
+
+
+def get_shmq():
+    """The native shm/futex library, or None (fallback to multiprocessing)."""
+    global _shmq, _shmq_tried
+    if not _shmq_tried:
+        _shmq_tried = True
+        if os.environ.get("MOOLIB_TPU_NO_NATIVE") == "1":
+            return None
+        _shmq = _load_shmq()
+    return _shmq
+
+
+def _remaining_ms(deadline: Optional[float]) -> int:
+    """Milliseconds left before ``deadline`` (monotonic), -1 for none."""
+    import time as _time
+
+    return -1 if deadline is None else max(0, int((deadline - _time.monotonic()) * 1000))
+
+
+def _deadline(timeout: Optional[float]) -> Optional[float]:
+    import time as _time
+
+    return None if timeout is None else _time.monotonic() + timeout
+
+
+class NativeSemaphore:
+    """Counting semaphore placed in caller-provided shared memory."""
+
+    def __init__(self, lib, addr: int, initialize: bool = True, initial: int = 0):
+        self._lib = lib
+        self._addr = addr
+        if initialize:
+            lib.moolib_sem_init(addr, initial)
+
+    @staticmethod
+    def size(lib) -> int:
+        return lib.moolib_sem_size()
+
+    def release(self, n: int = 1) -> None:
+        self._lib.moolib_sem_post(self._addr, n)
+
+    def acquire(self, timeout: Optional[float] = None) -> bool:
+        # The C call returns -2 on EINTR so control comes back to python and
+        # pending signal handlers (KeyboardInterrupt) run between retries.
+        deadline = _deadline(timeout)
+        while True:
+            rc = self._lib.moolib_sem_wait(self._addr, _remaining_ms(deadline))
+            if rc == 0:
+                return True
+            if rc == -1:
+                return False
+
+
+class NativeRing:
+    """SPSC int32 ring queue in caller-provided shared memory."""
+
+    def __init__(self, lib, addr: int, capacity: int, initialize: bool = True):
+        self._lib = lib
+        self._addr = addr
+        if initialize:
+            lib.moolib_ring_init(addr, capacity)
+
+    @staticmethod
+    def size(lib, capacity: int) -> int:
+        return lib.moolib_ring_size(capacity)
+
+    def push(self, value: int, timeout: Optional[float] = None) -> bool:
+        deadline = _deadline(timeout)
+        while True:
+            rc = self._lib.moolib_ring_push(self._addr, value, _remaining_ms(deadline))
+            if rc == 0:
+                return True
+            if rc == -1:
+                return False
+
+    def pop(self, timeout: Optional[float] = None) -> Optional[int]:
+        out = ctypes.c_int32()
+        deadline = _deadline(timeout)
+        while True:
+            rc = self._lib.moolib_ring_pop(self._addr, ctypes.byref(out), _remaining_ms(deadline))
+            if rc == 0:
+                return out.value
+            if rc == -1:
+                return None

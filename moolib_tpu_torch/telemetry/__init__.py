@@ -3,7 +3,9 @@
 The slim counterpart of the JAX package's ``telemetry`` package: the metric
 registry, the host span tracer (with the distributed trace context the RPC
 layer carries on every call frame) and the opt-in exporters.  The device
-monitor, profiling, timeline and cohort planes come with later slices.
+monitor, profiling, timeline and cohort planes come with later slices;
+``recovery`` (the ``recovery_seconds{phase}`` family) came with EnvPool's
+worker supervision.
 
 Environment knobs (read by :func:`init_from_env`, which entry points call
 once; everything defaults to off):
@@ -57,6 +59,7 @@ from .exporters import (  # noqa: F401
     read_snapshot_tail,
     serve_http,
 )
+from .recovery import observe_phase  # noqa: F401
 
 __all__ = [
     "Counter",
@@ -78,6 +81,7 @@ __all__ = [
     "get_tracer",
     "init_from_env",
     "install_signal_dump",
+    "observe_phase",
     "prometheus_text",
     "read_snapshot_tail",
     "root_span",

@@ -1,10 +1,16 @@
 """chip_smoke.py's checks that need no card: kernel names from the
 machine code, the tensor-core check of the build phase, and the bounds
-the kernel line reports."""
+the kernel line reports; a CPU rehearsal of the IMPALA phases at 20x20
+frames, T=3, B=2 with the CUDA calls monkeypatched; and the CPU smoke of
+``python -m moolib_tpu_torch.bench``."""
 
+import functools
+import json
 import os
+import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -89,3 +95,91 @@ def test_flash_bounds_at_training_shape(name):
     assert round(ops / 1e9, 1) == gflop
     assert round(ms, 4) == want_ms
     assert by == want_by
+
+
+class _FakeEvent:
+    """torch.cuda.Event on the host clock, for the CPU rehearsal."""
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = chip_smoke.time.perf_counter()
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+class _NumpyToTensorBatcher(chip_smoke.Batcher):
+    """On the CPU the Batcher keeps host numpy; the phase reads tensors."""
+
+    def get(self):
+        return {k: torch.from_numpy(v) for k, v in super().get().items()}
+
+
+@pytest.fixture
+def cpu_rehearsal(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "Batcher", _NumpyToTensorBatcher)
+
+    def fake_profile(fn, top=10):
+        fn()
+        return {"wall_ms": 1.0, "device_busy_ms": 0.0, "idle_share": 1.0,
+                "kernel_launches": 0, "top": [], "flash": []}
+
+    monkeypatch.setattr(chip_smoke, "device_profile", fake_profile)
+    monkeypatch.setattr(chip_smoke, "enqueue_ms", lambda fn, reps: fn() and 0.0)
+
+
+def test_impala_parity_phase_rehearsal(cpu_rehearsal, capsys):
+    res = chip_smoke.phase_impala_parity(0, device="cpu", obs=(20, 20, 4), T1=3, B=2)
+    assert set(res["cases"]) == {"impala_ff", "impala_lstm", "actor_critic_lstm",
+                                 "impala_ff_bf16"}
+    for case in res["cases"].values():
+        assert max(case["errors"].values()) == 0.0  # CPU against CPU
+        assert np.isfinite(case["loss"])
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "impala_parity"
+
+
+def test_impala_learner_phase_rehearsal(cpu_rehearsal, capsys):
+    pool = chip_smoke.EnvPool(functools.partial(chip_smoke.SyntheticAtariEnv, height=20,
+                                                width=20), num_processes=2, batch_size=2,
+                              num_batches=2)
+    try:
+        res = chip_smoke.phase_impala_learner(pool, 0, device="cpu", obs=(20, 20, 4), T=3,
+                                              B=2, steps=3, profile_steps=1, learn_steps=3)
+    finally:
+        pool.close()
+    assert res["metric"] == "impala_learner_sps_smoke" and res["steps"] == 3
+    assert np.isfinite(res["last_loss"]) and res["frames_per_s"] > 0
+    data = res["data_path"]
+    assert data["learner_steps"] == 3 and data["frames_equal_shm"]
+    assert data["env_steps"] >= 3 * 4 * 2  # three 4-step unrolls of 2 envs
+    assert res["flash_launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    phases = [json.loads(ln)["phase"] for ln in capsys.readouterr().out.splitlines()]
+    assert phases == ["impala_learner", "impala_learner_profile", "impala_learner_data_path"]
+
+
+def test_bench_cli_smoke_on_the_cpu():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, MOOLIB_BENCH_T="2", MOOLIB_BENCH_B="2")
+    proc = subprocess.run([sys.executable, "-m", "moolib_tpu_torch.bench", "--device", "cpu",
+                           "--steps", "2", "--warmup", "1"], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    row = json.loads(lines[0])
+    assert row["metric"] == "impala_learner_sps_smoke" and (row["T"], row["B"]) == (2, 2)
+    assert row["platform"] == "cpu" and row["mfu"] is None and row["value"] > 0
+
+
+def test_max_pool_bytes_at_the_reference_shape():
+    """84 -> 42 -> 21 -> 11 at 16, 32, 32 channels over 21 x 32 frames, bf16."""
+    frames = 21 * 32
+    sizes = [(84 * 84 * 16, 42 * 42 * 16), (42 * 42 * 32, 21 * 21 * 32), (21 * 21 * 32, 11 * 11 * 32)]
+    want = sum(2 * (3 * n_in + 2 * n_out) * frames for n_in, n_out in sizes)
+    assert chip_smoke.max_pool_bytes((84, 84, 4), (16, 32, 32), frames) == want

@@ -1,4 +1,5 @@
-"""The PyTorch port's CUDA kernels on the card.
+"""The PyTorch port's CUDA kernels, and the RL plane's card paths, on the
+card.
 
 These tests need a CUDA card and skip without one.  They import neither jax
 nor the JAX package, so on the machine with the card they run without the
@@ -7,9 +8,14 @@ repo's conftest (which pins JAX to the CPU):
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from moolib_tpu_torch.batcher import Batcher
+from moolib_tpu_torch.envpool import EnvPool
+from moolib_tpu_torch.envs import CatchEnv
+from moolib_tpu_torch.models.impala import ImpalaNet
 from moolib_tpu_torch.models.transformer import TransformerLM, generate
 from moolib_tpu_torch.ops import flash_attention as fa
 
@@ -211,3 +217,54 @@ def test_flash_model_matches_dense_model_on_card(card):
         tokens = tokens.to(card)
         assert (flash(tokens) - dense(tokens)).abs().max().item() <= 1e-3
         assert torch.equal(generate(flash, tokens[:, :100], 8), generate(dense, tokens[:, :100], 8))
+
+
+def test_batcher_uploads_host_batches_to_the_card(card):
+    b = Batcher(3, device="cuda")
+    items = [{"x": np.full((2, 4), i, np.uint8), "r": np.float32(i)} for i in range(3)]
+    for item in items:
+        b.stack(item)
+    out = b.get()
+    assert out["x"].device.type == "cuda" and out["x"].dtype == torch.uint8
+    np.testing.assert_array_equal(out["x"].cpu().numpy(), np.stack([i["x"] for i in items]))
+    c = Batcher(4, device="cuda")
+    c.cat(np.arange(6, dtype=np.float32))  # one batch from one item, two rows carried
+    np.testing.assert_array_equal(c.get().cpu().numpy(), np.arange(4, dtype=np.float32))
+
+
+def test_batcher_device_path_keeps_cuda_items_on_the_card(card):
+    b = Batcher(2, device="cuda")
+    b.stack(torch.ones(3, device=card))
+    b.stack(torch.zeros(3, device=card))
+    out = b.get()
+    assert out.device.type == "cuda" and out.shape == (2, 3)
+
+
+def test_envpool_takes_cuda_actions(card):
+    pool = EnvPool(CatchEnv, num_processes=1, batch_size=4, num_batches=1)
+    try:
+        out = pool.step(0, torch.full((4,), 2, dtype=torch.int64, device=card)).result()
+        assert out["state"].shape == (4, 10, 5, 1)
+        np.testing.assert_array_equal(pool._act_views[0], 2)
+        assert pool._stepper._pinned[0].is_pinned()
+    finally:
+        pool.close()
+
+
+@pytest.mark.parametrize("use_lstm", [False, True])
+def test_impala_on_card_matches_cpu(card, use_lstm):
+    torch.backends.cudnn.allow_tf32 = False
+    host = ImpalaNet(6, (84, 84, 4), use_lstm=use_lstm, dtype=torch.float32, device="cpu")
+    dev = ImpalaNet(6, (84, 84, 4), use_lstm=use_lstm, dtype=torch.float32, device=card)
+    dev.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(0)
+    batch = {"state": rng.integers(0, 256, (3, 2, 84, 84, 4), dtype=np.uint8),
+             "reward": rng.normal(size=(3, 2)).astype(np.float32),
+             "done": rng.random((3, 2)) < 0.3,
+             "prev_action": rng.integers(0, 6, (3, 2))}
+    with torch.no_grad():
+        want, _ = host({k: torch.from_numpy(v) for k, v in batch.items()}, host.initial_state(2))
+        got, _ = dev({k: torch.from_numpy(v).to(card) for k, v in batch.items()},
+                     dev.initial_state(2))
+    for key in ("policy_logits", "baseline"):
+        torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-4, rtol=0)

@@ -8,6 +8,7 @@ asks for the CPU.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -40,7 +41,14 @@ def _port_modules():
 
 def test_import_every_module_leaves_jax_out():
     mods = list(_port_modules())
-    assert "moolib_tpu_torch.ops.flash_attention" in mods
+    for mod in ("moolib_tpu_torch.ops.flash_attention", "moolib_tpu_torch.bench",
+                "moolib_tpu_torch.batcher", "moolib_tpu_torch.envpool",
+                "moolib_tpu_torch.envs", "moolib_tpu_torch.envs.atari",
+                "moolib_tpu_torch.examples.a2c", "moolib_tpu_torch.examples.vtrace.experiment",
+                "moolib_tpu_torch.models.impala", "moolib_tpu_torch.models.actor_critic",
+                "moolib_tpu_torch.ops.returns", "moolib_tpu_torch.ops.vtrace",
+                "moolib_tpu_torch.telemetry.recovery"):
+        assert mod in mods, mod
     code = "import sys\n" + "".join(f"import {m}\n" for m in mods) + (
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "assert not bad, bad\n" % (FORBIDDEN,)
@@ -97,6 +105,23 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     assert model.device == torch.device("cpu")
 
 
+def test_rl_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
+    from moolib_tpu_torch import bench
+    from moolib_tpu_torch._device import NoCudaError
+    from moolib_tpu_torch.batcher import Batcher
+    from moolib_tpu_torch.examples.vtrace import experiment
+
+    flags = experiment.make_flags([])
+    for call in (lambda: bench.main([]), bench.build_step, bench.build_learner,
+                 lambda: experiment.make_model(flags, 6, (84, 84, 4)),
+                 lambda: experiment.make_model(flags, 2, (4,)),
+                 lambda: Batcher(2, device="cuda"), lambda: Batcher(2, device="cuda:0")):
+        with pytest.raises(NoCudaError):
+            call()
+    assert experiment.make_model(flags, 2, (4,), device="cpu").device == torch.device("cpu")
+    assert Batcher(2)._device is None and Batcher(2, device="cpu")._device is None
+
+
 def test_unported_paths_say_so():
     from moolib_tpu_torch.examples import lm_serve
     from moolib_tpu_torch.models.transformer import TransformerLM
@@ -109,3 +134,31 @@ def test_unported_paths_say_so():
         with pytest.raises(NotImplementedError):
             TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=1,
                           device="cpu", **kw)
+
+
+@pytest.mark.parametrize("argv,named", [
+    ([], "--device_rollout: not yet ported (slice 10)"),
+    (["--device_rollout", "false"], "train(): not yet ported (slice 4)"),
+    (["--mesh", "dp=2"], "--mesh: not yet ported (slice 9)"),
+    (["--actor_mesh", "1"], "--actor_mesh: not yet ported (slice 9)"),
+    (["--env_backend", "jax"], "--env_backend jax: not yet ported (slice 10)"),
+    (["--overlap_grads"], "--overlap_grads: not yet ported (slice 4)"),
+    (["--ici"], "--ici: not yet ported (slice 4)"),
+    (["--coordinator", "h:1"], "--coordinator: not yet ported (slice 4)"),
+    (["--wire_dtype", "bf16"], "--wire_dtype: not yet ported (slice 4)"),
+    (["--checkpoint", "x.pkl"], "--checkpoint: not yet ported (slice 7)"),
+    (["--checkpoint_dir", "d"], "--checkpoint_dir: not yet ported (slice 7)"),
+    (["--autoscale"], "--autoscale: not yet ported (slice 7)"),
+])
+def test_unported_rl_paths_say_so(argv, named):
+    from moolib_tpu_torch.examples.vtrace import experiment
+
+    with pytest.raises(SystemExit, match=re.escape(named)):
+        experiment.train(experiment.make_flags(argv))
+
+
+def test_unported_a2c_train_says_so():
+    from moolib_tpu_torch.examples import a2c
+
+    with pytest.raises(SystemExit, match=re.escape("train(): not yet ported (slice 4)")):
+        a2c.train(a2c.make_flags([]))
