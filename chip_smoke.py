@@ -1,8 +1,10 @@
 """Drive the PyTorch port on one CUDA card: build its kernels, hold each
 against its plain version, train the d=1024/L=12 TransformerLM through
 examples.lm.train(), run the lm_bench step, serve the same widths over
-loopback Rpc and check the replies, then run the IMPALA learner at the
-reference Atari shape, fed once by EnvPool workers through the Batcher.
+loopback Rpc and check the replies, run the IMPALA learner at the
+reference Atari shape, fed once by EnvPool workers through the Batcher,
+then allreduce full-width ImpalaNet and TransformerLM gradients taken
+from the card through the port's Broker and Group.
 
     python3 chip_smoke.py [--seed N]
 
@@ -62,6 +64,27 @@ exits non-zero, and no result line is printed):
    EnvPool through its CUDA-tensor seam, 21-step unrolls through
    Batcher(device="cuda") into 10 learner steps; each learner batch's
    frames must equal the shared-memory frames they came from.
+10. cohort_impala — the cohort wire plane: a broker started with
+   `python -m moolib_tpu_torch.broker` and four in-process peers (Rpc +
+   Group).  Each holds one learner backward of the full-width ImpalaNet
+   (bf16 compute, f32 parameters, no LSTM) at [T+1, B] = [21, 32] on its
+   own seed's batch: 36 CUDA gradient leaves, 1,091,080 elements.  They
+   reduce, as the dict of CUDA tensors it is, 20 rounds on each path: auto
+   (the flat-bucket tree), the legacy tree, the ring, and the ring with the
+   bf16 and q8 wires.  Every path: the four peers' result bytes equal, one
+   pinned D2H staging event per peer round carrying every byte, and the
+   result within rtol 1e-5, atol 1e-5 (f32 paths), 1e-2 x max|sum| (bf16)
+   or 5e-2 x max|sum| (q8) of the float64 sum taken on the card.  Median
+   round ms, the staging time and the bytes on the wire.  Then one
+   GlobalStatsAccumulator round of the peers' losses and frames.
+11. cohort_lm — two learner processes (spawned, each its own CUDA context
+   on the card) build the d=1024/L=12 TransformerLM (max_len 1024, learned
+   positions, bf16 compute, f32 parameters, flash attention) with the same
+   weights, run one forward + backward each on their own B=4 x T=1024
+   batch (the three flash kernels), and allreduce the ~219M-element f32
+   gradient 5 times (auto: the flat-bucket tree).  Each result must equal
+   grad_a + grad_b added on the card, bit for bit.  Round seconds,
+   algorithm bandwidth, D2H staging and H2D-back times, peak memory.
 
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
@@ -75,6 +98,7 @@ import asyncio
 import functools
 import json
 import os
+import queue
 import re
 import socket
 import subprocess
@@ -85,11 +109,12 @@ import time
 import numpy as np
 import torch
 
-from moolib_tpu_torch import bench, telemetry
+from moolib_tpu_torch import bench, buckets, telemetry
 from moolib_tpu_torch.batcher import Batcher
 from moolib_tpu_torch.envpool import EnvPool
 from moolib_tpu_torch.envs import SyntheticAtariEnv
 from moolib_tpu_torch.examples import lm
+from moolib_tpu_torch.examples.common import GlobalStatsAccumulator
 from moolib_tpu_torch.examples.lm_serve import serve
 from moolib_tpu_torch.examples.vtrace import experiment
 from moolib_tpu_torch.models.actor_critic import ActorCriticNet
@@ -98,7 +123,10 @@ from moolib_tpu_torch.models.transformer import TransformerLM, generate
 from moolib_tpu_torch.ops import _build
 from moolib_tpu_torch.ops import flash_attention as fa
 from moolib_tpu_torch.ops.xent import lm_head_xent, naive_softmax_xent
+from moolib_tpu_torch.group import Group
 from moolib_tpu_torch.rpc import Rpc, serialization
+from moolib_tpu_torch.utils import nest
+from moolib_tpu_torch.utils.stats import StatMean, StatSum
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and float32 on the
 # CUDA cores, HBM3 bandwidth.
@@ -729,17 +757,24 @@ def _parity_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return err / max(1.0, want.abs().max().item())
 
 
-def _learner_run(model, device, batch: dict, state: tuple, flags) -> dict:
-    """Forward, then one compute_loss + backward + clip/rmsprop step."""
+def _learner_backward(model, device, batch: dict, state: tuple, flags) -> tuple:
+    """Forward, then compute_loss and its backward: (outputs, loss); the
+    gradients are left in the parameters' ``.grad``."""
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     state = tuple(torch.from_numpy(x).to(device) for x in state)
     with torch.no_grad():
         outputs, _ = model(batch, state)
-    opt = experiment.make_optimizer(model.parameters(), flags)
     loss, _ = experiment.compute_loss(batch, state, model, flags)
     loss.backward()
+    return outputs, loss.detach()
+
+
+def _learner_run(model, device, batch: dict, state: tuple, flags) -> dict:
+    """Forward, then one compute_loss + backward + clip/rmsprop step."""
+    opt = experiment.make_optimizer(model.parameters(), flags)
+    outputs, loss = _learner_backward(model, device, batch, state, flags)
     opt.step()
-    return {**outputs, "loss": loss.detach()}
+    return {**outputs, "loss": loss}
 
 
 def phase_impala_parity(seed: int, device="cuda", obs=(84, 84, 4), T1: int = 5,
@@ -917,6 +952,374 @@ def phase_impala_learner(pool: EnvPool, seed: int, device="cuda", obs=(84, 84, 4
     return res
 
 
+# ----------------------------------------------------------------- cohort
+# cohort_impala: the reduce paths, and each one's tolerance against the
+# float64 sum of the four peers' gradients computed on the card.  The f32
+# paths hold tests/test_buckets.py's allclose; the compressed wires hold
+# their error to a share of max|sum| over the whole payload (one scale per
+# chunk spans many leaves).
+COHORT_PATHS = {
+    "auto": {},
+    "tree": dict(bucketed=False, chunked=False),
+    "ring": dict(chunked=True),
+    "ring_bf16": dict(chunked=True, wire="bfloat16"),
+    "ring_q8": dict(chunked=True, wire="q8"),
+}
+COHORT_F32_TOL = (1e-5, 1e-5)  # rtol, atol
+COHORT_WIRE_TOL = {"ring_bf16": 1e-2, "ring_q8": 5e-2}  # x max|sum|
+COHORT_PEERS = 4
+COHORT_ROUNDS = 20
+# cohort_lm: the repo's LM at lm_bench's widths, learned positions, one
+# forward + backward of B x T tokens in each of two learner processes.
+COHORT_LM = dict(vocab_size=32768, d_model=1024, num_heads=8, num_layers=12, max_len=1024)
+COHORT_LM_BATCH = (4, 1024)
+COHORT_LM_ROUNDS = 5
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def start_broker(port: int) -> subprocess.Popen:
+    """The port's broker CLI in its own process, listening once this returns."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "moolib_tpu_torch.broker", "--address", f"127.0.0.1:{port}",
+         "--interval", "0.05"],
+        env=dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")),
+        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            raise RuntimeError(f"broker exited {proc.returncode}: {proc.stderr.read()[-2000:]}")
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return proc
+        except OSError:
+            time.sleep(0.1)
+    stop_process(proc)
+    raise RuntimeError("broker never listened")
+
+
+def stop_process(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+
+
+def _join_group(name: str, addr: str, group: str):
+    rpc = Rpc()
+    rpc.set_name(name)
+    rpc.set_timeout(120)
+    rpc.listen("127.0.0.1:0")
+    rpc.connect(addr)
+    g = Group(rpc, group)
+    g.set_timeout(120)
+    return rpc, g
+
+
+def _pump(groups, until, seconds: float, what: str) -> None:
+    deadline = time.time() + seconds
+    while not until():
+        if time.time() > deadline:
+            raise AssertionError(f"{what}: timed out after {seconds} s")
+        for g in groups:
+            g.update()
+        time.sleep(0.0005)
+
+
+def _counter(prefix: str) -> float:
+    return sum(v for k, v in telemetry.get_registry().counter_values().items()
+               if k.startswith(prefix))
+
+
+def _leaf_bytes(result) -> list:
+    return [np.ascontiguousarray(x).tobytes() for x in nest.flatten(result)]
+
+
+def _staging_ms(leaves, reps: int) -> dict:
+    """buckets.BucketLayout.fill of one peer's gradient leaves into a pinned
+    lease: CUDA-event time from before the copies to after them, and host
+    time until the fill's event completed."""
+    layout = buckets.BucketLayout([tuple(x.shape) for x in leaves], np.float32)
+    flat = buckets.lease(layout.total, np.float32, pinned=leaves[0].is_cuda)
+    dev_ms, host_ms = [], []
+    try:
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            event = layout.fill(flat, leaves)
+            end.record()
+            if event is not None:
+                event.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            end.synchronize()
+            dev_ms.append(start.elapsed_time(end))
+    finally:
+        buckets.release(flat)
+    nbytes = layout.total * 4
+    med = float(np.median(dev_ms))
+    return {"bytes": nbytes, "d2h_ms_median": med, "host_ms_median": float(np.median(host_ms)),
+            "d2h_GB_per_s": nbytes / (med / 1e3) / 1e9 if med > 0 else None}
+
+
+def phase_cohort_impala(seed: int, device="cuda", obs=(84, 84, 4), T1: int = 21, B: int = 32,
+                        rounds: int = COHORT_ROUNDS) -> dict:
+    """Four in-process peers reduce four full-width ImpalaNet gradients,
+    CUDA tensors as they stand, on each path; then one cohort stats round."""
+    A = 6
+    flags = experiment.make_flags([])
+    model = ImpalaNet(A, obs, use_lstm=False, dtype=torch.bfloat16, device=device,
+                      generator=torch.Generator().manual_seed(seed))
+    grads, losses = [], []
+    for i in range(COHORT_PEERS):
+        model.zero_grad(set_to_none=True)
+        _, loss = _learner_backward(model, device, _rl_batch(T1, B, obs, A, seed + i, True),
+                                    (), flags)
+        grads.append({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+        losses.append(float(loss))
+    names = list(grads[0])
+    elements = sum(grads[0][n].numel() for n in names)
+    ref = {n: sum(g[n].double() for g in grads).cpu().numpy() for n in names}
+    ref_max = max(float(np.abs(v).max()) for v in ref.values())
+    staging = _staging_ms([grads[0][n] for n in names], reps=rounds)
+
+    port = free_port()
+    broker = start_broker(port)
+    peers = []
+    try:
+        peers = [_join_group(f"peer{i}", f"127.0.0.1:{port}", "cohort_impala")
+                 for i in range(COHORT_PEERS)]
+        groups = [g for _, g in peers]
+        _pump(groups, lambda: all(g.active() and len(g.members()) == COHORT_PEERS
+                                  for g in groups), 120, "cohort_impala: cohort")
+        paths = {}
+        for path, kw in COHORT_PATHS.items():
+            times, err = [], 0.0
+            ev0, d2h0 = _counter("buckets_d2h_events_total"), _counter("buckets_d2h_bytes_total")
+            tx0 = _counter("rpc_tx_bytes_total")
+            for r in range(rounds):
+                t0 = time.perf_counter()
+                futs = [g.all_reduce(f"{path}{r}", grd, **kw) for g, grd in zip(groups, grads)]
+                _pump(groups, lambda: all(f.done() for f in futs), 120,
+                      f"cohort_impala: {path} round {r}")
+                times.append((time.perf_counter() - t0) * 1e3)
+                results = [f.result(0) for f in futs]
+                first = _leaf_bytes(results[0])
+                if any(_leaf_bytes(x) != first for x in results[1:]):
+                    raise AssertionError(f"cohort_impala {path}: peers' result bytes differ")
+                out = results[0]
+                if not all(isinstance(out[n], np.ndarray) for n in names):
+                    raise AssertionError(f"cohort_impala {path}: results are not host arrays")
+                err = max(err, max(float(np.abs(out[n] - ref[n]).max()) for n in names))
+                if path in COHORT_WIRE_TOL:
+                    if not err <= COHORT_WIRE_TOL[path] * ref_max:
+                        raise AssertionError(f"cohort_impala {path}: max err {err} > "
+                                             f"{COHORT_WIRE_TOL[path]} x max|sum| {ref_max}")
+                else:
+                    for n in names:
+                        np.testing.assert_allclose(out[n], ref[n], *COHORT_F32_TOL,
+                                                   err_msg=f"cohort_impala {path} {n}")
+            events = _counter("buckets_d2h_events_total") - ev0
+            d2h = _counter("buckets_d2h_bytes_total") - d2h0
+            if torch.device(device).type == "cuda" and (
+                    events != COHORT_PEERS * rounds or d2h != COHORT_PEERS * rounds * elements * 4):
+                raise AssertionError(f"cohort_impala {path}: {events} staging events and {d2h} "
+                                     f"D2H bytes; want one event and every byte per peer round")
+            paths[path] = {"kwargs": kw, "round_ms_median": float(np.median(times)),
+                           "round_ms_min": min(times), "round_ms_max": max(times),
+                           "max_abs_err": err, "d2h_events": events, "d2h_bytes": d2h,
+                           "rpc_tx_bytes_per_round": (_counter("rpc_tx_bytes_total") - tx0)
+                           / rounds}
+            if path in COHORT_WIRE_TOL:
+                paths[path]["tol"] = f"{COHORT_WIRE_TOL[path]} x max|sum|"
+            else:
+                paths[path]["tol"] = {"rtol": COHORT_F32_TOL[0], "atol": COHORT_F32_TOL[1]}
+        stats = _cohort_stats(groups, losses, T1 * B)
+        ring_auto = groups[0].ring_auto(elements * 4)
+    finally:
+        for rpc, _ in peers:
+            rpc.close()
+        stop_process(broker)
+    res = {"phase": "cohort_impala", "peers": COHORT_PEERS,
+           "model": "ImpalaNet (16, 32, 32) bf16 compute, f32 parameters, no LSTM",
+           "obs": list(obs), "T+1": T1, "B": B, "leaves": len(names), "elements": elements,
+           "payload_bytes": elements * 4, "bucket_bytes": buckets.bucket_bytes(),
+           "auto_path": "ring" if ring_auto else "bucketed",
+           "max_abs_sum": ref_max, "rounds": rounds, "staging": staging, "paths": paths,
+           "stats": stats}
+    log(res)
+    return res
+
+
+def _cohort_stats(groups, losses, frames: int) -> dict:
+    """One GlobalStatsAccumulator round over the cohort: each peer's loss
+    (a StatMean), its frames (a StatSum) and its registry counters."""
+    stats = [{"loss": StatMean(), "frames": StatSum(), "telemetry": telemetry.CohortCounters()}
+             for _ in groups]
+    accs = [GlobalStatsAccumulator(g, s) for g, s in zip(groups, stats)]
+    for s, loss in zip(stats, losses):
+        s["loss"] += loss
+        s["frames"] += frames
+    for a, s in zip(accs, stats):
+        a.reduce(s)
+    _pump(groups, lambda: all(a._inflight is None for a in accs), 60, "cohort stats")
+    want = float(np.mean(losses))
+    for s in stats:
+        if s["loss"].count != len(groups) or s["frames"].value != frames * len(groups):
+            raise AssertionError(f"cohort stats: count {s['loss'].count}, frames "
+                                 f"{s['frames'].value}")
+        if not abs(s["loss"].result() - want) <= 1e-6 * max(1.0, abs(want)):
+            raise AssertionError(f"cohort stats: mean loss {s['loss'].result()} != {want}")
+    return {"mean_loss": stats[0]["loss"].result(), "frames": stats[0]["frames"].value,
+            "cohort_counter_series": len(stats[0]["telemetry"].result())}
+
+
+def _lm_learner(rank: int, addr: str, seed: int, device: str, lm_cfg: dict, batch: tuple,
+                rounds: int, out) -> None:
+    """One learner process of cohort_lm: the LM's gradient on this rank's
+    batch, ``rounds`` auto allreduces of it over the group, and the check
+    against the peer's gradient fetched over Rpc and added on the card."""
+    try:
+        out.put((rank, _lm_learner_run(rank, addr, seed, device, lm_cfg, batch, rounds)))
+    except BaseException as e:  # noqa: BLE001 - reported to the parent, which fails
+        import traceback
+
+        out.put((rank, {"error": f"{e!r}\n{traceback.format_exc()}"}))
+
+
+def _lm_learner_run(rank, addr, seed, device, lm_cfg, batch, rounds) -> dict:
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(**lm_cfg, attention="flash", dtype=torch.bfloat16, device=dev,
+                          generator=torch.Generator().manual_seed(seed))
+    B, T = batch
+    toks = torch.from_numpy(np.random.default_rng(seed + 1 + rank).integers(
+        0, lm_cfg["vocab_size"], size=(B, T))).to(dev)
+    fa.reset_launches()  # the path's launches: this rank's forward + backward
+    loss = lm_head_xent(model, toks, chunk_size=4096)
+    loss.backward()
+    launches = _counts()
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    names = list(grads)
+    elements = sum(g.numel() for g in grads.values())
+    flat = torch.cat([grads[n].reshape(-1) for n in names])
+
+    rpc, g = _join_group(f"learner{rank}", addr, "cohort_lm")
+    rpc.define("gradient", lambda: flat.cpu().numpy())
+    try:
+        _pump([g], lambda: g.active() and len(g.members()) == 2, 120, "cohort_lm: cohort")
+        times, h2d_ms, results = [], [], []
+        d2h0 = _counter("buckets_d2h_bytes_total")
+        ev0 = _counter("buckets_d2h_events_total")
+        tx0 = _counter("rpc_tx_bytes_total")
+        for r in range(rounds):
+            t0 = time.perf_counter()
+            fut = g.all_reduce(f"grads{r}", grads)
+            _pump([g], fut.done, 600, f"cohort_lm: round {r}")
+            times.append(time.perf_counter() - t0)
+            res = fut.result(0)
+            if cuda:  # the caller's copy of the result back to the card
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                back = {n: torch.from_numpy(res[n]).to(dev, non_blocking=True) for n in names}
+                end.record()
+                end.synchronize()
+                h2d_ms.append(start.elapsed_time(end))
+                del back
+            results.append(_leaf_bytes(res))
+        tx = (_counter("rpc_tx_bytes_total") - tx0) / rounds
+        if any(x != results[0] for x in results[1:]):
+            raise AssertionError("cohort_lm: rounds of the same gradients differ")
+        events = _counter("buckets_d2h_events_total") - ev0
+        d2h = _counter("buckets_d2h_bytes_total") - d2h0
+        if cuda and (events != rounds or d2h != rounds * elements * 4):
+            raise AssertionError(f"cohort_lm: {events} staging events, {d2h} D2H bytes")
+        other = torch.from_numpy(rpc.sync(f"learner{1 - rank}", "gradient")).to(dev)
+        want, off = [], 0
+        for n in names:
+            k = grads[n].numel()
+            want.append((grads[n] + other[off:off + k].view_as(grads[n])).cpu().numpy().tobytes())
+            off += k
+        if results[-1] != want:
+            bad = [n for n, a, b in zip(names, results[-1], want) if a != b]
+            raise AssertionError(f"cohort_lm: result differs from grad_a + grad_b in {bad[:5]}")
+        # Stay in the cohort until the peer has fetched our gradient too.
+        done = g.all_reduce("done", 1)
+        _pump([g], done.done, 300, "cohort_lm: done")
+        done.result(0)
+        staging = _staging_ms([grads[n] for n in names], reps=3) if cuda else None
+        return {"rank": rank, "loss": float(loss.detach()), "leaves": len(names), "elements": elements,
+                "round_s": times, "h2d_ms": h2d_ms, "staging": staging,
+                "d2h_events": events, "launches": launches,
+                "rpc_tx_bytes_per_round": tx, "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else 0,
+                "equal_grad_a_plus_grad_b": True}
+    finally:
+        rpc.close()
+
+
+def phase_cohort_lm(seed: int, device="cuda", lm_cfg=None, batch=COHORT_LM_BATCH,
+                    rounds: int = COHORT_LM_ROUNDS, timeout: float = 600) -> dict:
+    """Two learner processes (spawned, each its own CUDA context on the one
+    card) allreduce the LM's full gradient through the port's Group."""
+    import multiprocessing as mp
+
+    lm_cfg = dict(COHORT_LM if lm_cfg is None else lm_cfg)
+    port = free_port()
+    broker = start_broker(port)
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_lm_learner, args=(rank, f"127.0.0.1:{port}", seed, device,
+                                                   lm_cfg, batch, rounds, out))
+             for rank in range(2)]
+    try:
+        for p in procs:
+            p.start()
+        reports = {}
+        deadline = time.time() + timeout
+        while len(reports) < 2:
+            try:
+                rank, rep = out.get(timeout=5)
+            except queue.Empty:
+                if time.time() > deadline or any(p.exitcode not in (None, 0) for p in procs):
+                    raise AssertionError(f"cohort_lm: learners {[p.exitcode for p in procs]} "
+                                         f"reported {sorted(reports)}")
+                continue
+            if "error" in rep:
+                raise AssertionError(f"cohort_lm learner {rank}: {rep['error']}")
+            reports[rank] = rep
+        for p in procs:
+            p.join(timeout=60)
+            if p.exitcode != 0:
+                raise AssertionError(f"cohort_lm: learner exit code {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        stop_process(broker)
+    nbytes = reports[0]["elements"] * 4
+    med_s = float(np.median([t for r in reports.values() for t in r["round_s"]]))
+    launches = {k: sum(r["launches"][k] for r in reports.values()) for k in reports[0]["launches"]}
+    if torch.device(device).type == "cuda" and min(launches.values()) < 2 * lm_cfg["num_layers"]:
+        raise AssertionError(f"cohort_lm: kernel launches {launches}, each must be >= "
+                             f"{2 * lm_cfg['num_layers']}")
+    res = {"phase": "cohort_lm", "processes": 2,
+           "model": "TransformerLM vocab=32768 d=1024 L=12 H=8x128 max_len 1024, learned "
+           "positions, bf16 compute, f32 parameters, flash attention" if lm_cfg == COHORT_LM
+           else f"TransformerLM {lm_cfg}", "batch": list(batch), "rounds": rounds,
+           "gradient_elements": reports[0]["elements"], "payload_bytes": nbytes,
+           "round_s_median": med_s, "algbw_GB_per_s": nbytes / med_s / 1e9,
+           "launches": launches, "learners": [reports[0], reports[1]]}
+    log(res)
+    return res
+
+
 def make_pool() -> EnvPool:
     """The data path's EnvPool, forked before the first CUDA call."""
     return EnvPool(SyntheticAtariEnv, **POOL)
@@ -927,7 +1330,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     pool = make_pool()
     try:
-        kern, sass, train, sl, rl = _phases(pool, args.seed)
+        kern, sass, train, sl, rl, cl = _phases(pool, args.seed)
     finally:
         pool.close()
     case = kern["train"]
@@ -949,7 +1352,8 @@ def main(argv=None) -> None:
         "launches": train["launches"][name],
         "launches_by_path": {"train": train["launches"][name],
                              "serve": sl["flash_fwd_launches"] if name == "flash_fwd" else 0,
-                             "impala_learner": rl["flash_launches"][name]},
+                             "impala_learner": rl["flash_launches"][name],
+                             "cohort_lm": cl["launches"][name]},
         "max_abs_err": kern["worst"][name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
@@ -977,7 +1381,10 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     sl = phase_slice(seed)
     phase_impala_parity(seed)
     rl = phase_impala_learner(pool, seed)
-    return kern, sass, train, sl, rl
+    phase_cohort_impala(seed)
+    torch.cuda.empty_cache()  # the learner processes share the card
+    cl = phase_cohort_lm(seed)
+    return kern, sass, train, sl, rl, cl
 
 
 if __name__ == "__main__":

@@ -5,6 +5,12 @@ so each piece can be found next to its counterpart.  It imports ``torch``
 and never ``jax`` or anything from ``moolib_tpu``.  What it has so far:
 
 - the RPC plane: serialization, the native codec and transport, ``Rpc``;
+- the cohort wire plane: ``Broker`` (with its replicated hot standbys and
+  ``python -m moolib_tpu_torch.broker``), ``Group`` (tree, flat-bucket and
+  chunked-ring allreduce, bf16/q8 wire compression, byte-compatible with
+  the JAX package's peers), ``buckets`` (flat layouts, the buffer pool,
+  pinned D2H staging of CUDA leaves, EF-q8) and the cohort stats path
+  (``examples.common.GlobalStatsAccumulator``, ``telemetry.CohortCounters``);
 - the TransformerLM (``models.transformer``) with the hand-written
   flash-attention kernels (``ops.flash_attention``: forward, dq and dk/dv
   passes for Hopper), ``ops.xent``, LM training (``examples.lm``) and the
@@ -16,23 +22,35 @@ and never ``jax`` or anything from ``moolib_tpu``.  What it has so far:
   ``ops.returns``, the optax-form optimizers (``examples.common``), the
   losses of ``examples.vtrace.experiment`` and ``examples.a2c``, and
   ``bench``, the learner-step benchmark;
-- telemetry (metrics, tracing, exporters, recovery phases), ``watchdog``
-  and ``utils``.
+- telemetry (metrics, tracing, exporters, the flight recorder, recovery
+  phases), ``watchdog``, ``testing`` (lock-order graph, fault plans) and
+  ``utils``.
 
-The cohort plane (Broker, Group, Accumulator) and the training loops that
-need it come next (ROADMAP Queue 1).  Entry points run on CUDA unless the
-caller passes ``device="cpu"``.
+The Accumulator and the training loops that need it come next (ROADMAP
+Queue 1).  Entry points run on CUDA unless the caller passes
+``device="cpu"``.
 """
 
-from . import telemetry  # noqa: F401  (stdlib-only; rpc/core depends on it)
-from . import utils  # noqa: F401
-from .utils import create_uid, set_log_level, set_logging, set_max_threads  # noqa: F401
-from .rpc import Future, Queue, Rpc, RpcDeferredReturn, RpcError  # noqa: F401
+# Lock-order race detection must swap the threading.Lock/RLock factories
+# BEFORE any submodule (telemetry included) creates a module-level lock.
+# Strict no-op unless MOOLIB_LOCKGRAPH=1; stdlib-only import.
+from .testing import lockgraph as _lockgraph
+
+_lockgraph.install_from_env()
+
+from . import telemetry  # noqa: E402,F401  (stdlib-only; rpc/core depends on it)
+from . import utils  # noqa: E402,F401
+from .utils import create_uid, set_log_level, set_logging, set_max_threads  # noqa: E402,F401
+from .rpc import Future, Queue, Rpc, RpcDeferredReturn, RpcError  # noqa: E402,F401
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "AllReduce",
+    "Broker",
+    "buckets",
     "Future",
+    "Group",
     "Queue",
     "Rpc",
     "RpcDeferredReturn",
@@ -44,3 +62,25 @@ __all__ = [
     "telemetry",
     "utils",
 ]
+
+
+_LAZY = {
+    "Broker": "broker",
+    "Group": "group",
+    "AllReduce": "group",
+}
+
+
+def __getattr__(name):  # lazy imports keep `import moolib_tpu_torch` light
+    import importlib
+
+    if name == "buckets":
+        value = importlib.import_module(f".{name}", __name__)
+        globals()[name] = value
+        return value
+    mod_name = _LAZY.get(name)
+    if mod_name is None:
+        raise AttributeError(f"module 'moolib_tpu_torch' has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{mod_name}", __name__), name)
+    globals()[name] = value
+    return value

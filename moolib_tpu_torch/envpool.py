@@ -103,11 +103,14 @@ class RestartPolicy:
 
 
 def _cuda_initialized() -> bool:
-    """True once this process holds a CUDA context — the point after which
-    a plain fork() is unsafe (the driver is multithreaded, and a forked
-    child cannot use the parent's context).  Asks without initializing
-    CUDA."""
-    return torch.cuda.is_initialized()
+    """True once this process holds a CUDA context or a torch.distributed
+    process group — the points after which a plain fork() is unsafe (the
+    driver and the group's backends are multithreaded, and a forked child
+    can use neither).  Asks without initializing either."""
+    if torch.cuda.is_initialized():
+        return True
+    dist = torch.distributed
+    return dist.is_available() and dist.is_initialized()
 
 
 _FIELD_RESERVED = ("reward", "done")
@@ -601,7 +604,8 @@ class EnvPool:
     ):
         # Start-method contract (reference fork guard src/env.cc:149-169): a
         # plain fork() after CUDA has started its threads is a deadlock
-        # lottery, so fork is only chosen while no CUDA context exists.
+        # lottery, so fork is only chosen while no CUDA context and no
+        # process group (whose backends start threads too) exists.
         # Afterwards workers come from a forkserver — the server process is
         # launched via fork+exec (thread-safe) and its children are clean —
         # at the cost of create_env needing to be picklable.
@@ -614,7 +618,8 @@ class EnvPool:
             except Exception as e:
                 raise RuntimeError(
                     "EnvPool after CUDA initialization uses the forkserver start "
-                    f"method, which requires a picklable create_env ({e!r}). "
+                    "method (so does one built after a torch.distributed process "
+                    f"group starts), which requires a picklable create_env ({e!r}). "
                     "Either construct the EnvPool before the first CUDA call "
                     "(preferred; the reference forks early for the same "
                     "reason), or pass a module-level function / functools."

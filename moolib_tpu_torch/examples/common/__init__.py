@@ -1,17 +1,23 @@
 """Shared example plumbing: the port of the JAX package's
-``examples/common`` flag parsing, and the optax optimizers the JAX
-examples write inline (``optax.rmsprop``, ``optax.adam``,
-``optax.clip_by_global_norm``, ``optax.chain``) in optax 0.2.6's own
-arithmetic.  The cohort stats accumulator, the per-actor-batch state and
-the TSV logger come with the cohort slice."""
+``examples/common`` flag parsing, the cohort stats accumulator
+(:class:`GlobalStatsAccumulator`, which allreduces stat deltas over the
+port's ``Group`` with a callable op), the TSV logger, and the optax
+optimizers the JAX examples write inline (``optax.rmsprop``,
+``optax.adam``, ``optax.clip_by_global_norm``, ``optax.chain``) in optax
+0.2.6's own arithmetic.  The per-actor-batch state comes with the training
+loops (ROADMAP slice 4b)."""
 
 from __future__ import annotations
 
-from typing import Iterable, List
+import os
+import threading
+import time
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
 from ...utils.config import Config
+from ...utils.stats import RunningMeanStd, StatMean, StatSum  # noqa: F401
 
 
 def finalize_flags(parser, argv=None):
@@ -57,6 +63,151 @@ def finalize_flags(parser, argv=None):
 
 # ---------------------------------------------------------------- optimizers
 #
+class GlobalStatsAccumulator:
+    """Allreduce stat *deltas* cohort-wide (reference
+    ``examples/common/__init__.py:65-121``): each peer tracks the snapshot it
+    last reduced, reduces the difference, and re-queues the delta if the
+    reduction fails (e.g. on a membership change)."""
+
+    def __init__(self, group, stats: Dict):
+        self._group = group
+        self._stats = stats
+        self._last = {k: v.snapshot() for k, v in stats.items()}
+        self._pending_delta: Optional[dict] = None
+        self._inflight = None
+        # Serializes reduce()/local_reset()/reset() (train thread) against
+        # on_done (RPC callback thread): both sides mutate the delta
+        # baseline, and an unserialized local_reset concurrent with a
+        # result application would broadcast a negative-delta storm.
+        self._mutex = threading.Lock()
+
+    def reduce(self, stats: Dict) -> None:
+        with self._mutex:
+            if self._inflight is not None:
+                return
+            delta = {k: v.delta(self._last[k]) for k, v in stats.items()}
+            if self._pending_delta is not None:
+                for k, d in self._pending_delta.items():
+                    delta[k] = _delta_add(delta[k], d)
+            self._last = {k: v.snapshot() for k, v in stats.items()}
+            self._pending_delta = None
+            self._inflight = object()  # block re-entry before the callback binds
+
+        def on_done(f, delta=delta):
+            with self._mutex:
+                try:
+                    exc = f.exception()
+                    if exc is not None:
+                        # Failed (churn): re-queue our delta so nothing is lost.
+                        self._pending_delta = (
+                            delta
+                            if self._pending_delta is None
+                            else {k: _delta_add(self._pending_delta[k], d)
+                                  for k, d in delta.items()}
+                        )
+                        return
+                    total = f.result(0)
+                    for k, v in self._stats.items():
+                        # Apply everyone else's contribution (total minus
+                        # ours) to the value AND the delta baseline: remote
+                        # contributions we merely learned about are not OUR
+                        # progress, and leaving them out of the baseline
+                        # re-broadcasts them as our next delta — a
+                        # (n-1)x-per-round amplification that inflated
+                        # steps_done ~1000x in a soak (which then hit the
+                        # agents' total_steps budget years early).
+                        rem = _delta_sub(total[k], delta[k])
+                        v.apply_delta(rem)
+                        self._last[k].apply_delta(rem)
+                finally:
+                    # ALWAYS cleared, or one malformed cohort result would
+                    # wedge reduce() (it early-returns while this is set).
+                    self._inflight = None
+
+        fut = self._group.all_reduce("__global_stats", delta, op=_delta_reduce_op)
+        fut.add_done_callback(on_done)
+
+    def reset(self) -> None:
+        with self._mutex:
+            for k, v in self._stats.items():
+                v.reset()
+            self._last = {k: v.snapshot() for k, v in self._stats.items()}
+
+    def local_reset(self, *keys: str) -> None:
+        """Reset chosen stats for local windowing without desyncing the delta
+        protocol (re-snapshots them so the next reduce sends a zero delta)."""
+        with self._mutex:
+            for k in keys:
+                self._stats[k].reset()
+                self._last[k] = self._stats[k].snapshot()
+
+
+def _delta_add(a, b):
+    if isinstance(a, tuple):
+        return tuple(x + y for x, y in zip(a, b))
+    if isinstance(a, dict):
+        # Union of keys: telemetry CohortCounters deltas are {series: incr}
+        # maps whose keys appear over time (a new label set binds) and can
+        # differ across peers; a missing series means "started at zero".
+        return {k: a.get(k, 0.0) + b.get(k, 0.0) for k in set(a) | set(b)}
+    return a + b
+
+
+def _delta_sub(a, b):
+    if isinstance(a, tuple):
+        return tuple(x - y for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return {k: a.get(k, 0.0) - b.get(k, 0.0) for k in set(a) | set(b)}
+    return a - b
+
+
+def _delta_reduce_op(a, b):
+    return {k: _delta_add(a[k], b[k]) for k in a}
+
+
+class TsvLogger:
+    """Incremental TSV logging (reference ``examples/common/record.py``):
+    writes a header once, appends rows, creates a ``latest`` symlink and a
+    run ``metadata.json`` (argv, env, start time — reference ``:32-84``)."""
+
+    def __init__(self, path: str, symlink: bool = True, metadata: Optional[dict] = None):
+        self.path = path
+        self._fields = None
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        if symlink:
+            link = os.path.join(os.path.dirname(path) or ".", "latest.tsv")
+            try:
+                if os.path.islink(link):
+                    os.unlink(link)
+                os.symlink(os.path.basename(path), link)
+            except OSError:
+                pass
+        import json
+        import sys
+
+        meta = {
+            "argv": sys.argv,
+            "start_time": time.time(),
+            "log": os.path.basename(path),
+        }
+        if metadata:
+            meta.update(metadata)
+        try:
+            with open(os.path.join(os.path.dirname(path) or ".", "metadata.json"), "w") as f:
+                json.dump(meta, f, indent=2, default=str)
+        except OSError:
+            pass
+
+    def log(self, **fields) -> None:
+        if self._fields is None:
+            self._fields = list(fields)
+            with open(self.path, "a") as f:
+                f.write("\t".join(["time"] + self._fields) + "\n")
+        row = [f"{time.time():.3f}"] + [str(fields.get(k, "")) for k in self._fields]
+        with open(self.path, "a") as f:
+            f.write("\t".join(row) + "\n")
+
+
 # optax's gradient transformations over lists of tensors, with
 # torch._foreach_* (a handful of launches an update, no host sync).  Each has
 # ``init(params) -> state`` and ``update(updates, state) -> updates``, which

@@ -2,8 +2,11 @@
 
 The slim counterpart of the JAX package's ``telemetry`` package: the metric
 registry, the host span tracer (with the distributed trace context the RPC
-layer carries on every call frame) and the opt-in exporters.  The device
-monitor, profiling, timeline and cohort planes come with later slices;
+layer carries on every call frame), the opt-in exporters, the flight
+recorder of notable events (``flightrec``: epoch bumps, broker failovers,
+watchdog expiries) and :class:`CohortCounters`, which ship counter deltas
+on the agents' ``GlobalStatsAccumulator`` reduce.  The device monitor,
+profiling, timeline and aggregator planes come with later slices;
 ``recovery`` (the ``recovery_seconds{phase}`` family) came with EnvPool's
 worker supervision.
 
@@ -59,9 +62,16 @@ from .exporters import (  # noqa: F401
     read_snapshot_tail,
     serve_http,
 )
+from .flightrec import (  # noqa: F401
+    FlightRecorder,
+    flight_event,
+    get_flight_recorder,
+)
+from .cohort import CohortCounters  # noqa: F401
 from .recovery import observe_phase  # noqa: F401
 
 __all__ = [
+    "CohortCounters",
     "Counter",
     "Gauge",
     "Histogram",
@@ -76,7 +86,10 @@ __all__ = [
     "decode_context",
     "dump_diagnostics",
     "encode_context",
+    "FlightRecorder",
+    "flight_event",
     "flush",
+    "get_flight_recorder",
     "get_registry",
     "get_tracer",
     "init_from_env",

@@ -29,6 +29,7 @@ import time
 import traceback
 from typing import Optional
 
+from .flightrec import format_tail as _flight_tail
 from .metrics import Registry, get_registry
 from .tracing import Tracer, get_tracer
 
@@ -228,7 +229,8 @@ def dump_diagnostics(
     """One-stop diagnostic dump shared by the SIGUSR1 handler and the
     run-loop watchdog: the registry in
     Prometheus text, the python stack of every live thread (wedge triage:
-    *where* is each thread blocked?), and — when a run dir is known — the
+    *where* is each thread blocked?), the flight recorder's tail, the
+    lock-order graph's findings, and — when a run dir is known — the
     host Chrome trace.  Only formats already-collected data, so it is safe
     from a signal handler or a monitor thread."""
     registry = registry or get_registry()
@@ -241,6 +243,17 @@ def dump_diagnostics(
         for tid, frame in sys._current_frames().items():
             parts.append(f"--- thread {names.get(tid, '?')!r} (ident {tid}) ---\n")
             parts.append("".join(traceback.format_stack(frame)))
+    # The flight recorder's recent-event tail: what the process believed
+    # was happening right before the dump (watchdog expiry, crash, signal).
+    parts.append(_flight_tail())
+    # Lock-order graph (MOOLIB_LOCKGRAPH=1): observed acquisition-order
+    # cycles with both offending stacks, plus long-hold outliers.
+    try:
+        from ..testing import lockgraph as _lockgraph
+
+        parts.append(_lockgraph.diagnostics_tail())
+    except Exception:  # noqa: BLE001 — diagnostics must never throw
+        pass
     parts.append("--- end telemetry dump ---\n")
     out.write("".join(parts))
     try:

@@ -1,8 +1,8 @@
 """Foundation utilities for moolib_tpu_torch.
 
 Copies of the JAX package's ``utils`` helpers the slice needs: uid
-generation, leveled logging with a Python-logging bridge and the
-worker-thread cap.
+generation, leveled logging with a Python-logging bridge, the
+worker-thread cap and the agents' stats counters (``utils.stats``).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import time
 from typing import Optional
 
 from . import nest  # noqa: F401
+from .stats import RunningMeanStd, StatMean, StatSum  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # uid / naming  (reference: randomName(), src/util.h — 16 hex chars)

@@ -199,8 +199,10 @@ class Watchdog:
         label = f"watchdog {self._name!r}" if self._name else "watchdog"
         reason = f"{label}: section {section!r} exceeded its {timeout:.1f}s deadline"
         utils.log_error("%s", reason)
-        # The flight recorder (telemetry.flightrec) comes with a later
-        # slice; the dump below still carries the registry and the stacks.
+        # Before the dump: the expiry itself must appear in the flight
+        # recorder tail the dump prints.
+        telemetry.flight_event("watchdog.expired", watchdog=self._name,
+                               section=section, timeout_s=timeout)
         if self._dump:
             try:
                 dump_diagnostics(reason=reason, run_dir=self._run_dir)

@@ -1,7 +1,10 @@
 """chip_smoke.py's checks that need no card: kernel names from the
 machine code, the tensor-core check of the build phase, and the bounds
 the kernel line reports; a CPU rehearsal of the IMPALA phases at 20x20
-frames, T=3, B=2 with the CUDA calls monkeypatched; and the CPU smoke of
+frames, T=3, B=2 with the CUDA calls monkeypatched; a CPU rehearsal of the
+cohort phases (ImpalaNet at 20x20 frames over four in-process peers and a
+broker process, and two spawned learner processes reducing an LM of
+d_model 64 with 2 layers); and the CPU smoke of
 ``python -m moolib_tpu_torch.bench``."""
 
 import functools
@@ -109,6 +112,9 @@ class _FakeEvent:
     def elapsed_time(self, end):
         return (end.t - self.t) * 1e3
 
+    def synchronize(self):
+        pass
+
 
 class _NumpyToTensorBatcher(chip_smoke.Batcher):
     """On the CPU the Batcher keeps host numpy; the phase reads tensors."""
@@ -183,3 +189,32 @@ def test_max_pool_bytes_at_the_reference_shape():
     sizes = [(84 * 84 * 16, 42 * 42 * 16), (42 * 42 * 32, 21 * 21 * 32), (21 * 21 * 32, 11 * 11 * 32)]
     want = sum(2 * (3 * n_in + 2 * n_out) * frames for n_in, n_out in sizes)
     assert chip_smoke.max_pool_bytes((84, 84, 4), (16, 32, 32), frames) == want
+
+
+def test_cohort_impala_phase_rehearsal(cpu_rehearsal, capsys):
+    res = chip_smoke.phase_cohort_impala(0, device="cpu", obs=(20, 20, 4), T1=3, B=2,
+                                         rounds=2)
+    assert set(res["paths"]) == set(chip_smoke.COHORT_PATHS)
+    assert res["leaves"] == 36 and res["peers"] == 4
+    for path, row in res["paths"].items():
+        assert row["round_ms_median"] > 0 and row["rpc_tx_bytes_per_round"] > 0, path
+        if path in chip_smoke.COHORT_WIRE_TOL:
+            assert row["max_abs_err"] <= chip_smoke.COHORT_WIRE_TOL[path] * res["max_abs_sum"]
+    assert res["stats"]["frames"] == 4 * 3 * 2 and np.isfinite(res["stats"]["mean_loss"])
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "cohort_impala"
+
+
+def test_cohort_lm_phase_rehearsal(monkeypatch, capsys):
+    """Two spawned learner processes on the CPU; a 64 KiB bucket threshold
+    puts the small model's gradient on the flat-bucket path the card's
+    full-width one takes."""
+    monkeypatch.setenv("MOOLIB_BUCKET_THRESHOLD", str(1 << 16))
+    cfg = dict(vocab_size=256, d_model=64, num_heads=2, num_layers=2, max_len=64)
+    res = chip_smoke.phase_cohort_lm(0, device="cpu", lm_cfg=cfg, batch=(2, 32), rounds=2,
+                                     timeout=240)
+    assert [r["rank"] for r in res["learners"]] == [0, 1]
+    assert all(r["equal_grad_a_plus_grad_b"] for r in res["learners"])
+    assert res["payload_bytes"] == 4 * res["gradient_elements"] > (1 << 16)
+    assert res["round_s_median"] > 0 and res["algbw_GB_per_s"] > 0
+    assert res["learners"][0]["loss"] != res["learners"][1]["loss"]  # own batches
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "cohort_lm"

@@ -268,3 +268,83 @@ def test_impala_on_card_matches_cpu(card, use_lstm):
                      dev.initial_state(2))
     for key in ("policy_logits", "baseline"):
         torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-4, rtol=0)
+
+
+def test_buckets_stage_card_leaves_through_pinned_memory(card):
+    """The cohort plane's card seam: BucketLayout.fill copies CUDA leaves
+    into a pinned lease with non-blocking copies and one event, stage()
+    does so per leaf, and a Group round of CUDA leaves returns host arrays
+    equal to the sum."""
+    from moolib_tpu_torch import buckets, telemetry
+
+    reg = telemetry.get_registry()
+    g = torch.Generator(device=card).manual_seed(5)
+    leaves = [torch.randn(300, 70, generator=g, device=card),
+              torch.randn(1000, generator=g, device=card)]
+    layout = buckets.BucketLayout([tuple(x.shape) for x in leaves], np.float32, 1 << 16)
+    flat = buckets.lease(layout.total, np.float32, pinned=True)
+    assert flat.base is not None and flat.base.is_pinned()
+    before = reg.counter_values().get("buckets_d2h_events_total", 0.0)
+    event = layout.fill(flat, leaves)
+    assert isinstance(event, torch.cuda.Event)
+    event.synchronize()
+    assert reg.counter_values()["buckets_d2h_events_total"] == before + 1
+    want = torch.cat([x.reshape(-1) for x in leaves]).cpu().numpy()
+    assert flat.tobytes() == want.tobytes()
+    staged, ev = buckets.stage(leaves)
+    ev.synchronize()
+    assert all(s.device.type == "cpu" and s.is_pinned() for s in staged)
+    assert all(torch.equal(s, x.cpu()) for s, x in zip(staged, leaves))
+    buckets.release(flat)
+
+
+def test_group_reduces_cuda_leaves(card):
+    import socket
+    import time
+
+    from moolib_tpu_torch import Broker, Group, Rpc
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = "127.0.0.1:%d" % s.getsockname()[1]
+    broker = Broker()
+    broker.set_name("broker")
+    broker.listen(addr)
+    peers = []
+    try:
+        for i in range(3):
+            rpc = Rpc()
+            rpc.set_name(f"p{i}")
+            rpc.listen("127.0.0.1:0")
+            rpc.connect(addr)
+            grp = Group(rpc, "cuda")
+            grp.set_timeout(30)
+            peers.append((rpc, grp))
+        groups = [grp for _, grp in peers]
+
+        def pump(until):
+            deadline = time.time() + 60
+            while not until():
+                assert time.time() < deadline
+                broker.update()
+                for grp in groups:
+                    grp.update()
+                time.sleep(0.002)
+
+        pump(lambda: all(grp.active() and len(grp.members()) == 3 for grp in groups))
+        vals = [{"w": torch.full((700, 900), float(i + 1), device=card),
+                 "b": torch.arange(33, dtype=torch.float32, device=card)} for i in range(3)]
+        for kw in ({}, dict(bucketed=True), dict(chunked=True),
+                   dict(bucketed=False, chunked=False)):
+            futs = [grp.all_reduce(f"x{sorted(kw.items())}", v, **kw)
+                    for grp, v in zip(groups, vals)]
+            pump(lambda: all(f.done() for f in futs))
+            for f in futs:
+                out = f.result(0)
+                assert isinstance(out["w"], np.ndarray)
+                assert (out["w"] == 6.0).all()
+                assert (out["b"] == 3 * np.arange(33)).all()
+    finally:
+        for rpc, _ in peers:
+            rpc.close()
+        broker.close()

@@ -395,6 +395,40 @@ def test_auto_selects_forkserver_once_cuda_is_initialized(monkeypatch):
         EnvPool(lambda: FakeEnv(), num_processes=1, batch_size=1, num_batches=1)
 
 
+_GLOO_GUARD = r"""
+import os, socket, sys
+import torch.distributed as dist
+from moolib_tpu_torch import envpool
+from moolib_tpu_torch.envpool import EnvPool
+os.environ.pop("MOOLIB_TPU_ENVPOOL_START", None)
+assert not envpool._cuda_initialized()
+s = socket.socket(); s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]; s.close()
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port, rank=0, world_size=1)
+try:
+    assert envpool._cuda_initialized()
+    try:
+        EnvPool(lambda: None, num_processes=1, batch_size=1, num_batches=1)
+    except RuntimeError as e:
+        assert "forkserver" in str(e), e
+        print("refused plain fork")
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def test_pool_refuses_plain_fork_once_a_process_group_exists():
+    """A one-rank gloo process group starts threads without any CUDA
+    context; after it the pool must not plain-fork (the forkserver path
+    then insists on a picklable create_env).  In a subprocess: the group is
+    process-wide."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _GLOO_GUARD], env=dict(os.environ, PYTHONPATH=ROOT),
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "refused plain fork" in proc.stdout
+
+
 PARITY = """
 import functools, sys
 import numpy as np

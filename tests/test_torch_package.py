@@ -47,7 +47,11 @@ def test_import_every_module_leaves_jax_out():
                 "moolib_tpu_torch.examples.a2c", "moolib_tpu_torch.examples.vtrace.experiment",
                 "moolib_tpu_torch.models.impala", "moolib_tpu_torch.models.actor_critic",
                 "moolib_tpu_torch.ops.returns", "moolib_tpu_torch.ops.vtrace",
-                "moolib_tpu_torch.telemetry.recovery"):
+                "moolib_tpu_torch.telemetry.recovery", "moolib_tpu_torch.broker",
+                "moolib_tpu_torch.group", "moolib_tpu_torch.buckets",
+                "moolib_tpu_torch.telemetry.flightrec", "moolib_tpu_torch.telemetry.cohort",
+                "moolib_tpu_torch.testing", "moolib_tpu_torch.testing.lockgraph",
+                "moolib_tpu_torch.testing.faults", "moolib_tpu_torch.utils.stats"):
         assert mod in mods, mod
     code = "import sys\n" + "".join(f"import {m}\n" for m in mods) + (
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
@@ -162,3 +166,29 @@ def test_unported_a2c_train_says_so():
 
     with pytest.raises(SystemExit, match=re.escape("train(): not yet ported (slice 4)")):
         a2c.train(a2c.make_flags([]))
+
+
+def test_lockgraph_installs_before_any_other_import():
+    """moolib_tpu_torch/__init__.py installs the lock-order graph before it
+    imports anything else, so no module-level lock escapes it."""
+    with open(os.path.join(PKG, "__init__.py")) as f:
+        body = ast.parse(f.read()).body
+    stmts = [n for n in body if not isinstance(n, ast.Expr) or not isinstance(
+        n.value, ast.Constant)]
+    first, second = stmts[0], stmts[1]
+    assert isinstance(first, ast.ImportFrom) and first.module == "testing" and first.level == 1
+    assert [a.name for a in first.names] == ["lockgraph"]
+    assert isinstance(second, ast.Expr) and ast.unparse(second) == "_lockgraph.install_from_env()"
+
+
+def test_lazy_cohort_exports():
+    import moolib_tpu_torch
+    from moolib_tpu_torch import buckets, group
+    from moolib_tpu_torch.broker import Broker
+
+    assert moolib_tpu_torch.Broker is Broker
+    assert moolib_tpu_torch.Group is group.Group
+    assert moolib_tpu_torch.AllReduce is group.AllReduce
+    assert moolib_tpu_torch.buckets is buckets
+    with pytest.raises(AttributeError):
+        moolib_tpu_torch.Accumulator  # noqa: B018 - slice 4b
