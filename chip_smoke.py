@@ -4,7 +4,8 @@ examples.lm.train(), run the lm_bench step, serve the same widths over
 loopback Rpc and check the replies, run the IMPALA learner at the
 reference Atari shape, fed once by EnvPool workers through the Batcher,
 then allreduce full-width ImpalaNet and TransformerLM gradients taken
-from the card through the port's Broker and Group.
+from the card through the port's Broker and Group, and train both in
+two-learner Accumulator cohorts through the examples' own loops.
 
     python3 chip_smoke.py [--seed N]
 
@@ -85,6 +86,31 @@ exits non-zero, and no result line is printed):
    gradient 5 times (auto: the flat-bucket tree).  Each result must equal
    grad_a + grad_b added on the card, bit for bit.  Round seconds,
    algorithm bandwidth, D2H staging and H2D-back times, peak memory.
+12. accumulator_impala — the IMPALA training loop of slice 4b: two
+   learner processes (spawned, one CUDA context each) run
+   examples.vtrace.experiment.train(); learner 0 hosts the broker
+   (--address), learner 1 joins (--connect).  Synthetic 84x84x4 uint8
+   frames, the full-width ImpalaNet (16, 32, 32), no LSTM, bf16 compute,
+   f32 parameters, 6 actions; unroll 20, learner batch 32, 2 actor batches
+   of 32 envs over 4 env processes each, virtual batch 64, the device
+   rollout, debug checksums on, to model version 50.  Both learners must
+   end at the same version with bitwise-equal parameters (sha256 of the
+   f32 parameters, compared here), zero checksum divergences, the
+   non-leader synced through the chunked model transfer, and one
+   buckets_d2h_events_total event per CUDA staging call.  SGD steps/s and
+   learner frames/s across the cohort, count- and grad-round ms, model-sync
+   bytes and ms, elections, env steps/s and act ms per learner, peak
+   memory.
+13. accumulator_lm — examples.lm's elastic path with the d=1024/L=12
+   TransformerLM (max_len 1024, learned positions, bf16, f32 parameters,
+   flash attention) on B=4 x T=1024 per learner, virtual batch 8:
+   learner 0 (--address) applies one step alone, then learner 1
+   (--connect) joins, receives the f32 parameters and the AdamW state
+   through the chunked model sync (the same blob sha as the leader's), and
+   the two take 5 steps together.  Bitwise-equal parameters at the end;
+   step and grad-round seconds, algorithm bandwidth, model-sync GB/s, mfu
+   from telemetry.devmon, peak memory and each flash kernel's launches,
+   counted from 0 in each learner.
 
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
@@ -1320,6 +1346,241 @@ def phase_cohort_lm(seed: int, device="cuda", lm_cfg=None, batch=COHORT_LM_BATCH
     return res
 
 
+# accumulator_impala / accumulator_lm: the training loops of slice 4b, two
+# learner processes each (spawned, one CUDA context each on the one card).
+ACC_IMPALA_ARGS = ["--env", "synthetic", "--unroll_length", "20", "--batch_size", "32",
+                   "--actor_batch_size", "32", "--num_actor_batches", "2",
+                   "--num_env_processes", "4", "--virtual_batch_size", "64"]
+ACC_IMPALA_SGD = 50
+ACC_LM_ARGS = ["--vocab", "32768", "--d_model", "1024", "--layers", "12", "--heads", "8",
+               "--seq_len", "1024", "--batch_size", "4", "--virtual_batch_size", "8",
+               "--attention", "flash", "--mesh", "", "--learning_rate", "1e-4"]
+ACC_LM_STEPS = 6  # one step of learner 0 alone, then 5 of the cohort
+
+
+def _cohort_child(kind: str, rank: int, argv: list, out, started=None) -> None:
+    """One learner process of accumulator_impala / accumulator_lm: the
+    example's own train() on ``argv``; its summary goes to the parent.
+    Nothing touches CUDA before train() (its EnvPool forks first)."""
+    try:
+        t0 = time.time()
+        ev0 = _counter("buckets_d2h_events_total")
+        if kind == "impala":
+            summary = experiment.train(experiment.make_flags(argv))
+        else:
+            fa.reset_launches()
+
+            def on_stats(s):  # tells the parent that learner 0 has stepped
+                if started is not None:
+                    started.put(s["step"])
+
+            summary = lm.train(lm.make_flags(argv), on_stats=on_stats)
+            summary["launches"] = _counts()
+        summary.update(
+            rank=rank, wall_s=time.time() - t0,
+            d2h_events=_counter("buckets_d2h_events_total") - ev0,
+            env_steps=_counter("envpool_steps_total"),
+            max_memory_allocated=torch.cuda.max_memory_allocated()
+            if torch.cuda.is_initialized() else 0)
+        out.put((rank, summary))
+    except BaseException as e:  # reported to the parent, which fails, then re-raised
+        import traceback
+
+        out.put((rank, {"error": f"{e!r}\n{traceback.format_exc()}"}))
+        raise
+
+
+def _run_cohort(kind: str, argvs: list, timeout: float, wait_first: bool) -> list:
+    """Spawn the two learners (the second once the first has applied a step
+    when ``wait_first``), collect both summaries, stop every process."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out, started = ctx.Queue(), ctx.Queue()
+    procs = [ctx.Process(target=_cohort_child, args=(kind, r, argvs[r], out, started))
+             for r in range(2)]
+    reports = {}
+    deadline = time.time() + timeout
+
+    def collect(block_s):
+        try:
+            rank, rep = out.get(timeout=block_s)
+        except queue.Empty:
+            if time.time() > deadline or any(p.exitcode not in (None, 0) for p in procs):
+                raise AssertionError(f"{kind}: learners {[p.exitcode for p in procs]} "
+                                     f"reported {sorted(reports)}")
+            return
+        if "error" in rep:
+            raise AssertionError(f"accumulator_{kind} learner {rank}: {rep['error']}")
+        reports[rank] = rep
+
+    try:
+        procs[0].start()
+        if wait_first:
+            while True:
+                try:
+                    started.get(timeout=5)
+                    break
+                except queue.Empty:
+                    collect(0.01)
+                    if time.time() > deadline:
+                        raise AssertionError(f"{kind}: learner 0 never stepped")
+        procs[1].start()
+        while len(reports) < 2:
+            collect(5)
+        while not started.empty():  # drained before the join (learner 0's step notes)
+            started.get_nowait()
+        for p in procs:
+            p.join(timeout=60)
+            if p.exitcode != 0:
+                raise AssertionError(f"accumulator_{kind}: learner exit code {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return [reports[0], reports[1]]
+
+
+def _cohort_checks(kind: str, reps: list, cuda: bool) -> tuple:
+    """Both learners at the same model version with bitwise-equal
+    parameters; the non-leader synced the model through the chunked
+    transfer; on the card, one D2H event per staging call.  Returns
+    (leader, joiner)."""
+    if len({r["model_version"] for r in reps}) != 1:
+        raise AssertionError(f"{kind}: versions {[r['model_version'] for r in reps]}")
+    if reps[0]["params_sha256"] != reps[1]["params_sha256"]:
+        raise AssertionError(f"{kind}: parameters differ after the last step")
+    leaders = [r for r in reps if r["is_leader"]]
+    joiners = [r for r in reps if not r["is_leader"]]
+    if len(leaders) != 1:
+        raise AssertionError(f"{kind}: leaders {[r['is_leader'] for r in reps]}")
+    joiner = joiners[0]
+    if joiner["recovery"]["model_sync_bytes_rx"] <= 0:
+        raise AssertionError(f"{kind}: the joiner received no model-sync bytes")
+    for r in reps:
+        calls = r["accumulator"]["d2h_staged_calls"]
+        if cuda and (calls == 0 or r["d2h_events"] != calls):
+            raise AssertionError(f"{kind}: learner {r['rank']}: {r['d2h_events']} D2H events "
+                                 f"for {calls} staging calls")
+    return leaders[0], joiner
+
+
+def phase_accumulator_impala(seed: int, device="cuda", args=None, sgd_steps: int = ACC_IMPALA_SGD,
+                             timeout: float = 900) -> dict:
+    """Two examples.vtrace.experiment.train() learners: learner 0 hosts the
+    broker, learner 1 joins; synthetic Atari frames through the full-width
+    ImpalaNet to a fixed count of SGD steps, debug checksums on."""
+    port = free_port()
+    common = list(ACC_IMPALA_ARGS if args is None else args) + [
+        "--device", device, "--seed", str(seed), "--total_steps", str(10 ** 9),
+        "--total_sgd_steps", str(sgd_steps), "--min_cohort", "2", "--debug_checksums",
+        "--quiet", "--log_interval", "1e9"]
+    argvs = [common + ["--address", f"127.0.0.1:{port}", "--local_name", "impala0"],
+             common + ["--connect", f"127.0.0.1:{port}", "--local_name", "impala1"]]
+    reps = _run_cohort("impala", argvs, timeout, wait_first=False)
+    cuda = torch.device(device).type == "cuda"
+    leader, joiner = _cohort_checks("accumulator_impala", reps, cuda)
+    for r in reps:
+        if r["accumulator"]["checksum_divergences"]:
+            raise AssertionError(f"accumulator_impala: {r['accumulator']['checksum_divergences']} "
+                                 f"checksum divergences on learner {r['rank']}")
+    flags = experiment.make_flags(common)
+    # Cohort rates over the steps both learners applied together: from the
+    # joiner's first applied step to the last.
+    times = [t for t, _ in joiner["sgd_times"]]
+    span = times[-1] - times[0] if len(times) > 1 else float("nan")
+    sgd_per_s = (len(times) - 1) / span
+    frames = flags.virtual_batch_size * flags.unroll_length
+    res = {"phase": "accumulator_impala", "processes": 2,
+           "model": "ImpalaNet (16, 32, 32), no LSTM, bf16 compute, f32 parameters, "
+           "84x84x4 uint8, 6 actions" if args is None else f"ImpalaNet {args}",
+           "model_version": leader["model_version"], "sgd_steps_together": len(times),
+           "sgd_steps_per_s": sgd_per_s, "learner_frames_per_s": sgd_per_s * frames,
+           "params_sha256_equal": True, "checksum_divergences": 0,
+           "checksum_failures": [r["accumulator"]["checksum_failures"] for r in reps],
+           "model_sync": {"joiner": f"learner{joiner['rank']}",
+                          "bytes": joiner["recovery"]["model_sync_bytes_rx"],
+                          "ms": joiner["accumulator"]["model_sync_ms"]},
+           "learners": [{
+               "rank": r["rank"], "leader": r["is_leader"],
+               "elections": r["accumulator"]["elections"],
+               "count_round_ms": r["accumulator"]["round_ms"]["count"],
+               "grad_round_ms": r["accumulator"]["round_ms"]["grad"],
+               "rounds": r["accumulator"]["rounds"],
+               # this learner's env steps over its span of applied SGD steps
+               "env_steps_per_s": (r["sgd_times"][-1][1] - r["sgd_times"][0][1])
+               / max(r["sgd_times"][-1][0] - r["sgd_times"][0][0], 1e-9),
+               "env_steps_total": r["env_steps"],
+               # The loop's StepTimer EMAs (alpha 0.05): act over thousands
+               # of steps, learn and apply over ~50 (the first, cuDNN's
+               # warm-up, fades to ~8% of its weight).
+               "act_ms_ema": 1e3 * r["sections"].get("act", float("nan")),
+               "learn_ms_ema": 1e3 * r["sections"].get("learn", float("nan")),
+               "apply_ms_ema": 1e3 * r["sections"].get("apply", float("nan")),
+               "d2h_events": r["d2h_events"],
+               "d2h_staged_calls": r["accumulator"]["d2h_staged_calls"],
+               "reduce_bytes": r["accumulator"]["reduce_bytes"],
+               "mfu": r["mfu"],
+               "max_memory_allocated": r["max_memory_allocated"],
+               "wall_s": r["wall_s"]} for r in reps]}
+    log(res)
+    return res
+
+
+def phase_accumulator_lm(seed: int, device="cuda", args=None, steps: int = ACC_LM_STEPS,
+                         timeout: float = 900) -> dict:
+    """Two examples.lm elastic learners: learner 0 hosts the broker and
+    applies one step alone (its AdamW state then exists), learner 1 joins,
+    syncs the model and AdamW state, and the two take the remaining steps
+    together; the three flash kernels run in every forward and backward."""
+    port = free_port()
+    common = list(ACC_LM_ARGS if args is None else args) + [
+        "--device", device, "--seed", str(seed), "--steps", str(steps),
+        "--min_cohort", "2", "--quiet", "--log_interval", "1"]
+    argvs = [common + ["--address", f"127.0.0.1:{port}", "--local_name", "lm0"],
+             common + ["--connect", f"127.0.0.1:{port}", "--local_name", "lm1"]]
+    reps = _run_cohort("lm", argvs, timeout, wait_first=True)
+    cuda = torch.device(device).type == "cuda"
+    leader, joiner = _cohort_checks("accumulator_lm", reps, cuda)
+    if leader["rank"] != 0:
+        raise AssertionError("accumulator_lm: learner 0 stepped first and must lead")
+    if joiner["accumulator"]["model_sync_sha"] != leader["accumulator"]["model_sync_sha"]:
+        raise AssertionError("accumulator_lm: the joiner's blob sha differs from the leader's")
+    launches = {k: {f"learner{r['rank']}": r["launches"][k] for r in reps}
+                for k in reps[0]["launches"]}
+    layers = int(common[common.index("--layers") + 1])
+    if cuda and any(v < 2 * layers for per in launches.values() for v in per.values()):
+        raise AssertionError(f"accumulator_lm: flash launches {launches}")
+    payload = leader["accumulator"]["reduce_bytes"]["rpc"] / max(
+        1, leader["accumulator"]["rounds"]["grad"])
+    grad_s = 1e-3 * leader["accumulator"]["round_ms"]["grad"]
+    sync_s = 1e-3 * joiner["accumulator"]["model_sync_ms"]
+    sync_bytes = joiner["recovery"]["model_sync_bytes_rx"]
+    res = {"phase": "accumulator_lm", "processes": 2,
+           "model": "TransformerLM vocab=32768 d=1024 L=12 H=8x128 max_len 1024, learned "
+           "positions, bf16 compute, f32 parameters, flash attention" if args is None
+           else f"TransformerLM {args}",
+           "batch_per_learner": [4, 1024] if args is None else None,
+           "steps": steps, "model_version": leader["model_version"],
+           "params_sha256_equal": True,
+           "step_s": [r["step_s"] for r in reps], "grad_round_s": grad_s,
+           "payload_bytes_per_learner_round": payload,
+           "algbw_GB_per_s": payload / grad_s / 1e9 if grad_s else None,
+           "model_sync": {"bytes": sync_bytes, "s": sync_s, "GB_per_s": sync_bytes / sync_s / 1e9,
+                          "sha": joiner["accumulator"]["model_sync_sha"]},
+           "mfu": [r["mfu"] for r in reps], "launches": launches,
+           "learners": [{"rank": r["rank"], "leader": r["is_leader"], "loss": r["loss"],
+                         "count_round_ms": r["accumulator"]["round_ms"]["count"],
+                         "grad_round_ms": r["accumulator"]["round_ms"]["grad"],
+                         "d2h_events": r["d2h_events"],
+                         "d2h_staged_calls": r["accumulator"]["d2h_staged_calls"],
+                         "max_memory_allocated": r["max_memory_allocated"],
+                         "wall_s": r["wall_s"]} for r in reps]}
+    log(res)
+    return res
+
+
 def make_pool() -> EnvPool:
     """The data path's EnvPool, forked before the first CUDA call."""
     return EnvPool(SyntheticAtariEnv, **POOL)
@@ -1330,7 +1591,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     pool = make_pool()
     try:
-        kern, sass, train, sl, rl, cl = _phases(pool, args.seed)
+        kern, sass, train, sl, rl, cl, acl = _phases(pool, args.seed)
     finally:
         pool.close()
     case = kern["train"]
@@ -1353,7 +1614,8 @@ def main(argv=None) -> None:
         "launches_by_path": {"train": train["launches"][name],
                              "serve": sl["flash_fwd_launches"] if name == "flash_fwd" else 0,
                              "impala_learner": rl["flash_launches"][name],
-                             "cohort_lm": cl["launches"][name]},
+                             "cohort_lm": cl["launches"][name],
+                             "accumulator_lm": sum(acl["launches"][name].values())},
         "max_abs_err": kern["worst"][name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
@@ -1384,7 +1646,11 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     phase_cohort_impala(seed)
     torch.cuda.empty_cache()  # the learner processes share the card
     cl = phase_cohort_lm(seed)
-    return kern, sass, train, sl, rl, cl
+    torch.cuda.empty_cache()
+    phase_accumulator_impala(seed)
+    torch.cuda.empty_cache()
+    acl = phase_accumulator_lm(seed)
+    return kern, sass, train, sl, rl, cl, acl
 
 
 if __name__ == "__main__":

@@ -22,13 +22,20 @@ and never ``jax`` or anything from ``moolib_tpu``.  What it has so far:
   ``ops.returns``, the optax-form optimizers (``examples.common``), the
   losses of ``examples.vtrace.experiment`` and ``examples.a2c``, and
   ``bench``, the learner-step benchmark;
+- elastic data-parallel training: ``Accumulator`` (leader election, the
+  two-phase virtual batch, tree/bucketed/ring rounds with bf16/int8 wires,
+  chunked model sync, the ``torch.distributed`` collective plane;
+  byte-compatible with the JAX package's cohorts), ``rollout``
+  (``DeviceRollout``: [T+1, B] rollout buffers on the card), and the loops
+  that drive them: ``examples.vtrace.experiment.train``,
+  ``examples.a2c.train`` and ``examples.lm``'s elastic path, with
+  ``examples.launch`` and ``examples.plot``;
 - telemetry (metrics, tracing, exporters, the flight recorder, recovery
-  phases), ``watchdog``, ``testing`` (lock-order graph, fault plans) and
-  ``utils``.
+  phases, the device monitor ``telemetry.devmon``), ``watchdog``,
+  ``testing`` (lock-order graph, fault plans) and ``utils`` (with the
+  sorted-key ``nest.tree_flatten`` the Accumulator's wire needs).
 
-The Accumulator and the training loops that need it come next (ROADMAP
-Queue 1).  Entry points run on CUDA unless the caller passes
-``device="cpu"``.
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 # Lock-order race detection must swap the threading.Lock/RLock factories
@@ -46,12 +53,14 @@ from .rpc import Future, Queue, Rpc, RpcDeferredReturn, RpcError  # noqa: E402,F
 __version__ = "0.1.0"
 
 __all__ = [
+    "Accumulator",
     "AllReduce",
     "Broker",
     "buckets",
     "Future",
     "Group",
     "Queue",
+    "rollout",
     "Rpc",
     "RpcDeferredReturn",
     "RpcError",
@@ -65,6 +74,7 @@ __all__ = [
 
 
 _LAZY = {
+    "Accumulator": "accumulator",
     "Broker": "broker",
     "Group": "group",
     "AllReduce": "group",
@@ -74,7 +84,7 @@ _LAZY = {
 def __getattr__(name):  # lazy imports keep `import moolib_tpu_torch` light
     import importlib
 
-    if name == "buckets":
+    if name in ("buckets", "rollout"):
         value = importlib.import_module(f".{name}", __name__)
         globals()[name] = value
         return value

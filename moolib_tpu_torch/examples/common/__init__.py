@@ -4,8 +4,8 @@
 port's ``Group`` with a callable op), the TSV logger, and the optax
 optimizers the JAX examples write inline (``optax.rmsprop``,
 ``optax.adam``, ``optax.clip_by_global_norm``, ``optax.chain``) in optax
-0.2.6's own arithmetic.  The per-actor-batch state comes with the training
-loops (ROADMAP slice 4b)."""
+0.2.6's own arithmetic, and the per-actor-batch state of the training loops
+(:class:`EnvBatchState`)."""
 
 from __future__ import annotations
 
@@ -14,8 +14,10 @@ import threading
 import time
 from typing import Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
+from ...batcher import Batcher
 from ...utils.config import Config
 from ...utils.stats import RunningMeanStd, StatMean, StatSum  # noqa: F401
 
@@ -163,6 +165,83 @@ def _delta_sub(a, b):
 
 def _delta_reduce_op(a, b):
     return {k: _delta_add(a[k], b[k]) for k in a}
+
+
+class EnvBatchState:
+    """Per-actor-batch bookkeeping (reference
+    ``examples/common/__init__.py:154-207``): previous action, carried LSTM
+    state, time batcher assembling [T+1, B, ...] unrolls with the last step
+    carried into the next unroll, and episode return/step accounting."""
+
+    def __init__(self, batch_size: int, unroll_length: int, model):
+        self.batch_size = batch_size
+        self.unroll_length = unroll_length
+        self.prev_action = torch.zeros((batch_size,), dtype=torch.int64, device=model.device)
+        # Host mirror of prev_action for the host-batcher path: the realized
+        # action of the previous step, so the unroll row never forces an
+        # extra device round trip.
+        self.prev_action_host = np.zeros((batch_size,), np.int64)
+        self.core_state = model.initial_state(batch_size)
+        self.initial_core_state = self.core_state
+        self.time_batcher = Batcher(unroll_length + 1, device=None, dim=0)
+        self.future = None
+        # Device-rollout mode (moolib_tpu_torch.rollout.DeviceRollout):
+        # assigned by the experiment when --device_rollout is on; owns the
+        # [T+1, B] buffer on the card, carried core state, and the previous
+        # action — the host fields above then serve only the stats below.
+        self.rollout = None
+        self.episode_return = np.zeros(batch_size, np.float64)
+        self.episode_step = np.zeros(batch_size, np.int64)
+        self.running_reward = np.zeros(batch_size, np.float64)
+        self.step_count = 0
+
+    def update(self, obs: Dict[str, np.ndarray], stats: Optional[Dict] = None) -> None:
+        """Account rewards/episodes for a fresh observation batch."""
+        reward = np.asarray(obs["reward"], np.float64)
+        done = np.asarray(obs["done"], bool)
+        self.episode_return += reward
+        self.episode_step += 1
+        self.step_count += self.batch_size
+        if stats is not None:
+            for i in np.nonzero(done)[0]:
+                stats["mean_episode_return"] += float(self.episode_return[i])
+                stats["mean_episode_step"] += float(self.episode_step[i])
+                stats["episodes_done"] += 1
+            stats["steps_done"] += self.batch_size
+        self.episode_return[done] = 0.0
+        self.episode_step[done] = 0
+
+
+def copy_into(dst, src) -> None:
+    """Copy a received tree (``Accumulator.state()``/``parameters()``) into
+    live tensors of the same structure, in place: the optimizer and the
+    model keep their tensors (and their devices); ``None`` and scalar leaves
+    are skipped."""
+    from ...utils import nest
+
+    dl, dd = nest.tree_flatten(dst)
+    sl, sd = nest.tree_flatten(src)
+    if dd != sd:
+        raise ValueError(f"copy_into: structures differ: {dd} vs {sd}")
+    with torch.no_grad():
+        for d, s in zip(dl, sl):
+            if isinstance(d, torch.Tensor):
+                d.copy_(torch.as_tensor(s))
+
+
+def finish_together(group, pumped, seconds: float = 60.0) -> bool:
+    """End a training run together with the rest of the cohort: one
+    allreduce every member enters once it has applied its last step,
+    pumped (``update()`` of each object in ``pumped``) until it completes
+    or ``seconds`` pass.  Returns whether every member arrived; a member
+    that died errors the round and ends the wait early."""
+    fut = group.all_reduce("__train_done", 1)
+    deadline = time.time() + seconds
+    while not fut.done() and time.time() < deadline:
+        for obj in pumped:
+            obj.update()
+        time.sleep(0.002)
+    return fut.done() and fut.exception() is None
 
 
 class TsvLogger:

@@ -1,31 +1,49 @@
-"""IMPALA (V-trace) agent: the parts of the JAX package's flagship example
-(``examples/vtrace/experiment.py``) that do not need the cohort.
+"""IMPALA (V-trace) distributed agent — the port of the JAX package's
+flagship example (``examples/vtrace/experiment.py``), with the same loop
+priority order (reference ``experiment.py:364-529``):
 
-Ported: :func:`make_flags` (the same names and defaults),
-:func:`make_env_factory`, :func:`make_model`, :func:`compute_loss` and the
-optimizer (:func:`make_optimizer`: ``clip_by_global_norm`` then optax's
-``rmsprop(lr, 0.99, 0.01)``).  The learner step on the card is
-forward + :func:`compute_loss` + backward + ``make_optimizer(...).step()``;
-``moolib_tpu_torch.bench`` times it at the reference Atari shape.
+1. pump group/accumulator; serve/consume state sync
+2. stats allreduce on an interval
+3. if gradients are ready: optimizer step + ``zero_gradients``
+4. elif a learner batch is ready and the cohort wants gradients:
+   forward + V-trace loss + backward → ``reduce_gradients``
+5. else act: round-robin over double-buffered actor batches — EnvPool step,
+   the T=1 act forward writing the [T+1, B] rollout buffer on the card
+   (``rollout.DeviceRollout``), learner batches assembled by the Batcher
 
-Not yet ported: :func:`train`, whose loop drives the Broker, Group and
-Accumulator (the cohort plane, slice 4); it exits with that message, and
-so do the flags of planes the port does not have yet (:func:`unported`).
+The learner step on the card is forward + :func:`compute_loss` + backward +
+``make_optimizer(...).step()``; ``moolib_tpu_torch.bench`` times it at the
+reference Atari shape.  Flags of planes the port does not have yet exit
+with their slice (:func:`unported`).
+
+Run: ``python -m moolib_tpu_torch.examples.vtrace.experiment --env catch``
+(``--device cpu`` without a card).
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import os
+import threading
+import time
 from functools import partial
+from typing import Optional
 
+import numpy as np
 import torch
 
+from ... import Accumulator, Broker, Group, Rpc, rollout, telemetry, utils
+from ..._device import resolve
+from ...batcher import Batcher
+from ...envpool import EnvPool
 from ...envs import CartPoleEnv, CatchEnv, SyntheticAtariEnv
 from ...models.actor_critic import ActorCriticNet
 from ...models.impala import ImpalaNet
 from ...ops import vtrace
 from ...ops.returns import entropy_loss, softmax_cross_entropy
+from ...utils.profiling import StepTimer
+from ...watchdog import Watchdog
 from .. import common
 
 
@@ -38,6 +56,17 @@ def make_flags(argv=None):
         "atari:<Game> (needs ale_py) | gym:<gymnasium id> (Discrete actions)",
     )
     p.add_argument("--total_steps", type=int, default=500_000)
+    p.add_argument("--total_sgd_steps", type=int, default=0,
+                   help="also stop once the cohort's model version reaches this "
+                   "many applied SGD steps (0 = off): every peer stops at the "
+                   "same version, so their parameters can be compared")
+    p.add_argument("--min_cohort", type=int, default=1,
+                   help="after this peer's first applied SGD step, idle while "
+                   "the cohort has fewer members (a peer that seeded the "
+                   "model waits for the peers that sync it)")
+    p.add_argument("--debug_checksums", action="store_true",
+                   help="CRC-verify every applied gradient result cohort-wide "
+                   "(Accumulator.set_debug_checksums; set on every peer)")
     p.add_argument("--actor_batch_size", type=int, default=32)
     p.add_argument("--num_actor_batches", type=int, default=2)
     p.add_argument("--unroll_length", type=int, default=20)
@@ -50,32 +79,63 @@ def make_flags(argv=None):
     p.add_argument("--baseline_cost", type=float, default=0.5)
     p.add_argument("--grad_norm_clipping", type=float, default=40.0)
     p.add_argument("--use_lstm", action="store_true")
+    p.add_argument("--address", default="127.0.0.1:4431")
+    p.add_argument("--connect", default=None, help="external broker address")
+    p.add_argument(
+        "--broker_addrs", default=None,
+        help="comma-separated broker addresses (primary + hot standbys): when "
+        "the list contains --address this peer hosts the primary and "
+        "replicates to the others; otherwise it joins with failover across "
+        "the list (--connect stays the single-address alias)")
+    p.add_argument("--local_name", default=None)
+    p.add_argument("--train_id", default="impala")
+    p.add_argument("--stats_interval", type=float, default=2.0)
+    p.add_argument("--log_interval", type=float, default=5.0)
     p.add_argument("--device", default=None,
                    help="torch device, e.g. 'cuda:0' (default cuda; 'cpu' runs on the CPU)")
+    p.add_argument(
+        "--ici", action="store_true",
+        help="reduce gradients with torch.distributed (NCCL on cards, gloo on "
+        "the CPU) across the process group instead of the RPC tree; the RPC "
+        "stack still handles election/model sync/elasticity")
+    p.add_argument(
+        "--coordinator", default=None,
+        help="torch.distributed rendezvous address (tcp://host:port); "
+        "requires --num_processes and --process_id")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--wire_dtype", default=None, choices=[None, "bf16", "int8"],
+                   help="compress gradient allreduce payloads (bf16: 2x, int8+EF: 4x)")
+    p.add_argument("--chunked", action="store_true",
+                   help="force gradient rounds over the chunked ring allreduce")
+    p.add_argument("--localdir", default=None,
+                   help="write stats rows to <localdir>/logs.tsv with latest "
+                   "symlink + metadata.json")
+    p.add_argument("--wandb", action="store_true",
+                   help="log stats to wandb when the package is installed")
+    p.add_argument("--watchdog", type=float, default=0.0,
+                   help="deadman seconds per loop section (0 = off)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--batcher_max_outstanding", type=int, default=None,
                    help="bound the learn batcher's ready queue (default unbounded)")
+    p.add_argument(
+        "--device_rollout", type=_bool_flag, default=True,
+        help="device-resident actor pipeline: [T+1, B] rollout buffers on the "
+        "card written in place by the act step, uint8 single-crossing obs "
+        "upload, async action fetch, learner batches assembled on the card.  "
+        "--device_rollout false keeps the host-batcher path")
     # Flags of the JAX example whose planes the port has not yet, with the
     # JAX defaults; unported() names the ones set and their slice.
-    for flag, default in (("address", "127.0.0.1:4431"), ("connect", None),
-                          ("broker_addrs", None), ("local_name", None), ("train_id", "impala"),
-                          ("checkpoint", None), ("checkpoint_dir", None), ("coordinator", None),
-                          ("mesh", None), ("wire_dtype", None), ("trace_dir", None),
-                          ("localdir", None), ("compile_cache_dir", None)):
+    for flag, default in (("checkpoint", None), ("checkpoint_dir", None), ("mesh", None),
+                          ("trace_dir", None), ("compile_cache_dir", None)):
         p.add_argument(f"--{flag}", default=default, help="not yet ported")
-    for flag in ("ici", "shard_grads", "chunked", "overlap_grads", "wandb", "autoscale"):
+    for flag in ("shard_grads", "overlap_grads", "autoscale"):
         p.add_argument(f"--{flag}", action="store_true", help="not yet ported")
-    for flag, default in (("checkpoint_interval", 600.0), ("stats_interval", 2.0),
-                          ("log_interval", 5.0), ("autoscale_interval", 2.0),
-                          ("watchdog", 0.0)):
+    for flag, default in (("checkpoint_interval", 600.0), ("autoscale_interval", 2.0)):
         p.add_argument(f"--{flag}", type=float, default=default, help="not yet ported")
-    for flag, default in (("num_processes", None), ("process_id", None), ("actor_mesh", 0),
-                          ("autoscale_min", 1), ("autoscale_max", 4)):
+    for flag, default in (("actor_mesh", 0), ("autoscale_min", 1), ("autoscale_max", 4)):
         p.add_argument(f"--{flag}", type=int, default=default, help="not yet ported")
-    p.add_argument("--device_rollout", type=_bool_flag, default=True,
-                   help="device-resident actor pipeline (not yet ported: pass "
-                   "--device_rollout false for the host EnvPool + Batcher path)")
     p.add_argument("--env_backend", default="envpool", choices=["envpool", "jax"],
                    help="envpool: host envs in worker processes; jax: on-device "
                    "envs (not yet ported)")
@@ -222,23 +282,494 @@ def unported(flags) -> list:
     yet."""
     out = []
     for flag, slice_ in (("mesh", 9), ("actor_mesh", 9), ("shard_grads", 9),
-                         ("overlap_grads", 4), ("ici", 4), ("coordinator", 4),
-                         ("wire_dtype", 4), ("checkpoint", 7), ("checkpoint_dir", 7),
-                         ("autoscale", 7), ("compile_cache_dir", 7)):
+                         ("overlap_grads", 9), ("checkpoint", 7), ("checkpoint_dir", 7),
+                         ("autoscale", 7), ("compile_cache_dir", 7), ("trace_dir", 7)):
         if flags.get(flag):
             out.append((f"--{flag}", slice_))
     if flags.env_backend == "jax":
         out.append(("--env_backend jax", 10))
-    if flags.device_rollout:
-        out.append(("--device_rollout", 10))
     return out
 
 
 def train(flags, on_stats=None) -> dict:
-    """Not yet ported: the loop drives the cohort plane (Broker, Group,
-    Accumulator), which comes with slice 4."""
-    missing = [("train()", 4)] + unported(flags)
-    raise SystemExit("; ".join(f"{f}: not yet ported (slice {n})" for f, n in missing))
+    """The JAX package's IMPALA loop, step for step (``experiment.py:401``):
+    EnvPool actors, the device rollout (or the host batcher), the learn
+    Batcher, the Accumulator cohort (leader election, model sync, virtual
+    batches, wire compression), V-trace on the card, the optax-form
+    optimizer, the cohort stats reduce, the watchdog and the TSV log.
+    Returns the run's summary (steps, episodes, sgd_steps, the mean episode
+    return, sps, mfu)."""
+    missing = unported(flags)
+    if missing:
+        raise SystemExit("; ".join(f"{f}: not yet ported (slice {n})" for f, n in missing))
+    device = resolve(flags.device)
+    tele = telemetry.init_from_env()
+    if tele["http_port"]:
+        print(f"telemetry: http://127.0.0.1:{tele['http_port']}/metrics", flush=True)
+    from ...testing import faults as _faults
+
+    _faults.install_from_env()  # opt-in chaos (MOOLIB_FAULTS; no-op unset)
+
+    env_factory, num_actions, obs_shape = make_env_factory(flags)
+    # Fork env workers before this process touches the card or joins a
+    # process group (EnvPool forks only then; forkserver after).
+    envs = [
+        EnvPool(
+            env_factory,
+            num_processes=flags.num_env_processes,
+            batch_size=flags.actor_batch_size,
+            num_batches=1,
+        )
+        for _ in range(flags.num_actor_batches)
+    ]
+    if flags.coordinator:
+        # Multi-process collective plane (--ici): join the process group
+        # after the pools forked.
+        import torch.distributed as dist
+
+        dist.init_process_group(
+            backend="nccl" if device.type == "cuda" else "gloo",
+            init_method=flags.coordinator,
+            world_size=flags.num_processes,
+            rank=flags.process_id,
+        )
+
+    gen = torch.Generator().manual_seed(flags.seed)
+    model = make_model(flags, num_actions, obs_shape, device=device, generator=gen)
+    opt = make_optimizer(model.parameters(), flags)
+    named = dict(model.named_parameters())
+    B = flags.actor_batch_size
+    T = flags.unroll_length
+
+    def learn_step(batch, initial_core):
+        """Forward, V-trace loss and backward; the gradients are fresh
+        tensors (``.grad`` set to None first), returned as a name tree."""
+        opt.zero_grad()
+        loss, aux = compute_loss(batch, initial_core, model, flags)
+        loss.backward()
+        return loss.detach(), aux, {k: p.grad for k, p in named.items()}
+
+    # --- cohort wiring ---------------------------------------------------
+    broker: Optional[Broker] = None
+    broker_list = [a.strip() for a in (flags.broker_addrs or "").split(",")
+                   if a.strip()]
+    # Host when no external broker was named: --connect, or a --broker_addrs
+    # list that does NOT include our own --address, means join-only.
+    hosting = flags.connect is None and (
+        not broker_list or flags.address in broker_list)
+    if hosting:
+        broker = Broker()
+        broker.set_name("broker")
+        broker.listen(flags.address)
+        standbys = [a for a in broker_list if a != flags.address]
+        if standbys:
+            broker.set_peer_brokers(standbys)
+    connect_addrs = broker_list or [flags.connect or flags.address]
+
+    rpc = Rpc()
+    rpc.set_name(flags.local_name or f"impala-{os.getpid()}")
+    rpc.listen("127.0.0.1:0")
+    for a in connect_addrs:
+        rpc.connect(a)
+    rpc_group = Group(rpc, name=flags.train_id)
+    if len(connect_addrs) > 1:
+        rpc_group.set_brokers(connect_addrs)
+    accumulator = Accumulator("model", named, buffers=None, group=rpc_group)
+    accumulator.set_virtual_batch_size(flags.virtual_batch_size)
+    if flags.ici:
+        accumulator.set_ici_backend(True)
+    if flags.wire_dtype == "bf16":
+        accumulator.set_wire_dtype(torch.bfloat16)
+    elif flags.wire_dtype == "int8":
+        accumulator.set_wire_dtype("int8")
+    if flags.chunked:
+        accumulator.set_chunked_allreduce(True)
+    if flags.debug_checksums:
+        accumulator.set_debug_checksums(True)
+
+    stats = {
+        "mean_episode_return": common.StatMean(),
+        "mean_episode_step": common.StatMean(),
+        "episodes_done": common.StatSum(),
+        "steps_done": common.StatSum(),
+        "sgd_steps": common.StatSum(),
+        "loss": common.StatMean(),
+        "pg_loss": common.StatMean(),
+        "entropy_loss": common.StatMean(),
+    }
+    # Registry counter deltas piggyback on the same periodic stats reduce:
+    # leader logs can show fleet-wide env/wire rates with no extra protocol.
+    stats["telemetry"] = telemetry.CohortCounters()
+    global_stats = common.GlobalStatsAccumulator(rpc_group, stats)
+    timer = StepTimer()  # registry-backed loop-phase breakdown
+    # Device performance plane: the counted FLOPs of the learn step (once
+    # per geometry), combined with the StepTimer "learn" EMA into step_mfu.
+    devmon_cost: dict = {}
+    wd = Watchdog(timeout=flags.watchdog, name="impala")
+
+    tsv = None
+    if flags.localdir:
+        tsv = common.TsvLogger(
+            os.path.join(flags.localdir, "logs.tsv"),
+            metadata={"train_id": flags.train_id, "env": flags.env},
+        )
+    recovery_written = False
+    wandb_run = None
+    if flags.wandb:
+        try:
+            import wandb
+
+            wandb_run = wandb.init(project=flags.train_id, config=flags.to_dict())
+        except Exception as e:  # noqa: BLE001 — gated: package absent or offline
+            utils.log_error("wandb requested but unavailable: %s", e)
+
+    env_states = [common.EnvBatchState(B, T, model) for _ in range(flags.num_actor_batches)]
+    act_gen = torch.Generator(device=device).manual_seed(flags.seed + 1)
+    if flags.device_rollout:
+        # Rollout buffers on the card, sized from the pool's discovered spec
+        # so the env's own dtype — uint8 for frames — is what crosses.
+        env_obs_shape, env_obs_dtype = envs[0].obs_spec["state"]
+        for i, st in enumerate(env_states):
+            st.rollout = rollout.DeviceRollout(
+                model, B, T, env_obs_shape, env_obs_dtype, num_actions,
+                seed=flags.seed + 1 + i,
+            )
+    # Learner batches on the card ([T+1, B] along dim 1); unrolls from the
+    # device rollout are assembled there without a crossing.
+    learn_batcher = Batcher(
+        flags.batch_size, device=device if device.type != "cpu" else None, dim=1,
+        max_outstanding=flags.batcher_max_outstanding, name="learn",
+    )
+    core_batcher = (
+        Batcher(flags.batch_size, device=device if device.type != "cpu" else None, dim=0)
+        if flags.use_lstm
+        else None
+    )
+
+    # Learner scalars stay on the card until the stats/log tick: one fetch
+    # per tick instead of a float(loss) sync every SGD step.
+    pending_learn_stats: list = []
+
+    def _flush_learn_stats() -> None:
+        if not pending_learn_stats:
+            return
+        rows = torch.stack([torch.stack(r) for r in pending_learn_stats]).tolist()
+        for loss_v, pg_v, ent_v in rows:
+            stats["loss"] += float(loss_v)
+            stats["pg_loss"] += float(pg_v)
+            stats["entropy_loss"] += float(ent_v)
+        pending_learn_stats.clear()
+
+    last_stats = time.monotonic()
+    last_log = time.monotonic()
+    final_return = None
+    start = time.time()
+    sgd_times = []  # (wall time, this peer's env steps) at each applied SGD step
+    sps_samples = [(start, 0.0)]
+    cur = 0
+    # Graceful shutdown: SIGTERM stops the loop so the finally block runs.
+    stop_requested = False
+
+    def _on_sigterm(signum, frame):
+        nonlocal stop_requested
+        stop_requested = True
+
+    import signal as _signal
+
+    prev_sigterm = None
+    if threading.current_thread() is threading.main_thread():
+        prev_sigterm = _signal.signal(_signal.SIGTERM, _on_sigterm)
+
+    # Kick off the first step of every actor batch (double buffering).
+    for i, st in enumerate(env_states):
+        st.future = envs[i].step(0, np.zeros(B, np.int64))
+
+    try:
+        while stats["steps_done"].value < flags.total_steps and not stop_requested and not (
+                flags.total_sgd_steps and accumulator.model_version() >= flags.total_sgd_steps):
+            if broker is not None:
+                broker.update()
+            rpc_group.update()
+            accumulator.update()
+
+            if accumulator.wants_state():
+                accumulator.set_state(
+                    {"opt_state": opt.state, "steps": stats["steps_done"].value}
+                )
+            if accumulator.has_new_state():
+                st = accumulator.state()
+                if st is not None:
+                    # The leader's model and optimizer state, into the live
+                    # tensors (the accumulator keeps the live tree).
+                    common.copy_into(named, accumulator.parameters())
+                    common.copy_into(opt.state, st["opt_state"])
+                    accumulator.set_parameters(named)
+
+            if not accumulator.connected() or (
+                    sgd_times and accumulator.cohort_size() < flags.min_cohort):
+                time.sleep(0.05)
+                continue
+
+            now = time.monotonic()
+            if now - last_stats > flags.stats_interval:
+                last_stats = now
+                _flush_learn_stats()  # one fetch; cohort sees fresh loss
+                global_stats.reduce(stats)
+
+            if accumulator.has_gradients():
+                with timer.section("apply"), wd.section("apply"):
+                    grads = accumulator.gradients()
+                    for k, p in named.items():
+                        p.grad = grads[k]
+                    opt.step()
+                    accumulator.set_parameters(named)
+                    accumulator.zero_gradients()
+                stats["sgd_steps"] += 1
+                sgd_times.append((time.time(), sum(e.step_count for e in env_states)))
+            elif not learn_batcher.empty() and accumulator.wants_gradients():
+                with timer.section("learn"), wd.section("learn"):
+                    batch = _as_tensors(learn_batcher.get(), device)
+                    initial_core = (
+                        _as_tensors(core_batcher.get(), device)
+                        if core_batcher is not None else ()
+                    )
+                    loss, aux, grads = learn_step(batch, initial_core)
+                    pending_learn_stats.append(
+                        (loss, aux["pg_loss"].detach(), aux["entropy_loss"].detach())
+                    )
+                    # CUDA gradients go straight in: the Accumulator stages
+                    # them into pinned memory with one event.
+                    accumulator.reduce_gradients(flags.batch_size, grads)
+                if "cost" not in devmon_cost:
+                    # One count per geometry, outside the learn clock (a
+                    # second forward+backward under FlopCounterMode; its
+                    # gradients are dropped).
+                    devmon_cost["cost"] = telemetry.devmon.step_cost(
+                        "vtrace.grad", learn_step, batch, initial_core
+                    )
+            else:
+                # --- act ------------------------------------------------
+                st = env_states[cur]
+                with timer.section("env_wait"), wd.section("env_wait"):
+                    obs = st.future.result()
+                st.update(obs, stats)
+                if flags.device_rollout:
+                    # Device-resident path: obs cross once (own dtype), the
+                    # act step writes row t of the [T+1, B] buffer in place,
+                    # and the action comes back asynchronously.
+                    with timer.section("act"), wd.section("act"):
+                        pending = st.rollout.step(obs)
+                    unroll = st.rollout.take_unroll()  # tensors or None
+                    if unroll is not None:
+                        learn_batcher.cat(unroll)
+                        if core_batcher is not None:
+                            core_batcher.cat(st.rollout.completed_initial_core)
+                    with timer.section("act_fetch"), wd.section("act_fetch"):
+                        action_np = pending.realize()
+                    st.future = envs[cur].step(0, action_np)
+                else:
+                    _act_host(st, obs, model, act_gen, device, envs[cur], learn_batcher,
+                              core_batcher, timer, wd)
+                cur = (cur + 1) % flags.num_actor_batches
+
+            if not recovery_written and flags.localdir:
+                rec = accumulator.recovery_info()
+                if rec["complete"]:
+                    recovery_written = True
+                    import json as _json
+
+                    with open(os.path.join(flags.localdir, "recovery.json"), "w") as f:
+                        _json.dump(rec, f, indent=1)
+                    if not flags.quiet:
+                        print(f"recovered: {_json.dumps(rec)}", flush=True)
+
+            if now - last_log > flags.log_interval:
+                last_log = now
+                _flush_learn_stats()
+                sps = stats["steps_done"].value / max(time.time() - start, 1e-6)
+                sps_samples.append((time.time(), stats["steps_done"].value))
+                ret = stats["mean_episode_return"].result()
+                telemetry.devmon.sample_memory()
+                mfu_info = None
+                learn_s = timer.summary().get("learn")
+                if devmon_cost.get("cost") is not None and learn_s:
+                    mfu_info = telemetry.devmon.publish_step(
+                        "vtrace.grad", devmon_cost["cost"], learn_s
+                    )
+                if mfu_info is not None:
+                    devmon_cost["mfu"] = mfu_info["mfu"]
+                if not flags.quiet:
+                    fleet_env = stats["telemetry"].value("envpool_steps_total")
+                    mfu_s = (
+                        f" mfu={mfu_info['mfu']:.3%} bound={mfu_info['bound']}"
+                        if mfu_info is not None
+                        else ""
+                    )
+                    print(
+                        f"steps={int(stats['steps_done'].value)} sps={sps:.0f} "
+                        f"return={ret if ret is None else round(ret, 2)} "
+                        f"sgd={int(stats['sgd_steps'].value)} "
+                        f"loss={stats['loss'].result()} "
+                        f"fleet_env_steps={int(fleet_env)}{mfu_s} "
+                        f"[{timer.report()}]",
+                        flush=True,
+                    )
+                if on_stats is not None or tsv is not None or wandb_run is not None:
+                    row = {
+                        k: v.result() if hasattr(v, "result") else v
+                        for k, v in stats.items()
+                        if not isinstance(v, telemetry.CohortCounters)
+                    }
+                    if on_stats is not None:
+                        on_stats(row)
+                    adbg = accumulator.debug_info()
+                    row = dict(
+                        row,
+                        sps=round(sps, 1),
+                        reduce_plane=adbg["last_plane"],
+                        ici_reduces=adbg["ici_reduces"],
+                        rpc_reduces=adbg["rpc_reduces"],
+                        model_version=accumulator.model_version(),
+                    )
+                    if tsv is not None:
+                        tsv.log(**row)
+                    if wandb_run is not None:
+                        wandb_run.log(row)
+                last_return = stats["mean_episode_return"].result()
+                if last_return is not None:
+                    final_return = last_return
+                # Windowed stats reset through the accumulator so the delta
+                # allreduce stays in sync.
+                global_stats.local_reset(
+                    "loss", "pg_loss", "entropy_loss",
+                    "mean_episode_return", "mean_episode_step",
+                )
+        _flush_learn_stats()
+        sps_samples.append((time.time(), stats["steps_done"].value))
+        if flags.total_sgd_steps:
+            # Every peer stops at the same version: leave together, so the
+            # peer that applied the last result first (and may host the
+            # broker) cannot take that result's delivery down with it.
+            common.finish_together(rpc_group, [b for b in (broker,) if b] + [rpc_group, accumulator])
+        # The cohort's end state, for runs that compare their peers: the
+        # sha256 of the parameters (sorted names, f32 bytes), the
+        # Accumulator's planes and recovery phases, the loop's sections.
+        import hashlib
+
+        h = hashlib.sha256()
+        for k in sorted(named):
+            h.update(named[k].detach().float().cpu().numpy().tobytes())
+        cohort_end = {
+            "model_version": accumulator.model_version(),
+            "is_leader": accumulator.is_leader(),
+            "params_sha256": h.hexdigest(),
+            "accumulator": accumulator.debug_info(),
+            "recovery": accumulator.recovery_info(),
+            "sections": timer.summary(),
+        }
+    finally:
+        wd.close()
+        if prev_sigterm is not None:
+            _signal.signal(_signal.SIGTERM, prev_sigterm)
+        for e in envs:
+            e.close()
+        accumulator.close()
+        rpc.close()
+        if broker is not None:
+            broker.close()
+        if wandb_run is not None:
+            try:
+                wandb_run.finish()
+            except Exception:  # noqa: BLE001
+                pass
+        telemetry.flush()  # final JSONL snapshot + host trace, if enabled
+
+    if "mfu" not in devmon_cost and devmon_cost.get("cost") is not None:
+        learn_s = timer.summary().get("learn")
+        if learn_s:
+            fin = telemetry.devmon.publish_step("vtrace.grad", devmon_cost["cost"], learn_s)
+            if fin is not None:
+                devmon_cost["mfu"] = fin["mfu"]
+
+    recent = stats["mean_episode_return"].result()
+    final_steps = stats["steps_done"].value
+    if sps_samples[-1][1] < final_steps:  # loop left via an exception path
+        sps_samples.append((time.time(), final_steps))
+    mid = next((s for s in sps_samples if s[1] >= final_steps / 2), sps_samples[0])
+    end = sps_samples[-1]
+    steady = (
+        (end[1] - mid[1]) / (end[0] - mid[0])
+        if end[0] > mid[0] and end[1] > mid[1]
+        else None
+    )
+    return {
+        "steps": final_steps,
+        "episodes": stats["episodes_done"].value,
+        "sgd_steps": stats["sgd_steps"].value,
+        "mean_episode_return": recent if recent is not None else final_return,
+        "sps": final_steps / max(time.time() - start, 1e-6),
+        "steady_sps": None if steady is None else round(steady, 1),
+        "mfu": devmon_cost.get("mfu"),
+        "sgd_times": sgd_times,
+        **cohort_end,
+    }
+
+
+def _as_tensors(tree, device):
+    """A learner batch from the Batcher as tensors on ``device`` (the host
+    path without a card yields numpy)."""
+    return utils.nest.map(
+        lambda x: torch.from_numpy(x).to(device) if isinstance(x, np.ndarray) else x, tree)
+
+
+@torch.no_grad()
+def _act_host(st, obs, model, generator, device, env, learn_batcher, core_batcher, timer, wd):
+    """One act step of the host-batcher path (``--device_rollout false``):
+    float32 staging on the host and three boundary crossings per frame,
+    counted on the same telemetry as the device path."""
+    # np.array (copy=True): obs are zero-copy shm views the env workers
+    # overwrite on the next step — the unroll rows must own their memory.
+    state_f32 = np.array(obs["state"], np.float32)
+    reward_np = np.array(obs["reward"], np.float32)
+    done_np = np.array(obs["done"], bool)
+    inputs = {
+        "state": torch.from_numpy(state_f32).to(device)[None],
+        "reward": torch.from_numpy(reward_np).to(device)[None],
+        "done": torch.from_numpy(done_np).to(device)[None],
+        "prev_action": st.prev_action[None],
+    }
+    rollout.count_h2d(state_f32.nbytes + reward_np.nbytes + done_np.nbytes)
+    rollout.count_frames(st.batch_size)
+    core_before = st.core_state  # LSTM state entering this step
+    with timer.section("act"), wd.section("act"):
+        out, new_core = model(inputs, st.core_state, sample_generator=generator)
+    action = out["action"][0]
+    action_np = action.cpu().numpy()
+    logits_np = out["policy_logits"][0].cpu().numpy()
+    rollout.count_d2h(action_np.nbytes + logits_np.nbytes)
+    st.future = env.step(0, action_np)
+    st.time_batcher.stack(
+        {
+            "state": state_f32,
+            "reward": reward_np,
+            "done": done_np,
+            "prev_action": st.prev_action_host,
+            "action": action_np,
+            "policy_logits": logits_np,
+        }
+    )
+    st.prev_action = action
+    st.prev_action_host = action_np
+    st.core_state = new_core
+    if not st.time_batcher.empty():
+        unroll = st.time_batcher.get()  # [T+1, B, ...] host
+        learn_batcher.cat(unroll)
+        if core_batcher is not None:
+            core_batcher.cat(st.initial_core_state)
+        # Carry the last timestep into the next unroll; its initial LSTM
+        # state is the state *before* that step.
+        st.initial_core_state = core_before
+        st.time_batcher.stack({k: v[-1] for k, v in unroll.items()})
 
 
 def main(argv=None):

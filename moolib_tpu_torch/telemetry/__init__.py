@@ -4,9 +4,10 @@ The slim counterpart of the JAX package's ``telemetry`` package: the metric
 registry, the host span tracer (with the distributed trace context the RPC
 layer carries on every call frame), the opt-in exporters, the flight
 recorder of notable events (``flightrec``: epoch bumps, broker failovers,
-watchdog expiries) and :class:`CohortCounters`, which ship counter deltas
-on the agents' ``GlobalStatsAccumulator`` reduce.  The device monitor,
-profiling, timeline and aggregator planes come with later slices;
+watchdog expiries), :class:`CohortCounters`, which ship counter deltas
+on the agents' ``GlobalStatsAccumulator`` reduce, and the device monitor
+(``devmon``: card memory, counted step FLOPs, MFU).  The profiling,
+timeline and aggregator planes come with later slices;
 ``recovery`` (the ``recovery_seconds{phase}`` family) came with EnvPool's
 worker supervision.
 
@@ -69,6 +70,7 @@ from .flightrec import (  # noqa: F401
 )
 from .cohort import CohortCounters  # noqa: F401
 from .recovery import observe_phase  # noqa: F401
+from . import devmon  # noqa: F401,E402  (torch imported lazily inside)
 
 __all__ = [
     "CohortCounters",
@@ -144,6 +146,7 @@ def init_from_env() -> dict:
                 _warn(f"jsonl exporter disabled ({e!r})")
         if os.environ.get("MOOLIB_TELEMETRY_SIGUSR1", "1") != "0":
             install_signal_dump(run_dir)
+        devmon.install_from_env()  # MOOLIB_DEVMON_INTERVAL memory sampler
         return {"http_port": _http_port, "run_dir": run_dir}
 
 

@@ -141,3 +141,111 @@ def _index_axis(x, dim, i):
     idx = [slice(None)] * np.ndim(x)
     idx[dim] = i
     return x[tuple(idx)]
+
+
+# ------------------------------------------------------------ sorted pytrees
+#
+# The Accumulator's flatten order is wire protocol: the JAX package flattens
+# gradient and parameter trees with ``jax.tree_util.tree_flatten``, which
+# visits dict keys in sorted order and treats ``None`` as a node with no
+# leaves, so a flat bucket layout or a q8 scale list means the same leaf on
+# every peer only when the port flattens the same way.  :func:`flatten`
+# above keeps insertion order (the Group's convention in both packages) and
+# must not be used there.
+
+
+class TreeDef:
+    """The structure of a tree flattened by :func:`tree_flatten`: hashable
+    and comparable (layout caches key on it), and able to rebuild the tree
+    from a leaf list (:meth:`unflatten`)."""
+
+    __slots__ = ("_spec", "num_leaves")
+
+    def __init__(self, spec, num_leaves: int):
+        self._spec = spec
+        self.num_leaves = num_leaves
+
+    def __eq__(self, other):
+        return isinstance(other, TreeDef) and self._spec == other._spec
+
+    def __hash__(self):
+        return hash(self._spec)
+
+    def __repr__(self):
+        return f"TreeDef({self._spec!r})"
+
+    def unflatten(self, leaves: Sequence[Any]) -> Nest:
+        leaves = list(leaves)
+        if len(leaves) != self.num_leaves:
+            raise ValueError(
+                f"tree_unflatten: {len(leaves)} leaves for a tree of {self.num_leaves}")
+        it = iter(leaves)
+
+        def build(spec):
+            if spec is _LEAF:
+                return next(it)
+            kind, aux, children = spec
+            if kind is type(None):
+                return None
+            vals = [build(c) for c in children]
+            if issubclass(kind, dict):
+                return kind(_zip(aux, vals))
+            if aux == "namedtuple":
+                return kind(*vals)
+            return kind(vals)
+
+        return build(self._spec)
+
+
+_LEAF = "*"
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_flatten(tree: Nest):
+    """``(leaves, treedef)`` in ``jax.tree_util.tree_flatten``'s order:
+    plain dict keys sorted, an ``OrderedDict`` in its own order, tuples,
+    lists and namedtuples by position, ``None`` a node without leaves."""
+    leaves = []
+
+    def walk(x):
+        if x is None:
+            return (type(None), None, ())
+        if isinstance(x, dict):
+            keys = tuple(x) if type(x) is not dict and hasattr(x, "move_to_end") \
+                else tuple(sorted(x))
+            return (type(x), keys, tuple(walk(x[k]) for k in keys))
+        if _is_namedtuple(x):
+            return (type(x), "namedtuple", tuple(walk(v) for v in x))
+        if isinstance(x, (tuple, list)):
+            return (type(x), None, tuple(walk(v) for v in x))
+        leaves.append(x)
+        return _LEAF
+
+    spec = walk(tree)
+    return leaves, TreeDef(spec, len(leaves))
+
+
+def tree_unflatten(treedef: TreeDef, leaves: Sequence[Any]) -> Nest:
+    """Inverse of :func:`tree_flatten`."""
+    return treedef.unflatten(leaves)
+
+
+def tree_leaves(tree: Nest) -> list:
+    """The leaves of ``tree`` in :func:`tree_flatten` order."""
+    return tree_flatten(tree)[0]
+
+
+def tree_map(f: Callable, tree: Nest, *rest: Nest) -> Nest:
+    """``f`` over corresponding leaves (``rest`` shares ``tree``'s
+    structure), rebuilt in ``tree``'s structure."""
+    leaves, treedef = tree_flatten(tree)
+    others = []
+    for r in rest:
+        rl, rd = tree_flatten(r)
+        if rd != treedef:
+            raise ValueError(f"tree_map: structures differ: {treedef} vs {rd}")
+        others.append(rl)
+    return treedef.unflatten(f(*xs) for xs in _zip(leaves, *others))

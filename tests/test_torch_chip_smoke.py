@@ -4,8 +4,10 @@ the kernel line reports; a CPU rehearsal of the IMPALA phases at 20x20
 frames, T=3, B=2 with the CUDA calls monkeypatched; a CPU rehearsal of the
 cohort phases (ImpalaNet at 20x20 frames over four in-process peers and a
 broker process, and two spawned learner processes reducing an LM of
-d_model 64 with 2 layers); and the CPU smoke of
-``python -m moolib_tpu_torch.bench``."""
+d_model 64 with 2 layers); a CPU rehearsal of the Accumulator phases (two
+spawned learner processes each through the examples' own loops: the
+IMPALA loop on Catch's 10x5 frames, and the elastic LM of d_model 64 with
+2 layers); and the CPU smoke of ``python -m moolib_tpu_torch.bench``."""
 
 import functools
 import json
@@ -218,3 +220,40 @@ def test_cohort_lm_phase_rehearsal(monkeypatch, capsys):
     assert res["round_s_median"] > 0 and res["algbw_GB_per_s"] > 0
     assert res["learners"][0]["loss"] != res["learners"][1]["loss"]  # own batches
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "cohort_lm"
+
+
+def test_accumulator_impala_phase_rehearsal(capsys, monkeypatch):
+    """Two experiment.train() learners on Catch (ImpalaNet (16, 32) on 10x5
+    frames), virtual batch 8, to model version 6: equal parameters, zero
+    checksum divergences, the joiner synced through the chunked transfer."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the spawned learners share the cores
+    res = chip_smoke.phase_accumulator_impala(
+        0, device="cpu", sgd_steps=6, timeout=300,
+        args=["--env", "catch", "--unroll_length", "5", "--batch_size", "4",
+              "--actor_batch_size", "4", "--num_actor_batches", "2",
+              "--num_env_processes", "1", "--virtual_batch_size", "8"])
+    assert res["model_version"] == 6 and res["params_sha256_equal"]
+    assert res["checksum_divergences"] == 0 and res["model_sync"]["bytes"] > 0
+    assert res["sgd_steps_per_s"] > 0 and len(res["learners"]) == 2
+    for row in res["learners"]:
+        assert row["elections"] >= 1 and row["grad_round_ms"] > 0
+        assert row["d2h_events"] == row["d2h_staged_calls"] == 0  # no card
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "accumulator_impala"
+
+
+def test_accumulator_lm_phase_rehearsal(capsys, monkeypatch):
+    """Two elastic lm.train() learners (d_model 64, 2 layers): learner 0
+    steps alone, learner 1 joins and syncs model and AdamW state under the
+    leader's sha, then both step together to equal parameters."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    res = chip_smoke.phase_accumulator_lm(
+        0, device="cpu", steps=3, timeout=300,
+        args=["--vocab", "64", "--d_model", "64", "--layers", "2", "--heads", "2",
+              "--seq_len", "32", "--batch_size", "4", "--virtual_batch_size", "8",
+              "--attention", "flash", "--mesh", "", "--learning_rate", "1e-3"])
+    assert res["model_version"] == 3 and res["params_sha256_equal"]
+    assert res["model_sync"]["bytes"] > 0 and res["model_sync"]["sha"]
+    assert all(s > 0 for s in res["step_s"]) and all(m > 0 for m in res["mfu"])
+    # the plain attention on the CPU: no kernel launches
+    assert all(v == 0 for per in res["launches"].values() for v in per.values())
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "accumulator_lm"

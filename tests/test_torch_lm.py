@@ -75,7 +75,9 @@ def test_lm_trains_single_device_on_cpu(attention):
         "--steps", "120", "--quiet", "--device", "cpu",
     ]), on_stats=stats.append)
     assert out["acc"] > 0.9, out
-    assert out["steps"] == 120 and out["mfu"] is None and out["tokens_per_s"] > 0
+    # devmon counts the step's FLOPs once, so the run reports an MFU (on
+    # the CPU against the nominal peak: a relative number only).
+    assert out["steps"] == 120 and out["mfu"] > 0 and out["tokens_per_s"] > 0
     assert [s["step"] for s in stats] == [50, 100]
 
 
@@ -91,8 +93,8 @@ def test_lm_trains_with_remat_on_cpu():
     ([], 9),  # the JAX defaults: --mesh dp=2,sp=4 --attention ring
     (["--mesh", "", "--attention", "ring"], 9),
     (["--mesh", "", "--attention", "dense", "--moe_experts", "4"], 9),
-    (["--mesh", "", "--attention", "dense", "--connect", "127.0.0.1:1"], 4),
-    (["--mesh", "", "--attention", "dense", "--overlap_grads"], 4),
+    (["--mesh", "", "--attention", "dense", "--shard_grads"], 9),
+    (["--mesh", "", "--attention", "dense", "--overlap_grads"], 9),
     (["--mesh", "", "--attention", "dense", "--publish_every", "2"], 5),
     (["--mesh", "", "--attention", "dense", "--checkpoint_dir", "x"], 7),
     (["--mesh", "", "--attention", "dense", "--compile_cache_dir", "x"], 7),

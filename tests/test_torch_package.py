@@ -51,7 +51,10 @@ def test_import_every_module_leaves_jax_out():
                 "moolib_tpu_torch.group", "moolib_tpu_torch.buckets",
                 "moolib_tpu_torch.telemetry.flightrec", "moolib_tpu_torch.telemetry.cohort",
                 "moolib_tpu_torch.testing", "moolib_tpu_torch.testing.lockgraph",
-                "moolib_tpu_torch.testing.faults", "moolib_tpu_torch.utils.stats"):
+                "moolib_tpu_torch.testing.faults", "moolib_tpu_torch.utils.stats",
+                "moolib_tpu_torch.accumulator", "moolib_tpu_torch.checkpoint",
+                "moolib_tpu_torch.rollout", "moolib_tpu_torch.telemetry.devmon",
+                "moolib_tpu_torch.examples.launch", "moolib_tpu_torch.examples.plot"):
         assert mod in mods, mod
     code = "import sys\n" + "".join(f"import {m}\n" for m in mods) + (
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
@@ -141,15 +144,15 @@ def test_unported_paths_say_so():
 
 
 @pytest.mark.parametrize("argv,named", [
-    ([], "--device_rollout: not yet ported (slice 10)"),
-    (["--device_rollout", "false"], "train(): not yet ported (slice 4)"),
+    (["--trace_dir", "d"], "--trace_dir: not yet ported (slice 7)"),
+    (["--compile_cache_dir", "d"], "--compile_cache_dir: not yet ported (slice 7)"),
     (["--mesh", "dp=2"], "--mesh: not yet ported (slice 9)"),
     (["--actor_mesh", "1"], "--actor_mesh: not yet ported (slice 9)"),
     (["--env_backend", "jax"], "--env_backend jax: not yet ported (slice 10)"),
-    (["--overlap_grads"], "--overlap_grads: not yet ported (slice 4)"),
-    (["--ici"], "--ici: not yet ported (slice 4)"),
-    (["--coordinator", "h:1"], "--coordinator: not yet ported (slice 4)"),
-    (["--wire_dtype", "bf16"], "--wire_dtype: not yet ported (slice 4)"),
+    (["--overlap_grads"], "--overlap_grads: not yet ported (slice 9)"),
+    (["--shard_grads"], "--shard_grads: not yet ported (slice 9)"),
+    (["--checkpoint", "ckpt_dir"], "--checkpoint: not yet ported (slice 7)"),
+    (["--device_rollout", "false", "--autoscale"], "--autoscale: not yet ported (slice 7)"),
     (["--checkpoint", "x.pkl"], "--checkpoint: not yet ported (slice 7)"),
     (["--checkpoint_dir", "d"], "--checkpoint_dir: not yet ported (slice 7)"),
     (["--autoscale"], "--autoscale: not yet ported (slice 7)"),
@@ -164,8 +167,8 @@ def test_unported_rl_paths_say_so(argv, named):
 def test_unported_a2c_train_says_so():
     from moolib_tpu_torch.examples import a2c
 
-    with pytest.raises(SystemExit, match=re.escape("train(): not yet ported (slice 4)")):
-        a2c.train(a2c.make_flags([]))
+    with pytest.raises(SystemExit, match=re.escape("--compile_cache_dir: not yet ported (slice 7)")):
+        a2c.train(a2c.make_flags(["--compile_cache_dir", "d"]))
 
 
 def test_lockgraph_installs_before_any_other_import():
@@ -190,5 +193,9 @@ def test_lazy_cohort_exports():
     assert moolib_tpu_torch.Group is group.Group
     assert moolib_tpu_torch.AllReduce is group.AllReduce
     assert moolib_tpu_torch.buckets is buckets
+    from moolib_tpu_torch import accumulator, rollout
+
+    assert moolib_tpu_torch.Accumulator is accumulator.Accumulator
+    assert moolib_tpu_torch.rollout is rollout
     with pytest.raises(AttributeError):
-        moolib_tpu_torch.Accumulator  # noqa: B018 - slice 4b
+        moolib_tpu_torch.AnakinRollout  # noqa: B018 - slice 10
