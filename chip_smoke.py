@@ -1,8 +1,10 @@
 """Drive the PyTorch port on one CUDA card: build its kernels, hold each
 against its plain version, train the d=1024/L=12 TransformerLM through
 examples.lm.train(), run the lm_bench step, serve the same widths over
-loopback Rpc and check the replies, run the IMPALA learner at the
-reference Atari shape, fed once by EnvPool workers through the Batcher,
+loopback Rpc and check the replies, serve them again through the
+continuous-batching engine behind a broker-registered replica, run the
+IMPALA learner at the reference Atari shape, fed once by EnvPool workers
+through the Batcher,
 then allreduce full-width ImpalaNet and TransformerLM gradients taken
 from the card through the port's Broker and Group, and train both in
 two-learner Accumulator cohorts through the examples' own loops.
@@ -49,6 +51,29 @@ exits non-zero, and no result line is printed):
    batch, and the prefill must have launched flash_fwd once per layer.
    Prefill and generate() times, the host's time to enqueue one prefill,
    and a torch.profiler window of each.
+7b. engine — the continuous-batching serving tier at those widths
+   (rotary, flash, bf16, max_len 1088): first flash_fwd against its plain
+   version at every prefill bucket [1, Lb, 8, 128], Lb = 1 .. 1024, causal,
+   bf16 and f32.  Then ContinuousBatchingEngine (8 slots, 16-token blocks,
+   prompts to 1024, sequences to 1088: 545 blocks, a 428.6 MB bf16 pool)
+   behind EngineService in a ServeReplica registered with a broker
+   process; a ServeClient finds it through the broker.  Traffic (a): 32
+   requests at once, prompt lengths uniform in 64..1024, budgets from
+   {1, 8, 16, 32, 64}, greedy.  Every reply is its prompt plus its own
+   budget of tokens; flash_fwd launches, counted from 0 after warmup(),
+   equal 12 x 32 (one prefill per request); fewer decode steps than
+   budgeted tokens; the pool drains (invariants hold, every block free, no
+   slot active) and its data_ptr()s never move; each reply equals
+   generate() of its prompt alone, or departs first where the reference's
+   top-two logit gap is below 2e-2 x max(1, max|logit|).  An f32 run of
+   the same engine with 2 layers (the CUDA-core forward) on 8 of the
+   requests: replies equal generate() exactly.  Traffic (b): 16
+   512-token prompts, budgets from {8, 16, 32, 64}, through the
+   batch-synchronous replica (per-request budgets, cap 16) and then the
+   engine replica.  Per arm: latency p50/p99 on the client's clock,
+   emitted tokens/s, prefill ms by shape (CUDA events), decode ms per step,
+   mean slot occupancy, padding tokens, iterations, peak memory; and the
+   device idle share over a profiled window of 16 decode steps of each.
 8. impala_parity — ImpalaNet (feed-forward and LSTM, 84x84x4, f32 and
    bf16) and ActorCriticNet (LSTM, f32) on the card against the same model
    on the CPU, same weights and inputs: logits and baselines, then one
@@ -761,6 +786,402 @@ def phase_slice(seed: int) -> dict:
     return out
 
 
+# The engine phase: the d=1024/L=12 LM (rotary, flash, bf16 compute, f32
+# parameters) behind the continuous-batching engine, sized so every slot can
+# hold a 1024-token prompt and 64 new tokens: 545 blocks of 16 tokens.
+ENGINE_LM = dict(vocab_size=32768, d_model=1024, num_heads=8, num_layers=12, max_len=1088,
+                 pos_embedding="rotary", attention="flash")
+ENGINE = dict(slots=8, block_size=16, max_prompt_len=1024, max_seq_len=1088)
+# Traffic (a): mixed prompts and budgets through the replica; traffic (b):
+# the same 512-token prompts through the batch-synchronous replica and the
+# engine replica; the f32 exactness run; the profiled decode windows.
+ENGINE_TRAFFIC = dict(requests=32, prompt=(64, 1024), budgets=(1, 8, 16, 32, 64),
+                      b_requests=16, b_prompt=512, b_budgets=(8, 16, 32, 64), b_batch=16,
+                      exact_layers=2, exact_requests=8, window_steps=16)
+LOGIT_MARGIN = 2e-2  # bf16: a divergence needs a top-two gap below this x max(1, max|logit|)
+
+
+class _ServeTimer:
+    """Server-side clocks of one model and engine, for the ``with`` block
+    only: CUDA events around every ``model.prefill`` (by input shape),
+    around every call of a batch-synchronous step, and the host clock and
+    emitted count of every engine step (which ends in the step's one D2H).
+    Leaving the block restores both methods."""
+
+    def __init__(self, model, engine):
+        self.model, self.engine = model, engine
+        self.reset()
+
+    def __enter__(self):
+        prefill, step = self.model.prefill, self.engine.step
+
+        def timed_prefill(tokens):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = prefill(tokens)
+            end.record()
+            self.prefills.append((tuple(tokens.shape), start, end))
+            return out
+
+        def timed_step():
+            t0 = time.perf_counter()
+            emissions, finished = step()
+            self.steps.append(((time.perf_counter() - t0) * 1e3, len(emissions)))
+            return emissions, finished
+
+        self.model.prefill, self.engine.step = timed_prefill, timed_step
+        return self
+
+    def __exit__(self, *exc) -> None:
+        del self.model.prefill, self.engine.step  # the class methods show again
+
+    def reset(self) -> None:
+        self.prefills, self.batches, self.steps = [], [], []
+
+    def prefill_ms(self) -> dict:
+        torch.cuda.synchronize()
+        by_shape = {}
+        for shape, start, end in self.prefills:
+            by_shape.setdefault("x".join(map(str, shape)), []).append(start.elapsed_time(end))
+        return {k: {"median_ms": float(np.median(v)), "calls": len(v)}
+                for k, v in sorted(by_shape.items(), key=lambda kv: int(kv[0].split("x")[-1]))}
+
+
+def _engine_flash_holds(shapes, H: int, D: int, device, gen) -> list:
+    """flash_fwd against its plain version at the engine's prefill shapes
+    [1, Lb, H, D], causal, in bf16 (traffic (a)) and f32 (the exactness
+    run); times at the largest bucket."""
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for lb in shapes:
+            q, k, v = (torch.randn(1, lb, H, D, generator=gen, device=device).to(dtype)
+                       for _ in range(3))
+            out, lse = fa.flash_attention(q, k, v, True, return_lse=True)
+            p_out, p_lse = fa._blockwise_attention_plain(q.float(), k.float(), v.float(), True)
+            err_out = (out.float() - p_out).abs().max().item()
+            err_lse = (lse - p_lse).abs().max().item()
+            tol_out, tol_lse = TOL[dtype]
+            if not (err_out <= tol_out and err_lse <= tol_lse):
+                raise AssertionError(f"engine: flash_fwd [1, {lb}, {H}, {D}] {dtype}: out err "
+                                     f"{err_out} ({tol_out}), lse err {err_lse} ({tol_lse})")
+            row = {"shape": [1, lb, H, D], "dtype": str(dtype).replace("torch.", ""),
+                   "err_out": err_out, "err_lse": err_lse}
+            if lb == shapes[-1]:
+                row["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, True), reps=20)
+                row["plain_ms"] = cuda_ms(lambda: fa._blockwise_attention_plain(q, k, v, True),
+                                          reps=2, warmup=1)
+                row["bound_ms"], row["bound_by"], _ = flash_bounds(1, lb, H, D, dtype,
+                                                                   True)["flash_fwd"]
+            rows.append(row)
+    return rows
+
+
+def _first_divergence(model, prompt, got, want) -> tuple:
+    """Where a reply first departs from generate()'s, and the reference's
+    top-two logit gap there (a forward over the reference's prefix) with
+    the margin it must fall under."""
+    j = int(np.nonzero(got != want)[0][0])
+    with torch.inference_mode():
+        logits, _ = model.prefill(torch.from_numpy(want[None, :j]).to(model.device))
+    last = logits[0, -1].float()
+    top = torch.topk(last, 2).values
+    gap = (top[0] - top[1]).item()
+    limit = LOGIT_MARGIN * max(1.0, last.abs().max().item())
+    return j - len(prompt), gap, limit
+
+
+def _serve_arm(addr: str, name: str, group: str, make_service, reqs, cuda: bool) -> dict:
+    """One serving arm: a ServeReplica (its ``make_service(rpc)``) registered
+    with the broker at ``addr`` in ``group``; a ServeClient finds it there and
+    submits every request of ``reqs`` [(prompt, budget)] at once; the service
+    loop starts once all are queued and stops after the last reply.  Latency
+    on the client's clock from submit to reply."""
+    from moolib_tpu_torch.serving import ServeClient, ServeReplica
+
+    rpc = Rpc()
+    rpc.set_name(name)
+    rpc.listen("127.0.0.1:0")
+    replica = ServeReplica(rpc, None, None, service=make_service(rpc), broker=addr,
+                           group=group)
+    client = ServeClient(broker=addr, group=group, deadline_s=900.0, attempt_timeout=900.0,
+                         refresh_interval=0.1)
+    thread = threading.Thread(target=lambda: asyncio.run(replica.loop(total=len(reqs))))
+    try:
+        client.wait_for_replicas(1, timeout=60.0)
+        pad0 = _counter("serve_pad_tokens_total")
+        torch.cuda.reset_peak_memory_stats()
+        t_sub, t_done, futs = [], [None] * len(reqs), []
+        for i, (prompt, budget) in enumerate(reqs):
+            t_sub.append(time.perf_counter())
+            fut = client.submit(prompt, budget)
+            fut.add_done_callback(lambda f, i=i: t_done.__setitem__(i, time.perf_counter()))
+            futs.append(fut)
+        deadline = time.monotonic() + 60
+        while replica.service.stats()["depth"] < len(reqs):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{name}: requests did not reach the queue")
+            time.sleep(0.01)
+        thread.start()
+        replies = [np.asarray(f.result(900.0)) for f in futs]
+        thread.join(900.0)
+        if thread.is_alive():
+            raise TimeoutError(f"{name}: the service loop did not finish")
+        stats = replica.service.stats()
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+    finally:
+        client.close()
+        replica.close()
+        rpc.close()
+    for (prompt, budget), reply in zip(reqs, replies):
+        if reply.shape != (len(prompt) + budget,) or not np.array_equal(reply[:len(prompt)],
+                                                                        prompt):
+            raise AssertionError(f"{name}: a reply of shape {reply.shape} for a "
+                                 f"{len(prompt)}-token prompt with budget {budget}")
+    lat = np.array([(d - s) * 1e3 for s, d in zip(t_sub, t_done)])
+    emitted = sum(budget for _, budget in reqs)
+    return {"replies": replies, "requests": len(reqs), "emitted_tokens": emitted,
+            "latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p99": float(np.percentile(lat, 99)),
+            "tokens_per_s": emitted / (max(t_done) - t_sub[0]),
+            "iterations": stats["iterations"], "padding_tokens":
+            _counter("serve_pad_tokens_total") - pad0, "max_memory_allocated": peak,
+            "stats": stats}
+
+
+def _dense_decode_window(model, prompts: torch.Tensor, steps: int):
+    """A closure running ``steps`` of generate()'s dense decode steps after
+    its prefill (done here, outside the window), and the context it needs."""
+    from moolib_tpu_torch.models.transformer import cast_weights_once
+
+    ctx = cast_weights_once(model)
+    ctx.__enter__()
+    B, Tp = prompts.shape
+    logits, kvs = model.prefill(prompts)
+    cache_k = torch.zeros(model.num_layers, B, model.max_len, *kvs[0][0].shape[2:],
+                          dtype=model.dtype, device=prompts.device)
+    cache_v = torch.zeros_like(cache_k)
+    for i, (k, v) in enumerate(kvs):
+        cache_k[i, :, :Tp], cache_v[i, :, :Tp] = k, v
+    first = torch.argmax(logits[:, -1], dim=-1)
+
+    def window():
+        tok = first
+        for t in range(steps):
+            tok = torch.argmax(model.decode_step(tok[:, None], cache_k, cache_v, Tp + t)[:, 0],
+                               dim=-1)
+        tok.cpu()
+
+    return window, ctx
+
+
+def phase_engine(seed: int, device="cuda", lm_cfg=None, engine_cfg=None, traffic=None) -> dict:
+    from moolib_tpu_torch.engine import ContinuousBatchingEngine, EngineService
+    from moolib_tpu_torch.serving import ServeService, bucket, bucket_shapes
+
+    lm_cfg = dict(ENGINE_LM, **(lm_cfg or {}))
+    ecfg = dict(ENGINE, **(engine_cfg or {}))
+    tr = dict(ENGINE_TRAFFIC, **(traffic or {}))
+    cuda = torch.device(device).type == "cuda"
+    clock = [time.perf_counter()]
+    seconds = {}
+
+    def lap(name):  # host seconds of each stage of the phase
+        now = time.perf_counter()
+        seconds[name], clock[0] = now - clock[0], now
+
+    V, H = lm_cfg["vocab_size"], lm_cfg["num_heads"]
+    D = lm_cfg["d_model"] // H
+    buckets_ = sorted(set(bucket_shapes(ecfg["max_prompt_len"])))
+    holds = _engine_flash_holds(buckets_, H, D, device,
+                                torch.Generator(device=device).manual_seed(seed))
+    model = TransformerLM(dtype=torch.bfloat16, device=device,
+                          generator=torch.Generator().manual_seed(seed), **lm_cfg).eval()
+    L = model.num_layers
+    lap("flash_holds_and_init")
+    eng = ContinuousBatchingEngine(model, **ecfg)
+    pools = eng.pools_k + eng.pools_v
+    ptrs = [p.data_ptr() for p in pools]
+    pool_bytes = sum(p.numel() * p.element_size() for p in pools)
+    t0 = time.perf_counter()
+    shapes = eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    lo, hi = tr["prompt"]
+    reqs_a = [(rng.integers(0, V, int(rng.integers(lo, hi + 1))).astype(np.int32),
+               int(rng.choice(tr["budgets"]))) for _ in range(tr["requests"])]
+    reqs_b = [(rng.integers(0, V, tr["b_prompt"]).astype(np.int32),
+               int(rng.choice(tr["b_budgets"]))) for _ in range(tr["b_requests"])]
+
+    port = free_port()
+    broker = start_broker(port)
+    addr = f"127.0.0.1:{port}"
+    arms = {}
+    try:
+        with _ServeTimer(model, eng) as timer:
+            # Traffic (a), the engine's main path: counts start at 0 here (after
+            # warmup) and are read right after.
+            fa.reset_launches()
+            steps0 = eng.stats()["steps"]
+            a = _serve_arm(addr, "engine_a", "serve_engine_a",
+                           lambda rpc: EngineService(rpc, eng, max_queue=256), reqs_a, cuda)
+            launches = _counts()
+            a_steps = eng.stats()["steps"] - steps0
+            a["prefill_ms_by_bucket"] = timer.prefill_ms()
+            a["decode_steps"] = a_steps
+            a["decode_ms_per_step"] = float(np.median([ms for ms, _ in timer.steps]))
+            a["mean_slot_occupancy"] = float(np.mean([n for _, n in timer.steps])) / eng.slots
+            want_launches = L * len(reqs_a) if cuda else 0
+            if launches["flash_fwd"] != want_launches or launches["flash_bwd_dq"] or \
+                    launches["flash_bwd_dkv"]:
+                raise AssertionError(f"engine: launches {launches}, flash_fwd must be exactly "
+                                     f"{want_launches} (one prefill per request)")
+            budget_sum = sum(b for _, b in reqs_a)
+            if not a_steps < budget_sum:
+                raise AssertionError(f"engine: {a_steps} decode steps for {budget_sum} budgeted "
+                                     "tokens")
+            _check_drained(eng, ptrs, pools, "traffic (a)")
+            arms["a_engine"] = a
+            lap("warmup_and_traffic_a")
+
+            # Traffic (b): the batch-synchronous replica, then the engine arm.
+            timer.reset()
+            cap = tr["b_batch"]
+            max_budget = max(tr["b_budgets"])
+
+            def step(_params, batch, budgets):
+                mn = bucket(int(np.max(budgets)), max_budget)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                with torch.inference_mode():
+                    out = generate(model, torch.from_numpy(batch), mn).cpu().numpy()
+                end.record()
+                timer.batches.append((len(batch), mn, int(np.sum(budgets)), start, end))
+                return out.astype(batch.dtype, copy=False)
+
+            b = _serve_arm(addr, "batch_b", "serve_batch_b", lambda rpc: ServeService(
+                rpc, step, None, batch_size=cap, per_request_tokens=True,
+                default_max_new=max_budget), reqs_b, cuda)
+            torch.cuda.synchronize()
+            b["prefill_ms_by_bucket"] = timer.prefill_ms()
+            per_step, useful, slots = [], 0, 0
+            for (rows, mn, used, start, end), (_, p_start, p_end) in zip(timer.batches,
+                                                                        timer.prefills):
+                per_step.append((start.elapsed_time(end) - p_start.elapsed_time(p_end))
+                                / max(1, mn - 1))
+                useful, slots = useful + used, slots + rows * mn
+            b["decode_ms_per_step"] = float(np.median(per_step))
+            b["mean_slot_occupancy"] = useful / slots
+            arms["b_batch"] = b
+
+            timer.reset()
+            e = _serve_arm(addr, "engine_b", "serve_engine_b",
+                           lambda rpc: EngineService(rpc, eng, max_queue=256), reqs_b, cuda)
+            e["prefill_ms_by_bucket"] = timer.prefill_ms()
+            e["decode_ms_per_step"] = float(np.median([ms for ms, _ in timer.steps]))
+            e["mean_slot_occupancy"] = float(np.mean([n for _, n in timer.steps])) / eng.slots
+            arms["b_engine"] = e
+            _check_drained(eng, ptrs, pools, "traffic (b)")
+            lap("traffic_b")
+        exact = _engine_exactness(seed, device, lm_cfg, ecfg, tr, reqs_a, addr, cuda)
+        lap("exact_f32")
+    finally:
+        stop_process(broker)
+
+    # Parity of traffic (a) with generate() of each prompt alone.
+    divergences, equal = [], 0
+    with torch.inference_mode():
+        for i, ((prompt, budget), got) in enumerate(zip(reqs_a, arms["a_engine"]["replies"])):
+            want = generate(model, torch.from_numpy(prompt[None]), budget)[0].cpu().numpy()
+            if np.array_equal(got, want):
+                equal += 1
+                continue
+            pos, gap, limit = _first_divergence(model, prompt, got, want)
+            divergences.append({"request": i, "position": pos, "gap": gap, "limit": limit})
+            if not gap < limit:
+                raise AssertionError(f"engine: request {i} departs from generate() at emitted "
+                                     f"token {pos}, where the top-two gap is {gap} (margin "
+                                     f"{limit})")
+    b_equal = sum(np.array_equal(x, y) for x, y in zip(arms["b_batch"]["replies"],
+                                                       arms["b_engine"]["replies"]))
+    lap("parity")
+
+    # Device idle share over one profiled window of decode steps per arm.
+    n_win = tr["window_steps"]
+    for prompt, _ in reqs_b[:eng.slots]:
+        eng.submit(prompt, n_win + 4)
+    eng.step(), eng.step()
+    eng_profile = device_profile(lambda: [eng.step() for _ in range(n_win)])
+    while eng.active_count():
+        for s in eng.step()[1]:
+            eng.retire(s)
+    _check_drained(eng, ptrs, pools, "the profiled window")
+    batch_prompts = torch.from_numpy(np.stack([p for p, _ in reqs_b[:cap]])).to(device)
+    with torch.inference_mode():
+        window, ctx = _dense_decode_window(model, batch_prompts, n_win)
+        try:
+            window()
+            batch_profile = device_profile(window)
+        finally:
+            ctx.__exit__(None, None, None)
+    del model, eng, pools, timer
+    lap("profiles")
+    for arm in arms.values():
+        del arm["replies"], arm["stats"]
+    res = {"phase": "engine", "model": f"TransformerLM vocab={V} d={lm_cfg['d_model']} L={L} "
+           f"H={H}x{D} bf16 rotary, flash attention, max_len {lm_cfg['max_len']}",
+           "engine": ecfg, "num_blocks": 1 + ecfg["slots"] * -(-ecfg["max_seq_len"]
+                                                               // ecfg["block_size"]),
+           "pool_bytes": pool_bytes, "warmup_shapes": shapes, "warmup_s": warmup_s,
+           "launches": launches, "traffic_a": {"requests": len(reqs_a), "prompt": [lo, hi],
+                                               "budgets": list(tr["budgets"])},
+           "traffic_b": {"requests": len(reqs_b), "prompt": tr["b_prompt"],
+                         "budgets": list(tr["b_budgets"]), "batch_cap": cap},
+           "arms": arms, "parity": {"replies_equal_generate": equal, "of": len(reqs_a),
+                                    "divergences": divergences, "margin": LOGIT_MARGIN},
+           "b_replies_equal_across_arms": b_equal, "exact_f32": exact,
+           "pools_data_ptr_stable": True, "seconds": seconds, "flash_holds": holds}
+    log(res)
+    log({"phase": "engine_profile", "window": f"{n_win} engine decode steps, "
+         f"{ecfg['slots']} slots of {tr['b_prompt']}-token prompts", **eng_profile})
+    log({"phase": "batch_decode_profile", "window": f"{n_win} generate() decode steps, "
+         f"batch {cap} of {tr['b_prompt']}-token prompts", **batch_profile})
+    return res
+
+
+def _check_drained(eng, ptrs, pools, when: str) -> None:
+    eng.pool.check_invariants()
+    if eng.pool.available() != eng.pool.num_blocks - 1 or eng.active_count():
+        raise AssertionError(f"engine: after {when}, {eng.pool.available()} of "
+                             f"{eng.pool.num_blocks - 1} blocks free, "
+                             f"{eng.active_count()} slots active")
+    if [p.data_ptr() for p in pools] != ptrs:
+        raise AssertionError(f"engine: the KV pools moved during {when}")
+
+
+def _engine_exactness(seed, device, lm_cfg, ecfg, tr, reqs, addr: str, cuda: bool) -> dict:
+    """The same engine at the same widths with ``exact_layers`` layers in
+    f32 (the CUDA-core flash forward), served as traffic (a) is: replies
+    equal generate()'s exactly."""
+    from moolib_tpu_torch.engine import ContinuousBatchingEngine, EngineService
+
+    cfg = dict(lm_cfg, num_layers=tr["exact_layers"])
+    model = TransformerLM(dtype=torch.float32, device=device,
+                          generator=torch.Generator().manual_seed(seed + 1), **cfg).eval()
+    eng = ContinuousBatchingEngine(model, **ecfg)
+    reqs = reqs[:tr["exact_requests"]]
+    replies = _serve_arm(addr, "engine_f32", "serve_engine_f32",
+                         lambda rpc: EngineService(rpc, eng, max_queue=256), reqs, cuda)["replies"]
+    with torch.inference_mode():
+        for i, ((prompt, budget), got) in enumerate(zip(reqs, replies)):
+            want = generate(model, torch.from_numpy(prompt[None]), budget)[0].cpu().numpy()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"engine (f32, L={cfg['num_layers']}): request {i} "
+                                     "differs from generate()")
+    return {"layers": cfg["num_layers"], "requests": len(reqs), "replies_equal_generate":
+            len(reqs)}
+
+
 def _rl_batch(T1: int, B: int, obs, num_actions: int, seed: int, frames: bool) -> dict:
     rng = np.random.default_rng(seed)
     done = rng.random((T1, B)) < 0.2
@@ -1204,19 +1625,26 @@ def _cohort_stats(groups, losses, frames: int) -> dict:
 
 
 def _lm_learner(rank: int, addr: str, seed: int, device: str, lm_cfg: dict, batch: tuple,
-                rounds: int, out) -> None:
+                rounds: int, out, leave) -> None:
     """One learner process of cohort_lm: the LM's gradient on this rank's
     batch, ``rounds`` auto allreduces of it over the group, and the check
-    against the peer's gradient fetched over Rpc and added on the card."""
+    against the peer's gradient fetched over Rpc and added on the card.
+    The learner reports, then stays in the cohort (its gradient still
+    served) until the parent has both reports and sets ``leave``."""
+
+    def report(rep):
+        out.put((rank, rep))
+        leave.wait(600)
+
     try:
-        out.put((rank, _lm_learner_run(rank, addr, seed, device, lm_cfg, batch, rounds)))
+        _lm_learner_run(rank, addr, seed, device, lm_cfg, batch, rounds, report)
     except BaseException as e:  # noqa: BLE001 - reported to the parent, which fails
         import traceback
 
         out.put((rank, {"error": f"{e!r}\n{traceback.format_exc()}"}))
 
 
-def _lm_learner_run(rank, addr, seed, device, lm_cfg, batch, rounds) -> dict:
+def _lm_learner_run(rank, addr, seed, device, lm_cfg, batch, rounds, report) -> None:
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     if cuda:
@@ -1275,16 +1703,12 @@ def _lm_learner_run(rank, addr, seed, device, lm_cfg, batch, rounds) -> dict:
         if results[-1] != want:
             bad = [n for n, a, b in zip(names, results[-1], want) if a != b]
             raise AssertionError(f"cohort_lm: result differs from grad_a + grad_b in {bad[:5]}")
-        # Stay in the cohort until the peer has fetched our gradient too.
-        done = g.all_reduce("done", 1)
-        _pump([g], done.done, 300, "cohort_lm: done")
-        done.result(0)
         staging = _staging_ms([grads[n] for n in names], reps=3) if cuda else None
-        return {"rank": rank, "loss": float(loss.detach()), "leaves": len(names), "elements": elements,
+        report({"rank": rank, "loss": float(loss.detach()), "leaves": len(names), "elements": elements,
                 "round_s": times, "h2d_ms": h2d_ms, "staging": staging,
                 "d2h_events": events, "launches": launches,
                 "rpc_tx_bytes_per_round": tx, "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else 0,
-                "equal_grad_a_plus_grad_b": True}
+                "equal_grad_a_plus_grad_b": True})
     finally:
         rpc.close()
 
@@ -1299,9 +1723,9 @@ def phase_cohort_lm(seed: int, device="cuda", lm_cfg=None, batch=COHORT_LM_BATCH
     port = free_port()
     broker = start_broker(port)
     ctx = mp.get_context("spawn")
-    out = ctx.Queue()
+    out, leave = ctx.Queue(), ctx.Event()
     procs = [ctx.Process(target=_lm_learner, args=(rank, f"127.0.0.1:{port}", seed, device,
-                                                   lm_cfg, batch, rounds, out))
+                                                   lm_cfg, batch, rounds, out, leave))
              for rank in range(2)]
     try:
         for p in procs:
@@ -1319,6 +1743,7 @@ def phase_cohort_lm(seed: int, device="cuda", lm_cfg=None, batch=COHORT_LM_BATCH
             if "error" in rep:
                 raise AssertionError(f"cohort_lm learner {rank}: {rep['error']}")
             reports[rank] = rep
+        leave.set()  # both have fetched each other's gradient: the learners may close
         for p in procs:
             p.join(timeout=60)
             if p.exitcode != 0:
@@ -1591,7 +2016,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     pool = make_pool()
     try:
-        kern, sass, train, sl, rl, cl, acl = _phases(pool, args.seed)
+        kern, sass, train, sl, en, rl, cl, acl = _phases(pool, args.seed)
     finally:
         pool.close()
     case = kern["train"]
@@ -1613,6 +2038,7 @@ def main(argv=None) -> None:
         "launches": train["launches"][name],
         "launches_by_path": {"train": train["launches"][name],
                              "serve": sl["flash_fwd_launches"] if name == "flash_fwd" else 0,
+                             "engine": en["launches"][name],
                              "impala_learner": rl["flash_launches"][name],
                              "cohort_lm": cl["launches"][name],
                              "accumulator_lm": sum(acl["launches"][name].values())},
@@ -1641,6 +2067,9 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     train = phase_train(seed)
     phase_lm_bench(seed)
     sl = phase_slice(seed)
+    torch.cuda.empty_cache()
+    en = phase_engine(seed)
+    torch.cuda.empty_cache()
     phase_impala_parity(seed)
     rl = phase_impala_learner(pool, seed)
     phase_cohort_impala(seed)
@@ -1650,7 +2079,7 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     phase_accumulator_impala(seed)
     torch.cuda.empty_cache()
     acl = phase_accumulator_lm(seed)
-    return kern, sass, train, sl, rl, cl, acl
+    return kern, sass, train, sl, en, rl, cl, acl
 
 
 if __name__ == "__main__":

@@ -22,6 +22,10 @@ and never ``jax`` or anything from ``moolib_tpu``.  What it has so far:
   ``ops.returns``, the optax-form optimizers (``examples.common``), the
   losses of ``examples.vtrace.experiment`` and ``examples.a2c``, and
   ``bench``, the learner-step benchmark;
+- the serving tier: ``serving`` (admission control, replicas registered
+  with the broker, the failover client, weight publishing) and ``engine``
+  (continuous batching over a paged KV pool, ``EngineService``), both
+  byte-compatible with the JAX package's peers;
 - elastic data-parallel training: ``Accumulator`` (leader election, the
   two-phase virtual batch, tree/bucketed/ring rounds with bf16/int8 wires,
   chunked model sync, the ``torch.distributed`` collective plane;
@@ -31,7 +35,8 @@ and never ``jax`` or anything from ``moolib_tpu``.  What it has so far:
   ``examples.a2c.train`` and ``examples.lm``'s elastic path, with
   ``examples.launch`` and ``examples.plot``;
 - telemetry (metrics, tracing, exporters, the flight recorder, recovery
-  phases, the device monitor ``telemetry.devmon``), ``watchdog``,
+  phases, the device monitor ``telemetry.devmon``, the cohort aggregator's
+  scrape endpoints), ``watchdog``,
   ``testing`` (lock-order graph, fault plans) and ``utils`` (with the
   sorted-key ``nest.tree_flatten`` the Accumulator's wire needs).
 
@@ -57,6 +62,7 @@ __all__ = [
     "AllReduce",
     "Broker",
     "buckets",
+    "engine",
     "Future",
     "Group",
     "Queue",
@@ -64,6 +70,7 @@ __all__ = [
     "Rpc",
     "RpcDeferredReturn",
     "RpcError",
+    "serving",
     "create_uid",
     "set_log_level",
     "set_logging",
@@ -84,7 +91,7 @@ _LAZY = {
 def __getattr__(name):  # lazy imports keep `import moolib_tpu_torch` light
     import importlib
 
-    if name in ("buckets", "rollout"):
+    if name in ("buckets", "engine", "rollout", "serving"):
         value = importlib.import_module(f".{name}", __name__)
         globals()[name] = value
         return value

@@ -121,6 +121,10 @@ _M_SKIPPED = _REG.counter(
 _M_STALE = _REG.counter(
     "accum_stale_results_total", "results consumed across an epoch boundary"
 )
+_M_DEAD_RESULTS = _REG.counter(
+    "accum_dead_results_dropped_total",
+    "results dropped unapplied because their epoch died before the caller took them",
+)
 # Chunked model sync (warm-rejoin plane, docs/RESILIENCE.md "Recovery
 # budget"): bytes/chunks per direction, resumes, and zero-byte warm rejoins.
 _M_SYNC_BYTES = _REG.counter(
@@ -470,8 +474,10 @@ class Accumulator:
             self._group = group
             self._rpc = group._rpc
         self._group.add_change_callback(self._on_group_change)
-        # The cohort aggregator's scrape handlers come with the telemetry
-        # aggregator plane (ROADMAP slice 7).
+        # Every cohort peer is scrapable by the cohort aggregator
+        # (__telemetry_snapshot / __telemetry_trace / __telemetry_profile);
+        # idempotent when the Rpc is shared.
+        telemetry.install_rpc_handlers(self._rpc)
 
         # model / election state
         self._model_version = 0
@@ -1510,7 +1516,23 @@ class Accumulator:
             )
 
     def has_gradients(self) -> bool:
-        return self._has_gradients
+        """A cohort result is ready to apply.  A result whose epoch has died
+        is dropped here, before the caller can apply it: the new epoch's
+        model (committed by a follower, or served by this peer as leader)
+        does not hold it, so applying it would leave this peer with bytes no
+        other peer holds under the same version.  Its contribution is lost,
+        as a round cancelled by the epoch change is."""
+        with self._lock:
+            if self._has_gradients and self._result_epoch != self._group.sync_id():
+                self._has_gradients = False
+                self._result_grads = None
+                self._result_on_device = None
+                _M_DEAD_RESULTS.inc()
+                utils.log_verbose(
+                    "accumulator %s: dropped a result from a dead epoch", self._name
+                )
+                self._drain_rounds_locked()
+            return self._has_gradients
 
     def reduce_gradients(self, batch_size: int, gradients=None) -> None:
         """Contribute local gradients (a pytree) with their batch size and

@@ -1,0 +1,97 @@
+"""Host-side free-list allocator for the device KV block pool: a copy of
+the JAX package's ``engine/kv_pool.py`` (stdlib only), so both engines hand
+out the same block ids under the same schedule.
+
+The pool itself is device memory (the engine's per-layer ``pool_k`` /
+``pool_v`` tensors — see ``ops.paged_attention``); this class only tracks
+which block *ids* are in use.  Blocks are fixed-size (``block_size`` tokens),
+so allocation is O(1) list ops with zero external fragmentation — the only
+waste is internal (the tail of a sequence's last block), which the engine
+accounts as ``serve_pad_tokens_total``.
+
+Block id 0 is reserved as the null block: never allocated, the scatter
+target for inactive slots in the fixed-shape decode step.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+
+class PoolExhausted(RuntimeError):
+    """No free blocks — the caller should keep the request queued."""
+
+
+class BlockPool:
+    """Free-list over ``num_blocks`` fixed-size blocks (id 0 reserved)."""
+
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 2:
+            raise ValueError(f"need >= 2 blocks (id 0 is reserved), got {num_blocks}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        # LIFO free list: recently-freed blocks are re-used first (their pool
+        # rows are the most likely to still be in the card's L2).
+        self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
+        self._allocated: set = set()
+
+    def blocks_for(self, tokens: int) -> int:
+        """Blocks needed to hold ``tokens`` cache entries."""
+        return -(-max(int(tokens), 1) // self.block_size)
+
+    def available(self) -> int:
+        return len(self._free)
+
+    def in_use(self) -> int:
+        return len(self._allocated)
+
+    def alloc(self, n: int) -> List[int]:
+        """Pop ``n`` block ids; raises :class:`PoolExhausted` (allocating
+        nothing) when fewer than ``n`` are free."""
+        if n < 1:
+            raise ValueError(f"alloc needs n >= 1, got {n}")
+        if n > len(self._free):
+            raise PoolExhausted(
+                f"need {n} blocks, {len(self._free)} free "
+                f"(pool {self.num_blocks}, block_size {self.block_size})"
+            )
+        blocks = [self._free.pop() for _ in range(n)]
+        self._allocated.update(blocks)
+        return blocks
+
+    def free(self, blocks: List[int]) -> None:
+        """Return blocks to the free list.  Double-free and foreign ids are
+        bugs in the caller's slot bookkeeping — raise, don't corrupt."""
+        for b in blocks:
+            if b not in self._allocated:
+                raise ValueError(f"free of unallocated block {b}")
+            self._allocated.discard(b)
+            self._free.append(b)
+
+    def check_invariants(self) -> None:
+        """allocated + free + the null block account for every block exactly
+        once (tests call this after randomized alloc/free schedules)."""
+        free = set(self._free)
+        if len(free) != len(self._free):
+            raise AssertionError("duplicate ids on the free list")
+        if free & self._allocated:
+            raise AssertionError("block both free and allocated")
+        if 0 in free or 0 in self._allocated:
+            raise AssertionError("null block 0 escaped reservation")
+        total = len(free) + len(self._allocated) + 1
+        if total != self.num_blocks:
+            raise AssertionError(
+                f"leak: {len(free)} free + {len(self._allocated)} allocated "
+                f"+ 1 null != {self.num_blocks}"
+            )
+
+    def stats(self) -> dict:
+        return {
+            "num_blocks": self.num_blocks,
+            "block_size": self.block_size,
+            "free": len(self._free),
+            "in_use": len(self._allocated),
+            "utilization": len(self._allocated) / max(1, self.num_blocks - 1),
+        }

@@ -1,0 +1,240 @@
+"""EngineService: continuous batching under the ServeService contract — the
+port of the JAX package's ``engine/service.py``.
+
+Subclasses :class:`..serving.ServeService` so the whole resilience surface
+is inherited unchanged — bounded admission with typed overload rejects,
+req-id dedup, per-request deadlines, ``{name}_stats``, and staged weights —
+while the service loop is replaced: instead of take-a-batch / run-to-the-
+longest, each iteration drains admitted requests into free decode slots
+(prefill + join) and advances ALL occupied slots by one fixed-shape decode
+step.  Hot swaps still land between iterations (here: between decode
+steps); in-flight sequences continue under the new weights.
+
+The admission controller runs in per-token units: the wait estimate is
+``(queued budgets + active remaining budgets) * EMA seconds-per-token``,
+which tracks the engine's actual service rate far better than a per-batch
+EMA ever could (a "batch" is no longer the unit of service).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from ..rpc import Rpc
+from ..serving import (
+    AdmissionController,
+    ServeService,
+    _M_DEPTH,
+    _M_PHASE,
+    _Request,
+)
+from .engine import ContinuousBatchingEngine, NoFreeSlot
+from .kv_pool import PoolExhausted
+
+
+class EngineService(ServeService):
+    """See module docstring.  ``step_fn``/``params`` of the base class are
+    unused (the engine owns the model); everything else — admission, dedup,
+    hot-swap staging, stats, close — is the inherited contract."""
+
+    def __init__(self, rpc: Rpc, engine: ContinuousBatchingEngine, *,
+                 name: str = "generate", version: int = 0,
+                 max_queue: int = 128, dedup_ttl: float = 60.0,
+                 default_max_new: int = 16):
+        super().__init__(
+            rpc, None, None, name=name, version=version,
+            batch_size=engine.slots, max_queue=max_queue,
+            dedup_ttl=dedup_ttl, default_max_new=default_max_new,
+        )
+        self._engine = engine
+        self._slot_req: Dict[int, _Request] = {}
+        # Per-token admission: pending_tokens is called under self._lock
+        # (from admit/estimate_wait inside _on_request) — it only reads.
+        self.admission = AdmissionController(
+            max_queue=max_queue, per_token=True,
+            pending_tokens=self._pending_tokens,
+        )
+
+    def _pending_tokens(self) -> int:
+        queued = sum(
+            (r.max_new if r.max_new else self._default_max_new)
+            for r in self._queue
+        )
+        return queued + self._engine.pending_decode_tokens()
+
+    # ------------------------------------------------------------------ swap
+    def _maybe_swap_locked(self) -> None:
+        before = self._version
+        super()._maybe_swap_locked()
+        if self._version != before:
+            # Between-iteration cutover, on the loop thread that runs every
+            # step: the engine loads the weights in place; slot state and KV
+            # pools are untouched, in-flight sequences finish under the new
+            # version.
+            self._engine.set_params(self._params)
+
+    # ------------------------------------------------------------------ loop
+    def _take_one_locked(self) -> Tuple[str, _Request]:
+        """Pop the queue head if the engine can take it.  Returns
+        ("none", _) on empty/full, ("join", req) to prefill, ("error", req)
+        for shapes the engine cannot serve."""
+        if self._closed or not self._queue:
+            return "none", None
+        req = self._queue[0]
+        if req.prompt.shape[0] != 1:
+            self._queue.pop(0)
+            self._note_take_locked(req)
+            return "error", req
+        tp = int(req.prompt.shape[1])
+        mn = req.max_new if req.max_new else self._default_max_new
+        if not self._engine.can_accept(tp, mn):
+            return "none", None
+        self._queue.pop(0)
+        self._note_take_locked(req)
+        return "join", req
+
+    def _note_take_locked(self, req: _Request) -> None:
+        _M_DEPTH.dec()
+        wait = time.monotonic() - req.t_enq
+        s = self._stats
+        s["takes"] += 1
+        s["items"] += 1
+        s["wait_s_sum"] += wait
+        s["wait_s_max"] = max(s["wait_s_max"], wait)
+        _M_PHASE.observe(wait, phase="queue")
+        self._note_queue_wait(wait)
+
+    def _admit_joins(self) -> Tuple[int, int]:
+        """Drain admitted requests into free slots (prefill + join), oldest
+        first — FIFO order is part of the latency contract.  Stops at the
+        first request the engine cannot take (slots or blocks full).
+        Returns ``(joined, answered)``: requests that entered a slot, and
+        requests already answered (prefill-finished or failed).  Accounting
+        lands BEFORE the response goes out — a client that sees its reply
+        and immediately reads ``{name}_stats`` must see itself counted."""
+        joined = answered = 0
+        while True:
+            with self._lock:
+                kind, req = self._take_one_locked()
+            if kind == "none":
+                return joined, answered
+            if kind == "error":
+                self._count_answered(1)
+                self._respond(
+                    req, None,
+                    "generate failed: the engine serves single-row prompts "
+                    "(got a multi-row request)",
+                )
+                answered += 1
+                continue
+            mn = req.max_new if req.max_new else self._default_max_new
+            t0 = time.monotonic()
+            try:
+                slot, emitted = self._engine.submit(req.prompt[0], mn)
+            except (NoFreeSlot, PoolExhausted):
+                # Raced capacity away (shouldn't happen single-threaded,
+                # but stay loss-free): back to the head of the queue.
+                with self._lock:
+                    self._queue.insert(0, req)
+                    _M_DEPTH.inc()
+                return joined, answered
+            except Exception as e:  # noqa: BLE001 — a poisoned request
+                self._count_answered(1)
+                self._respond(req, None, f"generate failed: {e}")  # fails alone
+                answered += 1
+                continue
+            _M_PHASE.observe(time.monotonic() - t0, phase="prefill")
+            if slot is None:
+                # Finished at prefill (budget 1 / immediate EOS).
+                self._count_answered(1)
+                self._finish(req, emitted)
+                answered += 1
+            else:
+                self._slot_req[slot] = req
+                joined += 1
+
+    def _count_answered(self, n: int) -> None:
+        self._stats["served"] += n
+        self._note_answered(n)
+
+    def _finish(self, req: _Request, emitted: List[int]) -> None:
+        out = np.concatenate(
+            [req.prompt[0].astype(np.int32), np.asarray(emitted, np.int32)]
+        )
+        self._respond(req, out if req.single else out[None], None)
+
+    async def loop(self, total=None) -> int:
+        """Serve until ``total`` requests have been answered (None =
+        forever).  Returns the number of decode iterations — with mixed
+        budgets this is far below baseline's requests x max-budget steps,
+        which is the engine's whole throughput story."""
+        self._loop = asyncio.get_event_loop()
+        self._wake = asyncio.Event()
+        served = 0
+        eng = self._engine
+        try:
+            while not self._closed and (total is None or served < total):
+                with self._lock:
+                    self._maybe_swap_locked()
+                    self._sweep_done_locked(time.monotonic())
+                _joined, answered = self._admit_joins()
+                if not eng.active_count():
+                    if answered:
+                        served += answered
+                        continue
+                    try:
+                        await asyncio.wait_for(self._wake.wait(), timeout=0.05)
+                    except asyncio.TimeoutError:
+                        pass
+                    self._wake.clear()
+                    # Idle tick: let the serve_qps window close at zero and
+                    # the wait EMA decay, so the autoscaler's idle-shrink
+                    # signal sees true silence instead of the last busy
+                    # spell's frozen gauges.
+                    self._note_answered(0)
+                    if not self._queue:
+                        self._note_queue_wait(0.0)
+                    continue
+                t0 = time.monotonic()
+                emissions, finished = eng.step()
+                dt = time.monotonic() - t0
+                if emissions:
+                    self.admission.note_service(dt, tokens=len(emissions))
+                    _M_PHASE.observe(dt, phase="device")
+                self._stats["iterations"] += 1
+                done = [(self._slot_req.pop(s), eng.retire(s))
+                        for s in finished]
+                if done:
+                    self._count_answered(len(done))
+                for req, toks in done:
+                    self._finish(req, toks)
+                served += answered + len(done)
+                # Yield so RPC callbacks and swap stagings interleave
+                # between decode steps.
+                await asyncio.sleep(0)
+        finally:
+            self._loop = None
+            self._wake = None
+        return self._stats["iterations"]
+
+    # ----------------------------------------------------------------- stats
+    def stats(self):
+        out = super().stats()
+        out["engine"] = self._engine.stats()
+        out["ema_token_seconds"] = self.admission.ema_batch_seconds()
+        return out
+
+    def close(self) -> None:
+        with self._lock:
+            inflight = dict(self._slot_req)
+            self._slot_req.clear()
+        super().close()
+        for req in inflight.values():
+            try:
+                self._respond(req, None, f"serve {self._name}: closed")
+            except Exception:  # noqa: BLE001
+                pass

@@ -22,8 +22,14 @@ port does not have yet, so pass a single device and dense or flash):
         --address 127.0.0.1:4431 --local_name lm0 --virtual_batch_size 16   # + a
         second process with --connect 127.0.0.1:4431 --local_name lm1
 
-Mesh and ring parallelism, MoE, pipeline stages, weight publishing and
-checkpoints come with later slices; their flags exit with a message.
+With ``--publish_every N`` on the elastic path the leader publishes its
+weights every N optimizer steps through a ``serving.ModelPublisher`` on the
+Accumulator's Rpc (as the flax tree of numpy leaves, ``models.convert.
+to_flax``): serving replicas of either package subscribed to this peer
+hot-swap to them.
+
+Mesh and ring parallelism, MoE, pipeline stages, checkpoints and the
+autoscaler come with later slices; their flags exit with a message.
 """
 
 from __future__ import annotations
@@ -101,8 +107,12 @@ def make_flags(argv=None):
     p.add_argument("--autoscale_max", type=int, default=4)
     p.add_argument("--autoscale_interval", type=float, default=2.0)
     p.add_argument("--checkpoint_interval", type=float, default=30.0)
-    p.add_argument("--publish_every", type=int, default=0, help="not yet ported")
-    p.add_argument("--publish_channel", default="model")
+    p.add_argument("--publish_every", type=int, default=0,
+                   help="elastic: the leader publishes its weights as a new model "
+                   "version every N optimizer steps (0 = off); serving replicas "
+                   "subscribed to this peer hot-swap (serving.ModelPublisher)")
+    p.add_argument("--publish_channel", default="model",
+                   help="publisher endpoint prefix under --publish_every")
     return common.finalize_flags(p, argv)
 
 
@@ -119,8 +129,6 @@ def _unported(flags) -> list:
         found.append(("--overlap_grads", 9))
     if flags.shard_grads:
         found.append(("--shard_grads", 9))
-    if flags.publish_every:
-        found.append(("--publish_every", 5))
     if flags.autoscale:
         found.append(("--autoscale", 7))
     for name in ("checkpoint_dir", "compile_cache_dir"):
@@ -167,6 +175,9 @@ def train(flags, on_stats=None) -> dict:
             'this port trains on one device per process: pass --mesh "" '
             "--attention flash|dense"
         )
+    if flags.publish_every and not (flags.address or flags.connect or flags.broker_addrs):
+        raise SystemExit("--publish_every: the leader of an elastic cohort publishes; "
+                         "pass --address, --connect or --broker_addrs")
     if flags.seq_len % 2:
         raise ValueError("--seq_len must be even")
     device = resolve(flags.device)
@@ -316,6 +327,16 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
         acc.set_wire_dtype("int8")
     acc.connect(addr)
 
+    publisher = None
+    announced_version = [0]  # latest version the accumulator announced
+    if flags.publish_every:
+        from ..serving import ModelPublisher
+
+        # Every model-version advance (gradient apply, staged commit) lands
+        # in the callback; the loop publishes at the step cadence.
+        publisher = ModelPublisher(acc.rpc, name=flags.publish_channel)
+        acc.add_model_version_callback(lambda v: announced_version.__setitem__(0, v))
+
     steps_done = 0
     applied = 0
     loss_v = acc_v = None
@@ -371,6 +392,11 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
                     full_applies.append(time.time())
                 steps_counter.inc()
                 wd.feed(progress_token)
+                if (publisher is not None and acc.is_leader() and announced_version[0]
+                        and steps_done % flags.publish_every == 0):
+                    from ..models.convert import to_flax
+
+                    publisher.publish(to_flax(model), version=announced_version[0])
                 if not recovery_printed:
                     rec = acc.recovery_info()
                     if rec["complete"]:
@@ -409,6 +435,8 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
     finally:
         wd.close()
         info = acc.debug_info()
+        if publisher is not None:
+            publisher.close()
         acc.close()
         if broker is not None:
             broker.close()

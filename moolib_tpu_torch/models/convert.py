@@ -14,7 +14,11 @@ the port's Block splits them in.  Every parameter of the port is f32, as
 flax's are, so a converted tree loads without rounding; the layers that
 compute in bf16 round at use, as flax does.  A flax *gradient* tree has the
 same structure and converts the same way (the tests compare gradients by
-name through it).
+name through it).  :func:`to_flax` is the inverse: the port's weights as
+the flax variables tree ``{"params": ...}`` of f32 numpy leaves, keys
+sorted at every level as ``jax.device_get`` leaves them.  Published serving
+weights travel in that form, so a JAX replica hot-swaps to weights from a
+port trainer and the reverse.
 
 ImpalaNet and ActorCriticNet
 ----------------------------
@@ -58,6 +62,38 @@ def from_flax(params) -> Dict[str, torch.Tensor]:
 
     walk(params, "")
     return out
+
+
+def as_state_dict(params) -> Dict[str, torch.Tensor]:
+    """Published weights → a ``TransformerLM`` ``state_dict``: a flax tree
+    (``{"params": ...}`` or the bare nested dict, numpy leaves, as either
+    package's ``ModelPublisher`` carries it) goes through :func:`from_flax`;
+    a ``state_dict`` passes through."""
+    if "params" in params or any(isinstance(v, dict) for v in params.values()):
+        return from_flax(params)
+    return params
+
+
+def to_flax(model_or_state_dict) -> Dict[str, dict]:
+    """A ``TransformerLM`` (or its ``state_dict``) → the flax variables tree
+    ``{"params": {...}}`` with f32 numpy leaves, no transpose."""
+    sd = model_or_state_dict
+    if isinstance(sd, torch.nn.Module):
+        sd = sd.state_dict()
+    tree: dict = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        if parts[0] == "blocks":
+            parts = [f"block{parts[1]}"] + parts[2:]
+        node = tree
+        for name in parts[:-1]:
+            node = node.setdefault(name, {})
+        node[parts[-1]] = value.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+    def sort(node):
+        return {k: sort(v) if isinstance(v, dict) else v for k, v in sorted(node.items())}
+
+    return {"params": sort(tree)}
 
 
 _GATES = ("i", "f", "g", "o")

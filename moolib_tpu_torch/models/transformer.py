@@ -4,15 +4,17 @@ The port of the JAX package's ``models/transformer.py``: pre-LN blocks,
 learned or rotary positions, grouped-query attention, a training forward
 (logits, or the pre-head features for ``ops.xent.lm_head_xent``) with
 optional per-block rematerialisation, a one-pass prefill that collects every
-block's K/V, and KV-cache decoding (:func:`generate`).
+block's K/V, KV-cache decoding (:func:`generate`), and the paged decode step
+of the serving engine (:meth:`TransformerLM.decode_step_paged`: per-slot
+positions against a shared KV block pool, ``ops.paged_attention``).
 
 - ``attention="dense"`` — plain torch dense attention;
 - ``attention="flash"`` — :func:`..ops.flash_attention.flash_attention`,
   the hand-written CUDA kernels on the card (forward, and the dq and dk/dv
   passes in the backward; their plain versions on the CPU).
 
-Ring attention, MoE blocks and the paged KV cache come with later slices;
-asking for them raises ``NotImplementedError``.
+Ring attention and MoE blocks come with a later slice; asking for them
+raises ``NotImplementedError``.
 
 Numerics follow the flax model exactly: every parameter is stored in f32
 (flax's ``param_dtype``), and the Dense layers and embeddings cast their
@@ -131,6 +133,30 @@ class Embed(nn.Module):
         return F.embedding(idx.long(), table)
 
 
+def weight_casts(model: nn.Module) -> dict:
+    """One cast of every Dense and Embed parameter of ``model`` to the
+    layer's ``dtype``: ``{module: cast}`` for :func:`use_weight_casts`."""
+    with torch.no_grad():
+        return {m: ((m.kernel.to(m.dtype), m.bias.to(m.dtype)) if isinstance(m, Dense)
+                    else m.embedding.to(m.dtype))
+                for m in model.modules() if isinstance(m, (Dense, Embed))}
+
+
+@contextlib.contextmanager
+def use_weight_casts(casts: dict):
+    """Inside the block, the layers of ``casts`` use those casts instead of
+    casting their f32 parameters at each call; the casts in place before are
+    back afterwards, so the blocks nest."""
+    before = {m: m.cast for m in casts}
+    for m, cast in casts.items():
+        m.cast = cast
+    try:
+        yield
+    finally:
+        for m, cast in before.items():
+            m.cast = cast
+
+
 @contextlib.contextmanager
 def cast_weights_once(model: nn.Module):
     """Inside the block, every Dense and Embed of ``model`` uses one cast of
@@ -139,16 +165,8 @@ def cast_weights_once(model: nn.Module):
     (~100 extra launches per decode step) slow the host-bound decode.  The
     same rounding, so the same numbers.  For inference only: the casts do
     not follow parameter updates made inside the block."""
-    mods = [m for m in model.modules() if isinstance(m, (Dense, Embed))]
-    with torch.no_grad():
-        for m in mods:
-            m.cast = ((m.kernel.to(m.dtype), m.bias.to(m.dtype)) if isinstance(m, Dense)
-                      else m.embedding.to(m.dtype))
-    try:
+    with use_weight_casts(weight_casts(model)):
         yield model
-    finally:
-        for m in mods:
-            m.cast = None
 
 
 class Block(nn.Module):
@@ -236,6 +254,26 @@ class Block(nn.Module):
         att = gathered_decode_attention(q, cache_k, cache_v, t).to(x.dtype)
         return self._finish(x, att)
 
+    def decode_paged(self, x, pool_k, pool_v, paged):
+        """One-token step of every slot against the shared KV block pool:
+        writes each slot's K/V at its own position ``paged.lengths`` into
+        ``pool_k``/``pool_v`` ([num_blocks, block_size, Hk, hd]) in place,
+        then attends over positions ``<= paged.lengths`` through the slot's
+        block table (``ops.paged_attention``; the same math as
+        :meth:`decode`)."""
+        from ..ops.paged_attention import paged_attention, paged_kv_write
+
+        if x.shape[1] != 1:
+            raise ValueError(f"decode mode steps one token at a time, got T={x.shape[1]}")
+        q, k, v = self._qkv(x)
+        t = paged.lengths
+        if self.rotary:
+            q, k = apply_rotary(q, offset=t), apply_rotary(k, offset=t)
+        paged_kv_write(pool_k, k[:, 0], paged.block_tables, t, paged.active)
+        paged_kv_write(pool_v, v[:, 0], paged.block_tables, t, paged.active)
+        att = paged_attention(q, pool_k, pool_v, paged.block_tables, t).to(x.dtype)
+        return self._finish(x, att)
+
 
 class TransformerLM(nn.Module):
     """Causal LM: embeddings, ``num_layers`` blocks, ``ln_f`` and the f32
@@ -256,6 +294,7 @@ class TransformerLM(nn.Module):
         moe_num_experts: int = 0,
         pos_embedding: str = "learned",
         kv_num_blocks: int = 0,
+        kv_block_size: int = 16,
         remat: bool = False,
         remat_policy: str = "full",
         device=None,
@@ -263,13 +302,11 @@ class TransformerLM(nn.Module):
     ):
         super().__init__()
         if attention == "ring":
-            raise NotImplementedError("attention='ring': ring attention comes with a later slice")
+            raise NotImplementedError("attention='ring': ring attention is not yet ported (slice 9)")
         if attention not in ("dense", "flash"):
             raise ValueError(f"unknown attention {attention!r}")
         if moe_num_experts:
-            raise NotImplementedError("MoE blocks come with a later slice")
-        if kv_num_blocks:
-            raise NotImplementedError("the paged KV cache comes with the serving-engine slice")
+            raise NotImplementedError("MoE blocks are not yet ported (slice 9)")
         # Validated even when remat is off, as the flax model does: bench
         # rows are keyed by this string, so a typo must never run silently.
         if remat_policy not in REMAT_POLICIES:
@@ -284,6 +321,11 @@ class TransformerLM(nn.Module):
         self.num_layers, self.max_len, self.attention = num_layers, max_len, attention
         self.dtype, self.pos_embedding = dtype, pos_embedding
         self.remat, self.remat_policy = remat, remat_policy
+        # The paged cache's geometry (the flax model's fields).  With
+        # kv_num_blocks > 0 the model decodes only through decode_step_paged;
+        # the pools belong to the serving engine, which sizes them from these
+        # two fields unless it is told otherwise.
+        self.kv_num_blocks, self.kv_block_size = kv_num_blocks, kv_block_size
         self.embed = Embed(vocab_size, d_model, dtype, dev)
         self.pos = Embed(max_len, d_model, dtype, dev) if pos_embedding == "learned" else None
         self.blocks = nn.ModuleList(
@@ -323,11 +365,18 @@ class TransformerLM(nn.Module):
                 mod.scale.fill_(1.0)
                 mod.bias.zero_()
 
-    def _embed(self, tokens, start: int = 0):
+    def _embed(self, tokens, start=0):
+        """Token (and learned position) embeddings; ``start`` is the first
+        position: an int, or a [B] tensor when each row sits at its own."""
         x = self.embed(tokens)
         if self.pos is not None:
             T = tokens.shape[1]
-            x = x + self.pos(torch.arange(start, start + T, device=tokens.device)[None, :])
+            if isinstance(start, torch.Tensor):
+                steps = torch.arange(T, device=tokens.device, dtype=start.dtype)
+                idx = start.to(tokens.device)[:, None] + steps[None, :]
+            else:
+                idx = torch.arange(start, start + T, device=tokens.device)[None, :]
+            x = x + self.pos(idx)
         return x
 
     def _head(self, x):
@@ -371,10 +420,30 @@ class TransformerLM(nn.Module):
     def decode_step(self, tokens, cache_k, cache_v, t: int):
         """One-token step at position ``t``: ``tokens`` [B, 1]; ``cache_k``
         / ``cache_v`` are [L, B, max_len, Hk, hd] and get this position's
-        K/V written in place.  Returns logits [B, 1, V]."""
+        K/V written in place.  Returns logits [B, 1, V].  A model with
+        ``kv_num_blocks > 0`` has no dense cache and refuses, as the flax
+        model refuses a paged decode without ``paged=``."""
+        if self.kv_num_blocks:
+            raise ValueError(
+                "kv_num_blocks > 0 decodes through a paged pool: use "
+                "decode_step_paged (engine.ContinuousBatchingEngine)"
+            )
         x = self._embed(tokens, start=t)
         for i, block in enumerate(self.blocks):
             x = block.decode(x, cache_k[i], cache_v[i], t)
+        return self._head(x)
+
+    def decode_step_paged(self, tokens, pools_k, pools_v, paged):
+        """One-token step of every decode slot, each at its own position:
+        ``tokens`` [S, 1]; ``pools_k``/``pools_v`` hold one [num_blocks,
+        block_size, Hk, hd] pool per layer and get each active slot's K/V
+        written in place (inactive slots write the null block 0);
+        ``paged`` is an ``ops.paged_attention.PagedState``.  Returns logits
+        [S, 1, V].  The flax model's ``decode=True`` path with
+        ``kv_num_blocks > 0``."""
+        x = self._embed(tokens, start=paged.lengths)
+        for i, block in enumerate(self.blocks):
+            x = block.decode_paged(x, pools_k[i], pools_v[i], paged)
         return self._head(x)
 
 
@@ -440,8 +509,8 @@ def generate(
 
 
 def sharded_generator(*args, **kwargs):
-    raise NotImplementedError("tensor-parallel generation comes with a later slice")
+    raise NotImplementedError("tensor-parallel generation is not yet ported (slice 9)")
 
 
 def pipeline_lm_apply(*args, **kwargs):
-    raise NotImplementedError("pipeline-parallel apply comes with a later slice")
+    raise NotImplementedError("pipeline-parallel apply is not yet ported (slice 9)")

@@ -1,19 +1,176 @@
-"""Serving helpers: the batch bucketing policy.
+"""Resilient serving plane: replicated inference with admission control,
+zero-downtime weight hot-swap, and request-loss-free client failover — the
+port of the JAX package's ``serving`` module, byte-compatible with it on
+the wire (a JAX client reaches a port replica and the reverse; a JAX
+``ModelPublisher`` feeds a port ``ModelSubscriber`` and the reverse).
 
-Only :func:`bucket` and :func:`bucket_shapes` of the JAX package's
-``serving`` module in this slice; the resilient serving tier (admission
-control, replicas, the client) comes with a later one.
+- :class:`ServeService` — the server plane.  A deferred RPC handler admits
+  requests through a bounded queue with per-request deadlines
+  (:class:`AdmissionController` rejects *immediately*, with a typed
+  overload error, anything that cannot meet its deadline given queue depth
+  and the EMA batch-service time), dedups retries by request id (a retry
+  racing a slow reply cannot double-serve), dynamic-batches to power-of-two
+  buckets, retries a failing batch once unbatched (one poisoned request
+  fails only its own caller), and installs staged weights *between* service
+  iterations — a hot swap never drops or slow-paths a request.
+- :class:`ModelPublisher` / :class:`ModelSubscriber` — zero-downtime weight
+  distribution as a version-keyed, resumable chunk pull: the publisher
+  announces ``(version, sha)``; each replica pulls chunks into a shadow
+  buffer, verifies the digest, and stages the result for the next
+  inter-iteration cutover.  A pull that dies with its publisher resumes
+  from the last received chunk.
+- :class:`ServeClient` — discovers replicas through the Broker
+  (``__broker_list``; replicas register as *non-contributing* cohort
+  members via ``Group.set_role``), spreads load by least-outstanding, and
+  retries idempotently with capped exponential backoff on replica death.
+- :class:`ServeReplica` — glue: one listening peer = broker registration +
+  service + subscriber + group ping pump.
+
+The plane is numpy + stdlib: the model step is an opaque ``step_fn(params,
+batch) -> outputs`` (numpy in, numpy out) and weights travel as pickled
+host trees of numpy leaves, so the plane itself is testable on any box and
+a published blob unpickles without torch.  The metric names and the error
+strings are the JAX package's: clients and ``scripts/mtop.py`` parse them.
 """
 
 from __future__ import annotations
 
-from typing import List
+import asyncio
+import hashlib
+import itertools
+import math
+import pickle
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from . import telemetry, utils
+from .group import Group
+from .rpc import Future, Rpc, RpcError
+from .telemetry import tracing as _tracing
+
+__all__ = [
+    "AdmissionController",
+    "BrokerUnreachableError",
+    "ModelPublisher",
+    "ModelSubscriber",
+    "ServeClient",
+    "ServeDeadlineError",
+    "ServeOverloadError",
+    "ServeReplica",
+    "ServeService",
+    "bucket",
+    "bucket_shapes",
+    "is_overload_error",
+]
+
+_REG = telemetry.get_registry()
+_M_SWAPS = _REG.counter("serve_hot_swaps_total", "live weight cutovers installed")
+_M_SWAP_S = _REG.histogram(
+    "serve_swap_seconds",
+    "version announce seen -> new weights serving (pull + stage + cutover)",
+)
+_M_VERSION = _REG.gauge("serve_model_version", "model version currently serving")
+_M_REJECTS = _REG.counter(
+    "serve_admission_rejects_total",
+    "requests rejected at admission (typed overload error)",
+    labelnames=("reason",),
+)
+_M_DEADLINE_MISS = _REG.counter(
+    "serve_deadline_misses_total",
+    "admitted requests answered after their deadline",
+)
+_M_DEPTH = _REG.gauge("serve_queue_depth", "admitted requests awaiting service")
+_M_BATCH_RETRY = _REG.counter(
+    "serve_batch_retries_total",
+    "failed batches retried unbatched (blast-radius isolation)",
+)
+_M_DEDUP = _REG.counter(
+    "serve_dedup_hits_total",
+    "requests coalesced onto an in-flight or cached request id",
+)
+_M_REQS = _REG.counter(
+    "serve_requests_total", "requests answered", labelnames=("outcome",)
+)
+_M_PULL_BYTES = _REG.counter(
+    "serve_model_pull_bytes_total", "model chunk bytes pulled by subscribers"
+)
+_M_PULL_RESUMES = _REG.counter(
+    "serve_model_pull_resumes_total",
+    "model pulls resumed from a partial chunk buffer",
+)
+_M_CLIENT_RETRIES = _REG.counter(
+    "serve_client_retries_total", "client attempts retried after an error"
+)
+_M_CLIENT_FAILOVERS = _REG.counter(
+    "serve_client_failovers_total", "client attempts moved to another replica"
+)
+_M_BROKER_FAILOVERS = _REG.counter(
+    "serve_client_broker_failovers_total",
+    "discovery refreshes moved to a different broker in the list",
+)
+_M_QPS = _REG.gauge(
+    "serve_qps", "requests answered per second (sliding ~1s window)"
+)
+_M_QWAIT = _REG.gauge(
+    "serve_queue_wait_s",
+    "EMA of request queue wait, enqueue -> service take (the autoscaler's "
+    "serve grow signal)",
+)
+_M_PAD_TOKENS = _REG.counter(
+    "serve_pad_tokens_total",
+    "tokens of padding waste: bucket pad rows and decode overrun in the "
+    "batch-synchronous arm, prompt-bucket padding in the engine arm — "
+    "subtract from gross throughput to get REAL tokens/s",
+)
+_M_PHASE = _REG.histogram(
+    "serve_phase_seconds",
+    "per-request serve latency by phase: admission (handler entry -> "
+    "enqueue), queue (enqueue -> batch take), batch_assembly (concat + "
+    "bucket pad), device (step_fn), reply (responses out)",
+    labelnames=("phase",),
+)
+
+# Typed overload protocol: remote handler errors travel as strings
+# (``RpcError(message)`` on the caller), so the type rides a token in the
+# message.  ``ret.error(OVERLOAD_TOKEN + ...)`` server-side; clients decode
+# with :func:`is_overload_error` and surface :class:`ServeOverloadError`.
+OVERLOAD_TOKEN = "__serve_overload__"
+
+
+class ServeOverloadError(RpcError):
+    """Typed admission rejection: the replica (or every replica) determined
+    the request cannot meet its deadline — surfaced immediately, not after
+    a transport timeout."""
+
+
+class ServeDeadlineError(RpcError):
+    """The client-side deadline expired before any replica answered."""
+
+
+class BrokerUnreachableError(RpcError):
+    """Every broker in the discovery list has been unreachable past the
+    client's patience window: the client cannot learn a roster at all.
+    Typed so callers can tell a dead control plane (page the operator)
+    from a slow or overloaded replica fleet (back off and retry).  Like
+    replica errors, failing brokers are suspected with capped exponential
+    backoff rather than hammered."""
+
+
+def is_overload_error(exc: object) -> bool:
+    """True for a typed overload: either the client-side
+    :class:`ServeOverloadError` or a caller-side error string carrying the
+    server's overload token."""
+    return isinstance(exc, ServeOverloadError) or OVERLOAD_TOKEN in str(exc)
 
 
 def bucket(n: int, cap: int) -> int:
     """Next power-of-two >= n, capped: THE batch bucketing policy — the
     startup warmup enumerates exactly these shapes, so a policy change here
-    cannot silently desync the two sites."""
+    cannot silently desync the two sites (a mid-traffic compile measured as
+    7 req/s with multi-second p50 in serve_bench)."""
     b = 1
     while b < n:
         b *= 2
@@ -27,3 +184,1149 @@ def bucket_shapes(cap: int) -> List[int]:
         shapes.append(b)
         b *= 2
     return shapes
+
+
+# --------------------------------------------------------------------------
+# admission control
+# --------------------------------------------------------------------------
+class AdmissionController:
+    """Bounded admission in front of the batching queue.
+
+    Two reject conditions, both decided at arrival (the whole point is to
+    move the failure from a 60 s client timeout to an immediate typed
+    error):
+
+    - ``queue_full``: depth at ``max_queue`` — the classic bounded buffer.
+    - ``deadline``: the request carries a deadline budget and the wait
+      estimate says it cannot be met.  The estimate is
+      ``(batches queued ahead + 1 in service) * EMA batch-service-seconds``
+      — deliberately simple and slightly conservative; until a first batch
+      has been timed there is no estimate and only ``queue_full`` applies.
+
+    ``per_token=True`` switches the estimate from per-batch to per-token
+    units for the continuous-batching engine, where "a batch" is not the
+    unit of service: ``note_service(seconds, tokens)`` maintains an EMA of
+    seconds-per-emitted-token and the wait estimate is ``pending tokens *
+    that EMA``, with the pending-token count supplied by the engine through
+    the ``pending_tokens`` callable (called under the service lock — it must
+    not block or re-enter).
+
+    Thread-safe; ``note_service`` is fed by the serve loop after every
+    batch (or engine decode step).
+    """
+
+    def __init__(self, *, max_queue: int = 128, batch_size: int = 16,
+                 alpha: float = 0.25, per_token: bool = False,
+                 pending_tokens: Optional[Callable[[], int]] = None):
+        self.max_queue = int(max_queue)
+        self.batch_size = max(1, int(batch_size))
+        self.alpha = float(alpha)
+        self.per_token = bool(per_token)
+        self._pending_tokens = pending_tokens
+        self._ema: Optional[float] = None
+        self._lock = threading.Lock()
+
+    def note_service(self, seconds: float, tokens: Optional[int] = None) -> None:
+        """Feed one service interval.  Per-batch mode ignores ``tokens``;
+        per-token mode folds ``seconds / tokens`` into the EMA (a step that
+        emitted nothing carries no signal and is dropped)."""
+        if self.per_token:
+            if not tokens:
+                return
+            value = float(seconds) / int(tokens)
+        else:
+            value = float(seconds)
+        with self._lock:
+            if self._ema is None:
+                self._ema = value
+            else:
+                self._ema += self.alpha * (value - self._ema)
+
+    def ema_batch_seconds(self) -> Optional[float]:
+        """The EMA in this controller's service unit: seconds per batch
+        (default) or seconds per emitted token (``per_token=True``)."""
+        with self._lock:
+            return self._ema
+
+    def estimate_wait(self, depth: int) -> Optional[float]:
+        """Seconds until a request arriving at ``depth`` would be answered
+        (None until a first batch has been timed)."""
+        with self._lock:
+            ema = self._ema
+        if ema is None:
+            return None
+        if self.per_token:
+            if self._pending_tokens is None:
+                return None  # engine wiring absent: only queue_full applies
+            return self._pending_tokens() * ema
+        batches_ahead = math.ceil((depth + 1) / self.batch_size)
+        return (batches_ahead + 1) * ema
+
+    def admit(self, depth: int, deadline_s: Optional[float]) -> Optional[str]:
+        """None to admit, else the reject reason (``"queue_full"`` /
+        ``"deadline"``)."""
+        if depth >= self.max_queue:
+            return "queue_full"
+        if deadline_s is not None:
+            est = self.estimate_wait(depth)
+            if est is not None and est > float(deadline_s):
+                return "deadline"
+        return None
+
+
+# --------------------------------------------------------------------------
+# server plane
+# --------------------------------------------------------------------------
+class _Request:
+    __slots__ = ("prompt", "ret", "waiters", "t_enq", "deadline_at", "req_id",
+                 "single", "tctx", "max_new")
+
+    def __init__(self, prompt, ret, t_enq, deadline_at, req_id, single,
+                 tctx=None, max_new=None):
+        self.max_new = max_new  # per-request token budget (None = server default)
+        self.prompt = prompt
+        self.ret = ret
+        self.waiters: List[Any] = []  # dedup'd rets riding the same req_id
+        self.t_enq = t_enq
+        self.deadline_at = deadline_at
+        self.req_id = req_id
+        self.single = single
+        # Trace context captured at admission (the deferred handler runs
+        # under the RPC layer's rpc.recv span) — the service loop's batch
+        # span parents under it, crossing the queue/batch thread hop.
+        self.tctx = tctx
+
+
+class ServeService:
+    """One replica's service plane: admission -> dedup -> dynamic batching
+    -> bucketed ``step_fn`` -> per-caller responses, with staged weights
+    installed between iterations.
+
+    ``step_fn(params, batch) -> outputs`` is the whole model contract: a
+    2-D numpy batch in, a stacked batch of outputs back (extra pad rows are
+    sliced off by the caller's row count).  The serve loop never sees torch.
+
+    Requests arrive through the deferred RPC handler ``name`` with optional
+    ``deadline_s`` (remaining budget, seconds) and ``req_id`` kwargs; both
+    are optional so plain ``rpc.async_(peer, name, prompt)`` clients keep
+    working.  ``{name}_stats`` serves the same counter surface the legacy
+    ``serve()`` queue exposed (serve_bench diffs two snapshots) plus the
+    resilience counters.
+    """
+
+    def __init__(self, rpc: Rpc, step_fn: Callable, params, *,
+                 name: str = "generate", version: int = 0,
+                 batch_size: int = 16, dynamic_batching: bool = True,
+                 max_queue: int = 128, dedup_ttl: float = 60.0,
+                 pad_buckets: bool = True,
+                 per_request_tokens: bool = False,
+                 default_max_new: int = 16):
+        self._rpc = rpc
+        self._step_fn = step_fn
+        self._params = params
+        self._name = name
+        self._batch_size = int(batch_size)
+        self._dynamic = bool(dynamic_batching)
+        self._pad_buckets = bool(pad_buckets) and self._dynamic
+        self._dedup_ttl = float(dedup_ttl)
+        # per_request_tokens: step_fn grows a third argument — an int32
+        # per-row token-budget vector — and each caller's reply is sliced
+        # to its own budget.  The batch still decodes to the row max (the
+        # convoy the engine arm exists to remove); the overrun is counted
+        # as pad-token waste so the A/B compares real throughput.
+        self._per_request_tokens = bool(per_request_tokens)
+        self._default_max_new = int(default_max_new)
+        self.admission = AdmissionController(
+            max_queue=max_queue,
+            batch_size=self._batch_size if self._dynamic else 1,
+        )
+        # serve_qps window (shared by the engine subclass's loop).
+        self._qps_t0 = time.monotonic()
+        self._qps_n = 0
+        self._lock = threading.Lock()
+        self._queue: List[_Request] = []
+        self._inflight: Dict[str, _Request] = {}  # req_id -> queued/served req
+        self._done: Dict[str, Tuple[Any, Optional[str], float]] = {}
+        self._version = int(version)
+        self._staged: Optional[Tuple[int, Any, float]] = None
+        self._closed = False
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._wake: Optional[asyncio.Event] = None
+        self._stats = {
+            "items": 0, "takes": 0, "wait_s_sum": 0.0, "wait_s_max": 0.0,
+            "depth_max": 0, "served": 0, "iterations": 0, "bucket_pad_rows": 0,
+            "admission_rejects": 0, "deadline_misses": 0, "dedup_hits": 0,
+            "batch_retries": 0, "hot_swaps": 0, "last_swap_seconds": None,
+        }
+        _M_VERSION.set(self._version)
+        rpc.define_deferred(name, self._on_request)
+        rpc.define(f"{name}_stats", self.stats)
+
+    # ------------------------------------------------------------- weights
+    def stage(self, version: int, params, announced_at: Optional[float] = None):
+        """Stage new weights (shadow buffer) for installation between
+        service iterations.  ``announced_at`` (monotonic) is when the
+        version announcement was first seen — ``serve_swap_seconds``
+        measures announce -> serving.  Stale versions are ignored."""
+        version = int(version)
+        with self._lock:
+            if version <= self._version:
+                return False
+            self._staged = (version, params,
+                            announced_at if announced_at is not None
+                            else time.monotonic())
+        self._wake_loop()
+        return True
+
+    def model_version(self) -> int:
+        with self._lock:
+            return self._version
+
+    def _maybe_swap_locked(self) -> None:
+        if self._staged is None:
+            return
+        version, params, announced_at = self._staged
+        self._staged = None
+        if version <= self._version:
+            return
+        self._params = params
+        self._version = version
+        dt = time.monotonic() - announced_at
+        self._stats["hot_swaps"] += 1
+        self._stats["last_swap_seconds"] = dt
+        _M_SWAPS.inc()
+        _M_SWAP_S.observe(dt)
+        _M_VERSION.set(version)
+        telemetry.flight_event("serve.hot_swap", endpoint=self._name,
+                               version=version, seconds=round(dt, 4))
+        utils.log_info(
+            "serve %s: hot-swapped to model version %d in %.3fs",
+            self._name, version, dt,
+        )
+
+    # ------------------------------------------------------------ admission
+    def _on_request(self, ret, prompt, max_new_tokens=None,
+                    deadline_s: Optional[float] = None,
+                    req_id: Optional[str] = None):
+        # max_new_tokens rides positionally after the prompt so
+        # ``client.submit(prompt, max_new)`` works against both serving
+        # arms; legacy single-argument callers get the server default.
+        now = time.monotonic()
+        with self._lock:
+            if self._closed:
+                ret.error(f"serve {self._name}: closed")
+                return
+            if req_id is not None:
+                done = self._done.get(req_id)
+                if done is not None:
+                    value, err, _t = done
+                    self._stats["dedup_hits"] += 1
+                    _M_DEDUP.inc()
+                    if err is None:
+                        ret(value)
+                    else:
+                        ret.error(err)
+                    return
+                cur = self._inflight.get(req_id)
+                if cur is not None:
+                    # A retry raced the original (slow reply, duplicated
+                    # frame): attach, never re-serve.
+                    cur.waiters.append(ret)
+                    self._stats["dedup_hits"] += 1
+                    _M_DEDUP.inc()
+                    return
+            reason = self.admission.admit(len(self._queue), deadline_s)
+            if reason is not None:
+                self._stats["admission_rejects"] += 1
+                _M_REJECTS.inc(reason=reason)
+                est = self.admission.estimate_wait(len(self._queue))
+                ret.error(
+                    f"{OVERLOAD_TOKEN}:{reason}: depth={len(self._queue)} "
+                    f"est_wait={est if est is None else round(est, 4)}s "
+                    f"deadline={deadline_s}s"
+                )
+                return
+            arr = np.asarray(prompt)
+            req = _Request(
+                prompt=arr[None] if arr.ndim == 1 else arr,
+                ret=ret,
+                t_enq=now,
+                deadline_at=None if deadline_s is None else now + float(deadline_s),
+                req_id=req_id,
+                single=arr.ndim == 1,
+                tctx=telemetry.current_context(),
+                max_new=None if max_new_tokens is None else int(max_new_tokens),
+            )
+            self._queue.append(req)
+            if req_id is not None:
+                self._inflight[req_id] = req
+            self._stats["depth_max"] = max(self._stats["depth_max"],
+                                           len(self._queue))
+            _M_DEPTH.inc()
+        _M_PHASE.observe(time.monotonic() - now, phase="admission")
+        self._wake_loop()
+
+    def _wake_loop(self) -> None:
+        loop, wake = self._loop, self._wake
+        if loop is not None and wake is not None:
+            try:
+                loop.call_soon_threadsafe(wake.set)
+            except RuntimeError:
+                pass  # loop already closed
+
+    # -------------------------------------------------------------- service
+    def _take_locked(self) -> List[_Request]:
+        if not self._queue:
+            return []
+        n = len(self._queue) if self._dynamic else 1
+        n = min(n, self._batch_size)
+        batch, self._queue = self._queue[:n], self._queue[n:]
+        now = time.monotonic()
+        s = self._stats
+        s["takes"] += 1
+        s["items"] += n
+        _M_DEPTH.dec(n)
+        for r in batch:
+            wait = now - r.t_enq
+            s["wait_s_sum"] += wait
+            s["wait_s_max"] = max(s["wait_s_max"], wait)
+            _M_PHASE.observe(wait, phase="queue")
+            self._note_queue_wait(wait)
+        return batch
+
+    # Smoothed queue wait + answered-per-second gauges: the autoscaler's
+    # serve signals (PeerSample.serve_wait / serve_qps).
+    _WAIT_ALPHA = 0.3
+
+    def _note_queue_wait(self, wait: float) -> None:
+        ema = getattr(self, "_wait_ema", None)
+        self._wait_ema = (wait if ema is None
+                          else ema + self._WAIT_ALPHA * (wait - ema))
+        _M_QWAIT.set(self._wait_ema)
+
+    def _note_answered(self, n: int, now: Optional[float] = None) -> None:
+        now = time.monotonic() if now is None else now
+        self._qps_n += n
+        dt = now - self._qps_t0
+        if dt >= 1.0:
+            _M_QPS.set(self._qps_n / dt)
+            self._qps_t0, self._qps_n = now, 0
+
+    def _respond(self, req: _Request, value, err: Optional[str]) -> None:
+        now = time.monotonic()
+        if err is None and req.deadline_at is not None and now > req.deadline_at:
+            self._stats["deadline_misses"] += 1
+            _M_DEADLINE_MISS.inc()
+        _M_REQS.inc(outcome="ok" if err is None else "error")
+        rets = [req.ret] + req.waiters
+        with self._lock:
+            if req.req_id is not None:
+                self._inflight.pop(req.req_id, None)
+                self._done[req.req_id] = (value, err, now)
+        for ret in rets:
+            try:
+                if err is None:
+                    ret(value)
+                else:
+                    ret.error(err)
+            except Exception:  # noqa: BLE001 — a dead caller must not stop
+                pass           # the batch's remaining responses
+
+    def _sweep_done_locked(self, now: float) -> None:
+        if not self._done:
+            return
+        dead = [k for k, (_v, _e, t) in self._done.items()
+                if now - t > self._dedup_ttl]
+        for k in dead:
+            del self._done[k]
+
+    def _run_batch(self, batch: List[_Request]) -> None:
+        # The batch serves under the first traced request's context — one
+        # representative cross-host edge per step_fn call (per-request edges
+        # would draw N identical arrows onto the same device work).
+        parent = next((r.tctx for r in batch if r.tctx is not None), None)
+        with telemetry.child_span(f"serve.batch {self._name}", parent,
+                                  requests=len(batch)):
+            t_asm = time.monotonic()
+            prompts = np.concatenate([r.prompt for r in batch], axis=0)
+            n = prompts.shape[0]
+            budgets = None
+            if self._per_request_tokens:
+                budgets = np.concatenate([
+                    np.full(r.prompt.shape[0],
+                            r.max_new if r.max_new else self._default_max_new,
+                            dtype=np.int32)
+                    for r in batch
+                ])
+            if self._pad_buckets and n < self._batch_size:
+                b = bucket(n, self._batch_size)
+                if n < b:
+                    pad = np.repeat(prompts[-1:], b - n, axis=0)
+                    prompts = np.concatenate([prompts, pad], axis=0)
+                    self._stats["bucket_pad_rows"] += b - n
+                    # Pad rows burn a full prompt + decode budget each.
+                    waste = (b - n) * prompts.shape[1]
+                    if budgets is not None:
+                        budgets = np.concatenate([
+                            budgets,
+                            np.full(b - n, budgets.max(), dtype=np.int32),
+                        ])
+                        waste += (b - n) * int(budgets.max())
+                    _M_PAD_TOKENS.inc(waste)
+            if budgets is not None:
+                # The convoy cost of batch-synchronous decode, made visible:
+                # every row steps to the batch max budget.
+                _M_PAD_TOKENS.inc(int((budgets[:n].max() - budgets[:n]).sum()))
+            t0 = time.monotonic()
+            _M_PHASE.observe(t0 - t_asm, phase="batch_assembly")
+            step_args = (prompts,) if budgets is None else (prompts, budgets)
+            try:
+                out = np.asarray(self._step_fn(self._params, *step_args))[:n]
+            except Exception as e:  # noqa: BLE001
+                if len(batch) == 1:
+                    # Already unbatched: the failure belongs to this caller.
+                    self._respond(batch[0], None, f"generate failed: {e}")
+                    return
+                # Blast-radius isolation: one poisoned request must not error
+                # every caller stacked into its batch — retry once, unbatched,
+                # so only the offender fails.
+                self._stats["batch_retries"] += 1
+                _M_BATCH_RETRY.inc()
+                for req in batch:
+                    rows = req.prompt.shape[0]
+                    try:
+                        args = ((req.prompt,) if budgets is None else
+                                (req.prompt, np.full(
+                                    rows,
+                                    req.max_new if req.max_new
+                                    else self._default_max_new,
+                                    dtype=np.int32)))
+                        o = np.asarray(self._step_fn(self._params, *args))[:rows]
+                    except Exception as e2:  # noqa: BLE001
+                        self._respond(req, None, f"generate failed: {e2}")
+                        continue
+                    self._respond(req, self._clip(req, o), None)
+                return
+            dt = time.monotonic() - t0
+            if budgets is not None:
+                self.admission.note_service(
+                    dt, tokens=int(budgets[:n].sum())
+                )
+            else:
+                self.admission.note_service(dt)
+            _M_PHASE.observe(dt, phase="device")
+            t_reply = time.monotonic()
+            i = 0
+            for req in batch:
+                rows = req.prompt.shape[0]
+                part = out[i:i + rows]
+                i += rows
+                self._respond(req, self._clip(req, part), None)
+            _M_PHASE.observe(time.monotonic() - t_reply, phase="reply")
+
+    def _clip(self, req: _Request, rows: np.ndarray):
+        """Slice one request's output rows down to its own token budget
+        (per-request-tokens mode decodes the whole batch to the row max)."""
+        if self._per_request_tokens and rows.ndim == 2:
+            budget = req.max_new if req.max_new else self._default_max_new
+            tp = req.prompt.shape[1]
+            rows = rows[:, :tp + budget]
+        return rows[0] if req.single else rows
+
+    async def loop(self, total=None) -> int:
+        """Serve until ``total`` requests have been answered (None =
+        forever, until :meth:`close`).  Returns the number of service
+        iterations — with concurrent callers this is smaller than the
+        request count, which is the point of dynamic batching."""
+        self._loop = asyncio.get_event_loop()
+        self._wake = asyncio.Event()
+        served = 0
+        try:
+            while not self._closed and (total is None or served < total):
+                with self._lock:
+                    self._maybe_swap_locked()
+                    batch = self._take_locked()
+                    self._sweep_done_locked(time.monotonic())
+                if not batch:
+                    # Park until a request or a staged swap wakes us; the
+                    # timeout bounds a lost wakeup AND gives idle replicas a
+                    # swap-install cadence (a swap must not wait for
+                    # traffic).
+                    try:
+                        await asyncio.wait_for(self._wake.wait(), timeout=0.05)
+                    except asyncio.TimeoutError:
+                        pass
+                    self._wake.clear()
+                    # Close the rate window even with nothing answered, so
+                    # serve_qps decays to the true (zero) rate under silence
+                    # — the autoscaler's idle-shrink signal reads it.  Same
+                    # for the wait EMA: an empty queue means waits are now
+                    # zero, not whatever the last busy spell left behind.
+                    self._note_answered(0)
+                    if not self._queue:
+                        self._note_queue_wait(0.0)
+                    continue
+                rows = sum(r.prompt.shape[0] for r in batch)
+                served += rows
+                self._stats["iterations"] += 1
+                self._stats["served"] += rows
+                self._run_batch(batch)
+                self._note_answered(len(batch))
+        finally:
+            self._loop = None
+            self._wake = None
+        return self._stats["iterations"]
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            out = dict(self._stats)
+            out["batch_size"] = self._batch_size if self._dynamic else 1
+            out["depth"] = len(self._queue)
+            out["model_version"] = self._version
+            out["ema_batch_seconds"] = self.admission.ema_batch_seconds()
+        return out
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            queue, self._queue = self._queue, []
+            self._inflight.clear()
+        _M_DEPTH.dec(len(queue))
+        for req in queue:
+            for ret in [req.ret] + req.waiters:
+                try:
+                    ret.error(f"serve {self._name}: closed")
+                except Exception:  # noqa: BLE001
+                    pass
+        self._wake_loop()
+        self._rpc.undefine(self._name)
+        self._rpc.undefine(f"{self._name}_stats")
+
+
+# --------------------------------------------------------------------------
+# model distribution (publisher / subscriber)
+# --------------------------------------------------------------------------
+def _model_chunk_bytes() -> int:
+    import os
+
+    return max(1, int(os.environ.get("MOOLIB_MODEL_CHUNK_BYTES", str(1 << 20))))
+
+
+class ModelPublisher:
+    """Version announcement + resumable chunk source for serving weights.
+
+    Holds the latest published payload as ``(version, sha, chunks)`` and
+    serves two endpoints (``{name}_meta`` / ``{name}_chunk``): subscribers
+    poll the meta, pull chunks by sequence number, and verify the digest —
+    the accumulator's chunked model sync, inverted into a *pull* so the
+    publisher needs no replica roster and a pull that dies with either end
+    resumes from the subscriber's partial buffer (same ``(version, sha)``
+    key).  Publishing a newer version mid-pull invalidates older chunk
+    requests (the handler answers None), which is how stale pulls abort.
+
+    The payload is an arbitrary picklable tree; callers publishing torch
+    weights convert them to numpy first (``models.convert.to_flax`` for the
+    TransformerLM), so a subscriber of either package unpickles them
+    without torch.
+    """
+
+    def __init__(self, rpc: Rpc, *, name: str = "model",
+                 chunk_bytes: Optional[int] = None):
+        self._rpc = rpc
+        self._name = name
+        self._chunk_bytes = int(chunk_bytes) if chunk_bytes else _model_chunk_bytes()
+        self._lock = threading.Lock()
+        self._meta: Optional[Dict[str, Any]] = None
+        self._chunks: List[bytes] = []
+        rpc.define(f"{name}_meta", self._on_meta)
+        rpc.define(f"{name}_chunk", self._on_chunk)
+
+    def publish(self, payload, version: int) -> Dict[str, Any]:
+        """Make ``payload`` the announced model at ``version``.  Returns the
+        meta dict subscribers will see."""
+        blob = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
+        sha = hashlib.sha256(blob).hexdigest()[:16]
+        cb = self._chunk_bytes
+        chunks = [blob[i:i + cb] for i in range(0, len(blob), cb)] or [b""]
+        meta = {
+            "version": int(version), "sha": sha, "nbytes": len(blob),
+            "total": len(chunks), "chunk_bytes": cb,
+        }
+        with self._lock:
+            self._meta, self._chunks = meta, chunks
+        utils.log_info(
+            "publisher %s: announced model version %d (%d bytes, %d chunks)",
+            self._name, version, len(blob), len(chunks),
+        )
+        return dict(meta)
+
+    def _on_meta(self):
+        with self._lock:
+            return dict(self._meta) if self._meta is not None else None
+
+    def _on_chunk(self, version: int, sha: str, seq: int):
+        with self._lock:
+            if (self._meta is None or self._meta["version"] != version
+                    or self._meta["sha"] != sha):
+                return None  # stale pull: subscriber must re-poll the meta
+            if not 0 <= seq < len(self._chunks):
+                return None
+            return self._chunks[seq]
+
+    def close(self) -> None:
+        self._rpc.undefine(f"{self._name}_meta")
+        self._rpc.undefine(f"{self._name}_chunk")
+
+
+class ModelSubscriber:
+    """Replica-side puller: polls a :class:`ModelPublisher`'s meta, pulls
+    new versions chunk-by-chunk (windowed) into a shadow buffer, verifies
+    the sha, and hands the decoded payload to ``on_update(version, payload,
+    announced_at)``.
+
+    The chunk buffer is keyed by ``(version, sha)`` and survives failed
+    pulls: a publisher restart mid-transfer (same payload, same key)
+    resumes from the last received chunk instead of starting over
+    (``serve_model_pull_resumes_total``).  A *newer* announced version
+    abandons the partial pull — serving wants the freshest weights, not a
+    completed stale transfer.
+    """
+
+    def __init__(self, rpc: Rpc, publisher: str, *, name: str = "model",
+                 on_update: Callable[[int, Any, float], None],
+                 poll_interval: float = 0.5, window: int = 4,
+                 timeout: float = 10.0):
+        self._rpc = rpc
+        self._publisher = publisher
+        self._name = name
+        self._on_update = on_update
+        self._poll_interval = float(poll_interval)
+        self._window = max(1, int(window))
+        self._timeout = float(timeout)
+        self._have_version: Optional[int] = None
+        self._buffer_key: Optional[Tuple[int, str]] = None
+        self._buffer: List[Optional[bytes]] = []
+        self._announced: Dict[Tuple[int, str], float] = {}
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "ModelSubscriber":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._run, name=f"model-sub-{self._name}", daemon=True
+            )
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    # ------------------------------------------------------------------ run
+    def _poll_meta(self) -> Optional[Dict[str, Any]]:
+        try:
+            return self._rpc.async_(
+                self._publisher, f"{self._name}_meta"
+            ).result(self._timeout)
+        except Exception:  # noqa: BLE001 — publisher absent/restarting is
+            return None    # a normal serving state, not an error
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            meta = self._poll_meta()
+            if meta is not None and (self._have_version is None
+                                     or meta["version"] > self._have_version):
+                key = (meta["version"], meta["sha"])
+                # announce time: the FIRST sighting of this (version, sha);
+                # serve_swap_seconds is measured from here.
+                self._announced.setdefault(key, time.monotonic())
+                self._pull(meta)
+            self._stop.wait(self._poll_interval)
+
+    def _pull(self, meta: Dict[str, Any]) -> None:
+        key = (meta["version"], meta["sha"])
+        total = int(meta["total"])
+        if self._buffer_key != key:
+            self._buffer_key = key
+            self._buffer = [None] * total
+        elif any(c is not None for c in self._buffer):
+            _M_PULL_RESUMES.inc()
+            utils.log_info(
+                "subscriber %s: resuming pull of version %d from chunk %d/%d",
+                self._name, meta["version"],
+                sum(c is not None for c in self._buffer), total,
+            )
+        missing = [i for i, c in enumerate(self._buffer) if c is None]
+        for start in range(0, len(missing), self._window):
+            if self._stop.is_set():
+                return
+            seqs = missing[start:start + self._window]
+            futs = [
+                self._rpc.async_(self._publisher, f"{self._name}_chunk",
+                                 meta["version"], meta["sha"], seq)
+                for seq in seqs
+            ]
+            for seq, fut in zip(seqs, futs):
+                try:
+                    data = fut.result(self._timeout)
+                except Exception:  # noqa: BLE001 — publisher died mid-pull;
+                    return         # buffer kept, next poll resumes
+                if data is None:
+                    # Stale (a newer version superseded this one mid-pull):
+                    # abandon, the next meta poll redirects us.
+                    return
+                self._buffer[seq] = bytes(data)
+                _M_PULL_BYTES.inc(len(data))
+        blob = b"".join(self._buffer)  # type: ignore[arg-type]
+        if hashlib.sha256(blob).hexdigest()[:16] != meta["sha"]:
+            utils.log_error(
+                "subscriber %s: sha mismatch for version %d; discarding",
+                self._name, meta["version"],
+            )
+            self._buffer_key, self._buffer = None, []
+            return
+        payload = pickle.loads(blob)
+        self._have_version = int(meta["version"])
+        self._buffer_key, self._buffer = None, []
+        announced = self._announced.pop(key, time.monotonic())
+        self._announced = {k: t for k, t in self._announced.items()
+                           if k[0] > meta["version"]}
+        self._on_update(self._have_version, payload, announced)
+
+
+# --------------------------------------------------------------------------
+# client plane
+# --------------------------------------------------------------------------
+class ServeClient:
+    """Request-loss-free client: replica discovery, load spreading, and
+    idempotent retry with capped exponential backoff.
+
+    Two discovery modes:
+
+    - ``broker="host:port"``: connect to the Broker, refresh the live
+      replica roster from ``__broker_list`` (replicas register as
+      non-contributing ``Group`` observers), and reach replicas by name
+      through gossip peer-finding.
+    - ``replicas=["name", ...]``: a static roster; the caller is
+      responsible for connecting ``rpc`` somewhere that can route to them.
+
+    Every logical request gets one ``req_id`` reused across attempts, so
+    server-side dedup makes retries idempotent: a retry racing a slow reply
+    attaches to the in-flight computation instead of re-serving.  Failure
+    handling per attempt:
+
+    - typed overload reject -> immediately fail over to a not-yet-rejecting
+      replica; when every known replica has rejected, surface
+      :class:`ServeOverloadError` (don't burn the deadline on a fleet that
+      already said no);
+    - any other error (replica death, transport timeout) -> capped
+      exponential backoff, then retry on the healthiest replica.
+
+    ``metadata=False`` drops the ``deadline_s``/``req_id`` kwargs for
+    legacy ``serve()`` endpoints whose dynamic-batching queue stacks
+    kwargs across callers (the ``--connect`` single-shot baseline).
+    """
+
+    def __init__(self, rpc: Optional[Rpc] = None, *, fn: str = "generate",
+                 replicas: Sequence[str] = (), broker: Optional[str] = None,
+                 brokers: Sequence[str] = (),
+                 broker_name: str = "broker", group: str = "serve",
+                 deadline_s: float = 30.0, attempt_timeout: float = 5.0,
+                 max_attempts: int = 6, backoff: float = 0.05,
+                 backoff_cap: float = 1.0, refresh_interval: float = 0.5,
+                 broker_unreachable_after: float = 10.0,
+                 metadata: bool = True):
+        self._owns_rpc = rpc is None
+        if rpc is None:
+            rpc = Rpc()
+            rpc.set_name(f"serve-client-{utils.create_uid()[:8]}")
+        self._rpc = rpc
+        self.fn = fn
+        self.deadline_s = float(deadline_s)
+        self.attempt_timeout = float(attempt_timeout)
+        self.max_attempts = int(max_attempts)
+        self.backoff = float(backoff)
+        self.backoff_cap = float(backoff_cap)
+        self.metadata = bool(metadata)
+        self._broker_name = broker_name
+        self._group = group
+        self._lock = threading.Lock()
+        self._replicas: List[str] = list(replicas)
+        self._outstanding: Dict[str, int] = {}
+        self._suspect: Dict[str, float] = {}  # replica -> suspect-until
+        self._rr = itertools.count()
+        self._ids = itertools.count()
+        self._closed = threading.Event()
+        self._stats = {"ok": 0, "overload": 0, "deadline": 0, "error": 0,
+                       "retries": 0, "failovers": 0}
+        self._refresh_thread: Optional[threading.Thread] = None
+        # Discovery control plane: one broker (legacy) or the full HA list.
+        # Re-resolved from ADDRESSES on every refresh — a cached name would
+        # pin discovery to whichever broker was primary at construction.
+        self._broker_addrs: List[str] = (
+            ([broker] if broker else []) + [b for b in brokers if b]
+        )
+        self._broker_addr: Optional[str] = None  # address currently serving us
+        self._broker_suspect: Dict[str, float] = {}  # addr -> suspect-until
+        self._broker_backoff: Dict[str, float] = {}  # addr -> current backoff
+        self._broker_unreachable_after = float(broker_unreachable_after)
+        self._broker_ok_at = time.monotonic()
+        if self._broker_addrs:
+            for a in self._broker_addrs:
+                rpc.connect(a)
+            self._refresh_thread = threading.Thread(
+                target=self._refresh_loop, args=(float(refresh_interval),),
+                name="serve-client-refresh", daemon=True,
+            )
+            self._refresh_thread.start()
+
+    # -------------------------------------------------------------- roster
+    def _refresh_loop(self, interval: float) -> None:
+        while not self._closed.is_set():
+            self._refresh_once()
+            self._closed.wait(interval)
+
+    def _refresh_once(self) -> None:
+        """One discovery pass across the broker list: current broker first,
+        suspects skipped while their backoff runs (unless everyone is
+        suspect), a primary's roster preferred over a standby's replicated
+        one (the standby keeps discovery alive mid-failover)."""
+        now = time.monotonic()
+        addrs = list(self._broker_addrs)
+        if self._broker_addr in addrs:
+            addrs.remove(self._broker_addr)
+            addrs.insert(0, self._broker_addr)
+        candidates = [a for a in addrs
+                      if self._broker_suspect.get(a, 0.0) <= now] or addrs
+        best: Optional[Tuple[str, dict]] = None
+        for addr in candidates:
+            name = self._rpc.peer_name_at(addr)
+            if name is None:  # never greeted: down, or still dialing
+                self._note_broker_fail(addr, now)
+                continue
+            try:
+                listing = self._rpc.async_(
+                    name, "__broker_list", self._group
+                ).result(2.0)
+            except Exception:  # noqa: BLE001
+                self._note_broker_fail(addr, now)
+                continue
+            if not isinstance(listing, dict):
+                self._note_broker_fail(addr, now)
+                continue
+            self._broker_suspect.pop(addr, None)
+            self._broker_backoff.pop(addr, None)
+            if not listing.get("standby"):
+                best = (addr, listing)
+                break
+            if best is None:
+                best = (addr, listing)
+        if best is None:
+            return  # everyone unreachable: keep the last-known roster
+        addr, listing = best
+        if self._broker_addr is not None and addr != self._broker_addr:
+            _M_BROKER_FAILOVERS.inc()
+            utils.log_info("serve client: discovery failed over to broker at %s",
+                           addr)
+        self._broker_addr = addr
+        self._broker_ok_at = time.monotonic()
+        if listing.get("observers"):
+            with self._lock:
+                self._replicas = sorted(listing["observers"])
+
+    def _note_broker_fail(self, addr: str, now: float) -> None:
+        backoff = self._broker_backoff.get(addr, 0.25)
+        self._broker_backoff[addr] = min(backoff * 2, 2.0)
+        self._broker_suspect[addr] = now + backoff
+
+    def broker_unreachable(self) -> bool:
+        """True when broker discovery is enabled and NO broker in the list
+        has answered for ``broker_unreachable_after`` seconds."""
+        if not self._broker_addrs or self._refresh_thread is None:
+            return False
+        return (time.monotonic() - self._broker_ok_at
+                > self._broker_unreachable_after)
+
+    def replicas(self) -> List[str]:
+        with self._lock:
+            return list(self._replicas)
+
+    def wait_for_replicas(self, n: int = 1, timeout: float = 30.0) -> List[str]:
+        """Block until discovery has found ``n`` live replicas."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            reps = self.replicas()
+            if len(reps) >= n:
+                return reps
+            if not reps and self.broker_unreachable():
+                raise BrokerUnreachableError(
+                    f"no broker reachable (tried {self._broker_addrs}) and "
+                    f"no replicas known"
+                )
+            time.sleep(0.05)
+        raise ServeDeadlineError(
+            f"discovered {len(self.replicas())}/{n} replicas within {timeout}s"
+        )
+
+    def _pick(self, tried: set, overloaded: set) -> Optional[str]:
+        now = time.monotonic()
+        replicas = self.replicas()
+        candidates = [r for r in replicas if r not in overloaded]
+        if not candidates:
+            return None
+        healthy = [r for r in candidates
+                   if self._suspect.get(r, 0.0) <= now] or candidates
+        fresh = [r for r in healthy if r not in tried] or healthy
+        with self._lock:
+            return min(fresh, key=lambda r: (self._outstanding.get(r, 0), r))
+
+    # ------------------------------------------------------------- request
+    def submit(self, *args, deadline_s: Optional[float] = None) -> Future:
+        """Fire one logical request; the returned Future resolves with the
+        reply, or raises :class:`ServeOverloadError` /
+        :class:`ServeDeadlineError` / :class:`RpcError`."""
+        budget = self.deadline_s if deadline_s is None else float(deadline_s)
+        st = {
+            "id": f"{self._rpc.get_name()}:{next(self._ids)}",
+            "args": args,
+            "deadline": time.monotonic() + budget,
+            "attempt": 0,
+            "tried": set(),
+            "overloaded": set(),
+            "future": Future(),
+            "replica": None,
+            # Root of the request's distributed trace.  The span itself is
+            # recorded at completion (retries outlive this stack frame);
+            # each attempt attaches the context so its rpc.call — and the
+            # replica's handler spans across the wire — parent under it.
+            "tctx": _tracing.TraceContext(
+                _tracing.new_trace_id(), _tracing.new_span_id()
+            ),
+            # mtlint: allow-bare-timer(span timestamp: the tracer consumes raw perf_counter_ns t0/duration pairs, not a histogram)
+            "t0_ns": time.perf_counter_ns(),
+        }
+        self._attempt(st)
+        return st["future"]
+
+    def call(self, *args, deadline_s: Optional[float] = None):
+        budget = self.deadline_s if deadline_s is None else float(deadline_s)
+        return self.submit(*args, deadline_s=deadline_s).result(budget + 5.0)
+
+    def _fail(self, st: Dict[str, Any], exc: RpcError, outcome: str) -> None:
+        self._stats[outcome] = self._stats.get(outcome, 0) + 1
+        self._record_request_span(st, outcome)
+        st["future"].set_exception(exc)
+
+    def _record_request_span(self, st: Dict[str, Any], outcome: str) -> None:
+        ctx = st.get("tctx")
+        if ctx is None:
+            return
+        _tracing.get_tracer().record(
+            "serve.request",
+            st["t0_ns"],
+            time.perf_counter_ns() - st["t0_ns"],  # mtlint: allow-bare-timer(span duration for tracer.record, exported via the trace plane)
+            trace_id=ctx.trace_id,
+            span_id=ctx.span_id,
+            args={"req_id": st["id"], "outcome": outcome,
+                  "attempts": st["attempt"] + 1},
+        )
+
+    def _later(self, st: Dict[str, Any], delay: float) -> None:
+        if self._closed.is_set():
+            self._fail(st, RpcError("ServeClient closed"), "error")
+            return
+        t = threading.Timer(delay, self._attempt, args=(st,))
+        t.daemon = True
+        t.start()
+
+    def _attempt(self, st: Dict[str, Any]) -> None:
+        if self._closed.is_set():
+            self._fail(st, RpcError("ServeClient closed"), "error")
+            return
+        now = time.monotonic()
+        remaining = st["deadline"] - now
+        if remaining <= 0:
+            self._fail(st, ServeDeadlineError(
+                f"deadline expired after {st['attempt']} attempt(s)"
+            ), "deadline")
+            return
+        replica = self._pick(st["tried"], st["overloaded"])
+        if replica is None:
+            if st["overloaded"]:
+                self._fail(st, ServeOverloadError(
+                    f"all replicas rejected: {sorted(st['overloaded'])}"
+                ), "overload")
+                return
+            if not self.replicas() and self.broker_unreachable():
+                # Dead control plane, empty roster: a typed error NOW beats
+                # burning the deadline re-polling a discovery endpoint that
+                # every broker in the list has stopped answering.
+                self._fail(st, BrokerUnreachableError(
+                    f"no broker reachable (tried {self._broker_addrs}) and "
+                    f"no replicas known"
+                ), "error")
+                return
+            # No replicas known yet (discovery warming up, or the whole
+            # fleet died): keep polling the roster until the deadline.
+            self._later(st, 0.1)
+            return
+        if st["replica"] is not None and replica != st["replica"]:
+            self._stats["failovers"] += 1
+            _M_CLIENT_FAILOVERS.inc()
+        st["replica"] = replica
+        st["tried"].add(replica)
+        with self._lock:
+            self._outstanding[replica] = self._outstanding.get(replica, 0) + 1
+        kwargs = ({"deadline_s": remaining, "req_id": st["id"]}
+                  if self.metadata else {})
+        with _tracing.attach_context(st["tctx"]):
+            fut = self._rpc.async_(replica, self.fn, *st["args"], **kwargs)
+        # Per-attempt watchdog: the engine's own timeout is per-Rpc and far
+        # too slow for failover; cancelling routes through the same done
+        # callback as a transport error.
+        watchdog = threading.Timer(min(self.attempt_timeout, remaining),
+                                   fut.cancel)
+        watchdog.daemon = True
+        watchdog.start()
+        fut.add_done_callback(
+            lambda f, st=st, wd=watchdog, r=replica: self._on_reply(st, wd, r, f)
+        )
+
+    def _on_reply(self, st: Dict[str, Any], watchdog, replica: str, fut) -> None:
+        watchdog.cancel()
+        with self._lock:
+            left = self._outstanding.get(replica, 1) - 1
+            if left > 0:
+                self._outstanding[replica] = left
+            else:
+                self._outstanding.pop(replica, None)
+        exc = fut.exception()
+        if exc is None:
+            self._stats["ok"] += 1
+            self._record_request_span(st, "ok")
+            st["future"].set_result(fut._result)
+            return
+        if is_overload_error(exc):
+            st["overloaded"].add(replica)
+            self._attempt(st)  # immediate: another replica may have room
+            return
+        # Replica death / transport timeout / cancellation: suspect it,
+        # back off, retry (same req_id -> idempotent server-side).
+        self._suspect[replica] = time.monotonic() + 2.0
+        st["attempt"] += 1
+        if st["attempt"] >= self.max_attempts:
+            self._fail(st, RpcError(
+                f"request {st['id']} failed after {st['attempt']} attempts: {exc}"
+            ), "error")
+            return
+        self._stats["retries"] += 1
+        _M_CLIENT_RETRIES.inc()
+        delay = min(self.backoff * (2 ** (st["attempt"] - 1)), self.backoff_cap)
+        self._later(st, delay)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._stats)
+
+    def close(self) -> None:
+        self._closed.set()
+        if self._refresh_thread is not None:
+            self._refresh_thread.join(timeout=2.0)
+            self._refresh_thread = None
+        if self._owns_rpc:
+            self._rpc.close()
+
+
+# --------------------------------------------------------------------------
+# replica glue
+# --------------------------------------------------------------------------
+class ServeReplica:
+    """One serving peer: broker registration (non-contributing observer),
+    the :class:`ServeService` plane, and an optional :class:`ModelSubscriber`
+    feeding hot swaps.
+
+    ``rpc`` must already be named and listening.  With ``broker`` set, the
+    replica connects there, joins ``group`` with role ``"replica"`` (so
+    ``ServeClient`` discovery sees it without ever touching the training
+    cohort's membership epoch), and pumps the group ping from a background
+    thread.  With ``publisher`` set, a subscriber polls it for new model
+    versions and stages them on the service.
+    """
+
+    def __init__(self, rpc: Rpc, step_fn: Optional[Callable], params, *,
+                 name: str = "generate", version: int = 0,
+                 batch_size: int = 16, dynamic_batching: bool = True,
+                 max_queue: int = 128, broker: Optional[str] = None,
+                 brokers: Sequence[str] = (),
+                 broker_name: str = "broker", group: str = "serve",
+                 role: str = "replica", publisher: Optional[str] = None,
+                 model_channel: str = "model", poll_interval: float = 0.5,
+                 per_request_tokens: bool = False, default_max_new: int = 16,
+                 service: Optional[ServeService] = None):
+        self._rpc = rpc
+        # Every replica is scrapable/profilable by the cohort aggregator.
+        telemetry.install_rpc_handlers(rpc)
+        # A pre-built service (e.g. engine.EngineService — continuous
+        # batching under the same admission/dedup/hot-swap contract) plugs
+        # in here; otherwise the classic batch-synchronous plane is built.
+        self.service = service if service is not None else ServeService(
+            rpc, step_fn, params, name=name, version=version,
+            batch_size=batch_size, dynamic_batching=dynamic_batching,
+            max_queue=max_queue, per_request_tokens=per_request_tokens,
+            default_max_new=default_max_new,
+        )
+        self._group: Optional[Group] = None
+        self._pump: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        broker_addrs = ([broker] if broker else []) + [b for b in brokers if b]
+        if broker_addrs:
+            self._group = Group(rpc, group)
+            self._group.set_broker_name(broker_name)
+            self._group.set_role(role)
+            if brokers:
+                # HA mode: the group dials every broker, resolves names from
+                # the greetings, and fails its registration pings over when
+                # the primary dies (the replica stays discoverable).
+                self._group.set_brokers(broker_addrs)
+            else:
+                rpc.connect(broker_addrs[0])
+            self._pump = threading.Thread(
+                target=self._pump_loop, name="serve-replica-pump", daemon=True
+            )
+            self._pump.start()
+        self.subscriber: Optional[ModelSubscriber] = None
+        if publisher is not None:
+            self.subscriber = ModelSubscriber(
+                rpc, publisher, name=model_channel,
+                on_update=self._on_model, poll_interval=poll_interval,
+            ).start()
+
+    def _pump_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self._group.update()
+            except Exception:  # noqa: BLE001
+                utils.log_verbose("serve replica: group update failed")
+            self._stop.wait(0.25)
+
+    def _on_model(self, version: int, payload, announced_at: float) -> None:
+        self.service.stage(version, payload, announced_at)
+
+    def loop(self, total=None):
+        """The service coroutine; run it under ``asyncio.run``."""
+        return self.service.loop(total=total)
+
+    def close(self) -> None:
+        self._stop.set()
+        if self.subscriber is not None:
+            self.subscriber.stop()
+        if self._pump is not None:
+            self._pump.join(timeout=2.0)
+        if self._group is not None:
+            try:
+                self._group.leave(timeout=1.0)
+            except Exception:  # noqa: BLE001
+                pass
+        self.service.close()

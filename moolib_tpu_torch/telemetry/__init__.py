@@ -5,9 +5,11 @@ registry, the host span tracer (with the distributed trace context the RPC
 layer carries on every call frame), the opt-in exporters, the flight
 recorder of notable events (``flightrec``: epoch bumps, broker failovers,
 watchdog expiries), :class:`CohortCounters`, which ship counter deltas
-on the agents' ``GlobalStatsAccumulator`` reduce, and the device monitor
-(``devmon``: card memory, counted step FLOPs, MFU).  The profiling,
-timeline and aggregator planes come with later slices;
+on the agents' ``GlobalStatsAccumulator`` reduce, the device monitor
+(``devmon``: card memory, counted step FLOPs, MFU), and the cohort
+aggregator (``aggregator``: the ``__telemetry_*`` scrape endpoints every
+serving replica and Accumulator installs, :class:`CohortAggregator`).  The
+profiling and timeline planes come with a later slice;
 ``recovery`` (the ``recovery_seconds{phase}`` family) came with EnvPool's
 worker supervision.
 
@@ -69,10 +71,12 @@ from .flightrec import (  # noqa: F401
     get_flight_recorder,
 )
 from .cohort import CohortCounters  # noqa: F401
+from .aggregator import CohortAggregator, install_rpc_handlers  # noqa: F401
 from .recovery import observe_phase  # noqa: F401
 from . import devmon  # noqa: F401,E402  (torch imported lazily inside)
 
 __all__ = [
+    "CohortAggregator",
     "CohortCounters",
     "Counter",
     "Gauge",
@@ -95,6 +99,7 @@ __all__ = [
     "get_registry",
     "get_tracer",
     "init_from_env",
+    "install_rpc_handlers",
     "install_signal_dump",
     "observe_phase",
     "prometheus_text",

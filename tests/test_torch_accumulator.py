@@ -523,3 +523,68 @@ def test_count_path_copies_the_contribution(free_port):
             np.testing.assert_array_equal(a.gradients()["w"].numpy(), 1.0)
     finally:
         close_all(broker, accs)
+
+
+def test_cohort_peer_answers_the_cohort_aggregator(free_port):
+    """Every Accumulator installs the aggregator's scrape endpoints on its
+    Rpc (as the JAX package's does): a CohortAggregator finds the cohort
+    through the broker and pulls each peer's registry snapshot."""
+    from moolib_tpu_torch.rpc import Rpc
+    from moolib_tpu_torch.telemetry import CohortAggregator
+
+    broker, accs = make_cohort(free_port, 2)
+    scraper = Rpc()
+    scraper.set_name("scraper")
+    try:
+        assert pump(broker, accs, 30, until=lambda: all(a.connected() for a in accs))
+        scraper.connect(f"127.0.0.1:{free_port}")
+        agg = CohortAggregator(scraper, "broker", group="model", scrape_timeout=10.0)
+        fused = {"peers": {}}
+        deadline = time.time() + 20
+        while len(fused["peers"]) < 2 and time.time() < deadline:
+            broker.update()
+            for a in accs:
+                a.update()
+            fused = agg.scrape()
+        assert sorted(fused["peers"]) == ["peer0", "peer1"], fused["errors"]
+        for name, row in fused["peers"].items():
+            assert row["name"] == name and row["role"] == "member"
+            assert "accum_reduces_total" in row["metrics"]
+        snap = scraper.sync("peer0", "__telemetry_snapshot")
+        assert snap["name"] == "peer0" and "metrics" in snap
+    finally:
+        scraper.close()
+        close_all(broker, accs)
+
+
+def test_result_of_a_dead_epoch_is_dropped_unapplied(free_port):
+    """A result still unconsumed when its epoch dies (here a peer leaves) is
+    dropped by has_gradients() instead of applied: the survivors keep the
+    same parameters under the same version, and the next epoch's round
+    applies on every one of them alike."""
+    broker, accs = make_cohort(free_port, 3)
+    broker.set_timeout(2.0)
+    try:
+        assert pump(broker, accs, 30, until=lambda: all(a.connected() for a in accs))
+        for i, a in enumerate(accs):
+            a.reduce_gradients(4, {"w": torch.full((2, 2), float(i + 1)), "b": torch.ones(2)})
+        assert pump(broker, accs, 10, until=lambda: all(a._has_gradients for a in accs))
+        epoch = accs[0]._group.sync_id()
+        leaver = accs.pop()
+        leaver.close()
+        assert pump(broker, accs, 40, until=lambda: all(
+            a.connected() and a._group.sync_id() != epoch and len(a._group.members()) == 2
+            for a in accs))
+        for a in accs:
+            assert not a.has_gradients() and a.wants_gradients()
+            assert a.model_version() == 0
+            np.testing.assert_array_equal(a.parameters()["w"], 0.0)
+        for i, a in enumerate(accs):
+            a.reduce_gradients(4, {"w": torch.full((2, 2), float(i + 1)), "b": torch.ones(2)})
+        assert pump(broker, accs, 10, until=lambda: all(a.has_gradients() for a in accs))
+        for a in accs:
+            np.testing.assert_allclose(np.asarray(a.gradients()["w"]), 1.5)  # mean of 1, 2
+            a.zero_gradients()
+            assert a.model_version() == 1
+    finally:
+        close_all(broker, accs)

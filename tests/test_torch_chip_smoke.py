@@ -257,3 +257,53 @@ def test_accumulator_lm_phase_rehearsal(capsys, monkeypatch):
     # the plain attention on the CPU: no kernel launches
     assert all(v == 0 for per in res["launches"].values() for v in per.values())
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "accumulator_lm"
+
+
+def test_engine_phase_rehearsal(cpu_rehearsal, capsys):
+    """The engine phase at d_model 64 with 2 layers on the CPU: traffic (a)
+    through an engine replica found through a broker process, parity with
+    generate() under the margin rule, traffic (b) through the batch
+    replica and the engine replica, the f32 exactness run, the pool drained
+    and unmoved, and the profiled windows."""
+    res = chip_smoke.phase_engine(
+        0, device="cpu",
+        lm_cfg=dict(vocab_size=256, d_model=64, num_heads=2, num_layers=2, max_len=96),
+        engine_cfg=dict(slots=4, block_size=8, max_prompt_len=32, max_seq_len=96),
+        traffic=dict(requests=8, prompt=(4, 32), budgets=(1, 4, 8), b_requests=6,
+                     b_prompt=16, b_budgets=(2, 4, 8), b_batch=4, exact_requests=3,
+                     window_steps=3))
+    assert res["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert res["num_blocks"] == 1 + 4 * 12 and res["pools_data_ptr_stable"]
+    # layers x (K, V) x blocks x block_size x heads x head dim x bf16
+    assert res["pool_bytes"] == 2 * 2 * 49 * 8 * 2 * 32 * 2
+    parity = res["parity"]
+    assert parity["replies_equal_generate"] + len(parity["divergences"]) == 8
+    assert all(d["gap"] < d["limit"] for d in parity["divergences"])
+    assert res["exact_f32"]["replies_equal_generate"] == 3
+    assert set(res["arms"]) == {"a_engine", "b_batch", "b_engine"}
+    for arm in res["arms"].values():
+        assert arm["latency_ms_p99"] >= arm["latency_ms_p50"] > 0 and arm["tokens_per_s"] > 0
+        assert arm["decode_ms_per_step"] > 0 and 0 < arm["mean_slot_occupancy"] <= 1
+        assert arm["prefill_ms_by_bucket"]
+    assert res["arms"]["a_engine"]["decode_steps"] > 0  # and below the budgets' sum (checked)
+    phases = [json.loads(ln)["phase"] for ln in capsys.readouterr().out.splitlines()]
+    assert phases == ["engine", "engine_profile", "batch_decode_profile"]
+
+
+def test_serve_timer_times_only_inside_its_block(cpu_rehearsal):
+    """The serving clocks wrap ``model.prefill`` and ``engine.step`` inside
+    the ``with`` block only: leaving it restores the class methods, so later
+    passes over the same objects are untimed."""
+    from moolib_tpu_torch.engine import ContinuousBatchingEngine
+    from moolib_tpu_torch.models.transformer import TransformerLM
+
+    model = TransformerLM(vocab_size=32, d_model=16, num_heads=2, num_layers=1, max_len=16,
+                          attention="dense", dtype=torch.float32, device="cpu")
+    eng = ContinuousBatchingEngine(model, slots=1, block_size=4, max_prompt_len=8)
+    with chip_smoke._ServeTimer(model, eng) as timer:
+        eng.submit(np.arange(1, 4, dtype=np.int32), 3)
+        eng.step()
+    assert [shape for shape, _, _ in timer.prefills] == [(1, 4)] and len(timer.steps) == 1
+    assert "prefill" not in vars(model) and "step" not in vars(eng)
+    eng.step()
+    assert len(timer.prefills) == 1 and len(timer.steps) == 1

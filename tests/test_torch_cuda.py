@@ -348,3 +348,114 @@ def test_group_reduces_cuda_leaves(card):
         for rpc, _ in peers:
             rpc.close()
         broker.close()
+
+
+def _serving_lm(card, dtype=torch.float32, attention="dense", **kw):
+    cfg = dict(vocab_size=64, d_model=64, num_heads=4, num_kv_heads=2, num_layers=2,
+               max_len=64, pos_embedding="rotary")
+    cfg.update(kw)
+    return TransformerLM(attention=attention, dtype=dtype, device=card,
+                         generator=torch.Generator().manual_seed(5), **cfg).eval()
+
+
+@pytest.mark.parametrize("pos", ["rotary", "learned"])
+def test_paged_decode_bit_exact_vs_dense_on_card(card, pos):
+    """The paged decode step through a shuffled block table gives logits
+    bitwise equal to the dense cache's on the card, as on the CPU."""
+    from moolib_tpu_torch.ops.paged_attention import PagedState
+
+    S, M, bs = 3, 16, 4
+    model = _serving_lm(card, max_len=M, pos_embedding=pos)
+    nb = 1 + S * (M // bs)
+    cache_k = torch.zeros(2, S, M, 2, 16, device=card)
+    cache_v = torch.zeros_like(cache_k)
+    pools_k = [torch.zeros(nb, bs, 2, 16, device=card) for _ in range(2)]
+    pools_v = [torch.zeros_like(p) for p in pools_k]
+    ids = np.arange(1, nb)
+    np.random.default_rng(0).shuffle(ids)
+    tables = torch.from_numpy(ids.reshape(S, M // bs)).to(card)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 64, (S, 10))).to(card)
+    active = torch.ones(S, dtype=torch.bool, device=card)
+    with torch.no_grad():
+        for s in range(10):
+            ld = model.decode_step(toks[:, s:s + 1], cache_k, cache_v, s)
+            lp = model.decode_step_paged(toks[:, s:s + 1], pools_k, pools_v, PagedState(
+                tables, torch.full((S,), s, device=card), active))
+            assert torch.equal(ld, lp), s
+
+
+class _DeviceAudit(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records every op that takes or makes a tensor off ``device``."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.device_type = device.type
+        self.off_card = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        tensors = [t for t in torch.utils._pytree.tree_leaves((args, kwargs, out))
+                   if isinstance(t, torch.Tensor)]
+        if any(t.device.type != self.device_type for t in tensors):
+            self.off_card.append(str(func))
+        return out
+
+
+def test_engine_state_and_step_path_stay_on_the_card(card):
+    """The engine's KV pools and slot state live on the card, and its decode
+    step touches no CPU tensor until the one D2H of tokens and done flags;
+    replies equal generate()'s."""
+    from moolib_tpu_torch.engine import ContinuousBatchingEngine
+
+    model = _serving_lm(card)
+    eng = ContinuousBatchingEngine(model, slots=3, block_size=4, max_prompt_len=16)
+    eng.warmup()
+    state = eng.pools_k + eng.pools_v + [eng._tables, eng._lengths, eng._active,
+                                         eng._tokens, eng._remaining]
+    assert all(t.device.type == card.type for t in state)
+    prompts = [np.arange(2, 2 + n, dtype=np.int32) for n in (5, 9, 16)]
+    for p in prompts:
+        eng.submit(p, 6)
+    audit = _DeviceAudit(card)
+    with torch.no_grad(), audit:
+        packed = eng._step_device()
+    assert packed.device.type == card.type and not audit.off_card, audit.off_card
+    eng._active_host[:] = False  # the audited step's tokens are not tracked
+    for s in range(3):
+        eng.retire(s)
+    outs = {}
+    for i, p in enumerate(prompts):
+        slot, _ = eng.submit(p, 6)
+        outs[slot] = (i, p)
+    done = {}
+    while len(done) < 3:
+        _, fin = eng.step()
+        for s in fin:
+            i, p = outs[s]
+            done[i] = np.concatenate([p, np.asarray(eng.retire(s), np.int32)])
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            want = generate(model, torch.from_numpy(p[None]), 6)[0].cpu().numpy()
+            np.testing.assert_array_equal(done[i], want)
+    eng.pool.check_invariants()
+
+
+def test_engine_prefill_launches_the_flash_kernel(card):
+    """With flash attention the engine's prefill runs the hand-written
+    forward kernel: once per layer per request, and never in decode."""
+    from moolib_tpu_torch.engine import ContinuousBatchingEngine
+
+    model = _serving_lm(card, dtype=torch.bfloat16, attention="flash", num_kv_heads=None,
+                        d_model=256, num_heads=2, max_len=96, vocab_size=128)
+    eng = ContinuousBatchingEngine(model, slots=2, block_size=16, max_prompt_len=64)
+    eng.warmup()
+    fa.reset_launches()
+    for n in (7, 64):
+        slot, _ = eng.submit(np.arange(1, 1 + n, dtype=np.int32), 4)
+        while eng.active_count():
+            _, fin = eng.step()
+            for s in fin:
+                eng.retire(s)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_launches() == 2 * model.num_layers
+    assert fa.flash_bwd_dq_launches() == fa.flash_bwd_dkv_launches() == 0

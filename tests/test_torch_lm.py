@@ -95,10 +95,56 @@ def test_lm_trains_with_remat_on_cpu():
     (["--mesh", "", "--attention", "dense", "--moe_experts", "4"], 9),
     (["--mesh", "", "--attention", "dense", "--shard_grads"], 9),
     (["--mesh", "", "--attention", "dense", "--overlap_grads"], 9),
-    (["--mesh", "", "--attention", "dense", "--publish_every", "2"], 5),
+    (["--mesh", "", "--attention", "dense", "--autoscale"], 7),
     (["--mesh", "", "--attention", "dense", "--checkpoint_dir", "x"], 7),
     (["--mesh", "", "--attention", "dense", "--compile_cache_dir", "x"], 7),
 ])
 def test_unported_flags_exit_with_a_message(argv, slice_):
     with pytest.raises(SystemExit, match=rf"not yet ported \(slice {slice_}\)"):
         lm.train(lm.make_flags(argv + ["--device", "cpu"]))
+
+
+def test_publish_every_feeds_a_jax_model_subscriber(free_port):
+    """An elastic learner with --publish_every 2: its leader publishes the
+    weights at step 2 on the Accumulator's Rpc, a JAX ModelSubscriber pulls
+    them through the broker, and from_flax loads them back into exactly the
+    learner's final weights (the run ends at that step)."""
+    import hashlib
+    import threading
+
+    import moolib_tpu
+    from moolib_tpu.serving import ModelSubscriber
+    from moolib_tpu_torch.models.convert import from_flax
+
+    addr = f"127.0.0.1:{free_port}"
+    got, ready = [], threading.Event()
+    sub_rpc = moolib_tpu.Rpc()
+    sub_rpc.set_name("replica")
+    sub = ModelSubscriber(sub_rpc, "lm0", poll_interval=0.05,
+                          on_update=lambda v, payload, t: (got.append((v, payload)), ready.set()))
+
+    def on_stats(s):
+        if s["step"] == 2:  # published just before this callback
+            sub_rpc.connect(addr)
+            sub.start()
+            assert ready.wait(60), "the subscriber never pulled a version"
+
+    try:
+        out = lm.train(lm.make_flags([
+            "--mesh", "", "--attention", "dense", "--seq_len", "16", "--batch_size", "4",
+            "--steps", "2", "--log_interval", "2", "--quiet", "--device", "cpu",
+            "--address", addr, "--local_name", "lm0", "--publish_every", "2",
+        ]), on_stats=on_stats)
+    finally:
+        sub.stop()
+        sub_rpc.close()
+    version, payload = got[0]
+    assert out["steps"] == 2 and version >= 1 and set(payload) == {"params"}
+    sd = from_flax(payload)
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        h.update(sd[k].numpy().tobytes())
+    assert h.hexdigest() == out["params_sha256"]
+    with pytest.raises(SystemExit, match="--publish_every: the leader of an elastic cohort"):
+        lm.train(lm.make_flags(["--mesh", "", "--attention", "dense", "--publish_every", "2",
+                                "--device", "cpu"]))

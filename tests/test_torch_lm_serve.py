@@ -106,3 +106,121 @@ def test_poisoned_row_errors_only_its_caller(free_port):
     finally:
         client.close()
         server.close()
+
+
+def _start_server(argv, root, env):
+    """``python -m moolib_tpu_torch.examples.lm_serve`` in its own process,
+    returned once it has printed its readiness line."""
+    import subprocess
+    import sys
+
+    proc = subprocess.Popen([sys.executable, "-m", "moolib_tpu_torch.examples.lm_serve", *argv],
+                            cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        line = proc.stdout.readline()
+        if not line and proc.poll() is not None:
+            break
+        lines.append(line)
+        if line.startswith("serving 'generate' on"):
+            return proc, lines
+    proc.kill()
+    raise AssertionError(f"server never came up: {''.join(lines)[-3000:]}")
+
+
+def _client_replies(capsys, argv):
+    """Run the client mode of main() here; its printed continuations."""
+    from moolib_tpu_torch.examples.lm_serve import main
+
+    main(argv)
+    out = capsys.readouterr().out.splitlines()
+    return [np.array(eval(ln.split("->")[1]), np.int32) for ln in out if "->" in ln]
+
+
+def test_engine_and_replica_modes_serve_every_client_mode(capsys):
+    """main() as servers, each in its own process on the CPU: an --engine
+    replica and a batch-synchronous --broker replica subscribed to a
+    publisher, registered with a port broker.  The --connect client (to the
+    engine replica) and the --broker client (to the other) get JAX
+    generate()'s continuations on the replicas' weights; after a new
+    version is published, the replica answers with it."""
+    import os
+
+    from conftest import grab_port, subprocess_env
+    from moolib_tpu_torch import Broker
+    from moolib_tpu_torch.examples.lm_serve import make_model
+    from moolib_tpu_torch.models.convert import to_flax
+    from moolib_tpu_torch.serving import ModelPublisher
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(subprocess_env(root), OMP_NUM_THREADS="1")
+    widths = ["--vocab", "64", "--d_model", "32", "--heads", "2", "--layers", "2",
+              "--seq_len", "8", "--max_new_tokens", "6", "--seed", "3", "--prompts", "3"]
+    flags = type("F", (), dict(vocab=64, d_model=32, heads=2, layers=2, seq_len=8,
+                               max_new_tokens=6))()
+    jmodel = jax_lm_serve.make_model(flags)
+    broker_addr = f"127.0.0.1:{grab_port()}"
+    broker = Broker()
+    broker.set_name("broker")
+    broker.listen(broker_addr)
+    stop = threading.Event()
+
+    def pump():
+        while not stop.is_set():
+            broker.update()
+            stop.wait(0.05)
+
+    pumper = threading.Thread(target=pump, daemon=True)
+    pumper.start()
+    pub_rpc = Rpc()
+    pub_rpc.set_name("pusher")
+    pub_rpc.listen("127.0.0.1:0")
+    pub_rpc.connect(broker_addr)
+    pub = ModelPublisher(pub_rpc)
+    eng_addr, rep_addr = f"127.0.0.1:{grab_port()}", f"127.0.0.1:{grab_port()}"
+    procs = []
+    try:
+        for argv in (["--listen", eng_addr, "--name", "eng0", "--engine", "--slots", "2",
+                      "--block_size", "4", "--broker", broker_addr, "--group", "serve_engine"],
+                     ["--listen", rep_addr, "--name", "rep0", "--broker", broker_addr,
+                      "--publisher", "pusher", "--batch_size", "4"]):
+            proc, lines = _start_server(argv + widths + ["--device", "cpu"], root, env)
+            procs.append(proc)
+            assert any(ln.startswith("precompiling") for ln in lines), lines
+
+        def want(model_seed, replies):
+            params = to_flax(make_model(flags, "cpu", torch.Generator().manual_seed(model_seed)))
+            rng = np.random.default_rng(3 + 1)  # the client's prompts
+            for got in replies:
+                prompt = rng.integers(2, 64, 8).astype(np.int32)
+                ref = np.asarray(jax_generate(jmodel, params, jnp.asarray(prompt[None]), 6))[0]
+                np.testing.assert_array_equal(got, ref[8:])
+            assert len(replies) == 3
+
+        want(3, _client_replies(capsys, ["--connect", eng_addr, "--name", "eng0"] + widths))
+        want(3, _client_replies(capsys, ["--broker", broker_addr] + widths))
+
+        pub.publish(to_flax(make_model(flags, "cpu", torch.Generator().manual_seed(7))),
+                    version=1)
+        probe = Rpc()
+        probe.set_name("probe")
+        probe.connect(rep_addr)
+        try:
+            deadline = time.monotonic() + 30
+            while probe.sync("rep0", "generate_stats")["model_version"] != 1:
+                assert time.monotonic() < deadline, "the replica never swapped"
+                time.sleep(0.1)
+        finally:
+            probe.close()
+        want(7, _client_replies(capsys, ["--broker", broker_addr] + widths))
+    finally:
+        for proc in procs:
+            proc.terminate()
+            proc.wait(30)
+        pub.close()
+        pub_rpc.close()
+        stop.set()
+        pumper.join(5)
+        broker.close()

@@ -54,7 +54,12 @@ def test_import_every_module_leaves_jax_out():
                 "moolib_tpu_torch.testing.faults", "moolib_tpu_torch.utils.stats",
                 "moolib_tpu_torch.accumulator", "moolib_tpu_torch.checkpoint",
                 "moolib_tpu_torch.rollout", "moolib_tpu_torch.telemetry.devmon",
-                "moolib_tpu_torch.examples.launch", "moolib_tpu_torch.examples.plot"):
+                "moolib_tpu_torch.examples.launch", "moolib_tpu_torch.examples.plot",
+                "moolib_tpu_torch.serving", "moolib_tpu_torch.telemetry.aggregator",
+                "moolib_tpu_torch.engine", "moolib_tpu_torch.engine.engine",
+                "moolib_tpu_torch.engine.kv_pool", "moolib_tpu_torch.engine.service",
+                "moolib_tpu_torch.ops.paged_attention", "moolib_tpu_torch.models.convert",
+                "moolib_tpu_torch.examples.lm_serve", "moolib_tpu_torch.examples.lm"):
         assert mod in mods, mod
     code = "import sys\n" + "".join(f"import {m}\n" for m in mods) + (
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
@@ -131,16 +136,34 @@ def test_rl_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
 
 def test_unported_paths_say_so():
     from moolib_tpu_torch.examples import lm_serve
-    from moolib_tpu_torch.models.transformer import TransformerLM
+    from moolib_tpu_torch.models import transformer
 
-    for flags in (["--connect", "127.0.0.1:1"], ["--listen", "x", "--engine", "1"],
-                  ["--listen", "x", "--mesh", "tp=2"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
+    for flags, slice_ in ((["--listen", "x", "--localdir", "x"], 7),
+                          (["--listen", "x", "--engine", "--prefill_devices", "1"], 9),
+                          (["--listen", "x", "--mesh", "tp=2"], 9)):
+        with pytest.raises(SystemExit, match=rf"not yet ported \(slice {slice_}\)"):
             lm_serve.main(flags)
-    for kw in (dict(attention="ring"), dict(moe_num_experts=4), dict(kv_num_blocks=8)):
-        with pytest.raises(NotImplementedError):
-            TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=1,
-                          device="cpu", **kw)
+    for kw in (dict(attention="ring"), dict(moe_num_experts=4)):
+        with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9\)"):
+            transformer.TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=1,
+                                      device="cpu", **kw)
+    for fn in (transformer.sharded_generator, transformer.pipeline_lm_apply):
+        with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9\)"):
+            fn()
+    # The paged cache's geometry sizes the engine's pools, and a paged model
+    # has no dense decode.
+    from moolib_tpu_torch.engine import ContinuousBatchingEngine
+
+    model = transformer.TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=1,
+                                      max_len=16, device="cpu", kv_num_blocks=8,
+                                      kv_block_size=4)
+    eng = ContinuousBatchingEngine(model, slots=2)
+    assert (eng.pool.num_blocks, eng.block_size) == (8, 4)
+    assert tuple(eng.pools_k[0].shape[:2]) == (8, 4)
+    with pytest.raises(ValueError, match="decode_step_paged"):
+        model.decode_step(torch.zeros((1, 1), dtype=torch.int64), None, None, 0)
+    with pytest.raises(ValueError, match="decode_step_paged"):
+        transformer.generate(model, torch.zeros((1, 2), dtype=torch.int64), 2)
 
 
 @pytest.mark.parametrize("argv,named", [
@@ -197,5 +220,8 @@ def test_lazy_cohort_exports():
 
     assert moolib_tpu_torch.Accumulator is accumulator.Accumulator
     assert moolib_tpu_torch.rollout is rollout
+    from moolib_tpu_torch import engine, serving
+
+    assert moolib_tpu_torch.engine is engine and moolib_tpu_torch.serving is serving
     with pytest.raises(AttributeError):
         moolib_tpu_torch.AnakinRollout  # noqa: B018 - slice 10
