@@ -6,8 +6,10 @@ continuous-batching engine behind a broker-registered replica, run the
 IMPALA learner at the reference Atari shape, fed once by EnvPool workers
 through the Batcher,
 then allreduce full-width ImpalaNet and TransformerLM gradients taken
-from the card through the port's Broker and Group, and train both in
-two-learner Accumulator cohorts through the examples' own loops.
+from the card through the port's Broker and Group, train both in
+two-learner Accumulator cohorts through the examples' own loops, and run
+the R2D2 agent's replay plane and learner at the JAX package's pixel
+geometry.
 
     python3 chip_smoke.py [--seed N]
 
@@ -136,10 +138,42 @@ exits non-zero, and no result line is printed):
    step and grad-round seconds, algorithm bandwidth, model-sync GB/s, mfu
    from telemetry.devmon, peak memory and each flash kernel's launches,
    counted from 0 in each learner.
+14. r2d2_parity — the full-width pixel RecurrentQNet (18 actions, the
+   (16, 32, 32) encoder, Dense 512, LSTM 512, dueling heads; 4,452,323
+   parameters) on weights converted from the flax layout
+   (models.convert.qnet_from_flax), at T+1 = 5, B = 4, f32 and bf16: q,
+   the final core, examples.r2d2.td_loss's loss and priorities, and every
+   gradient on the card against the CPU.  Values within 1e-5 (f32) or 2e-2
+   (bf16) of max(1, max|CPU value|); gradients within 1e-4 (f32) or 5e-2
+   (bf16) of the largest |CPU gradient|.  The CPU's max-pools take the
+   inputs the card's took (PoolRoute; the windows that would choose
+   differently are counted).
+15. r2d2_learner — benchmarks/r2d2_bench.py's device arm at that
+   geometry: a DeviceReplayShard of 4096 sequences of T = 80 (+1) at
+   84x84x4 uint8 (9,383,809,024 B of ring on the card), filled from a pool
+   of 64 synthetic items made from --seed, then 5 warm-up and 20 timed
+   learner cycles (add 16, sample 64, time-major on the card, online and
+   target forward, backward, clip_by_global_norm(40) + adam(1e-4), the
+   target refreshed every 100 SGD steps, priority write-back of the device
+   TD priorities).  Step ms (CUDA events and host clock), frames/s, the
+   device ms of add, sample, update and write-back over a profiled window
+   of 3 cycles, host issue against device busy, launches, peak memory,
+   the update's counted FLOPs.  Checks: root = leaf sum, a 200-op schedule
+   bitwise against the numpy SumTree fed the shard's own transform,
+   last-wins duplicates, a short insert in bounds.
+16. r2d2_replay — two ReplayShardService peers, each with a device shard,
+   a ReplayPublisher and a DistributedReplay over ipc loopback: 4
+   publishes of 32 x [21, 512] f32 counted once each (write-once memfd),
+   both shards holding their stripes, a cohort draw's write-back landing
+   on the owning shard; then examples.r2d2.train() on CartPole with the
+   device shard for 3000 env steps (SGD steps, a finite loss, the shard
+   on the card; env and SGD steps/s from the first log tick on).
 
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
-at the training shape, and {"ok": true, "device": {...}}.
+at the training shape and its launches on every path (the r2d2 phases
+launch none: no Pallas kernel is on the R2D2 path), and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -159,22 +193,29 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from moolib_tpu_torch import bench, buckets, telemetry
 from moolib_tpu_torch.batcher import Batcher
 from moolib_tpu_torch.envpool import EnvPool
 from moolib_tpu_torch.envs import SyntheticAtariEnv
-from moolib_tpu_torch.examples import lm
-from moolib_tpu_torch.examples.common import GlobalStatsAccumulator
+from moolib_tpu_torch.examples import lm, r2d2
+from moolib_tpu_torch.examples.common import (GlobalStatsAccumulator, OptaxOptimizer, adam,
+                                              clip_by_global_norm)
 from moolib_tpu_torch.examples.lm_serve import serve
 from moolib_tpu_torch.examples.vtrace import experiment
 from moolib_tpu_torch.models.actor_critic import ActorCriticNet
+from moolib_tpu_torch.models.convert import qnet_from_flax
+from moolib_tpu_torch.models import impala as impala_model
 from moolib_tpu_torch.models.impala import ImpalaNet
+from moolib_tpu_torch.models.qnet import RecurrentQNet
 from moolib_tpu_torch.models.transformer import TransformerLM, generate
 from moolib_tpu_torch.ops import _build
 from moolib_tpu_torch.ops import flash_attention as fa
 from moolib_tpu_torch.ops.xent import lm_head_xent, naive_softmax_xent
 from moolib_tpu_torch.group import Group
+from moolib_tpu_torch.replay import (DeviceReplayShard, DistributedReplay, ReplayPublisher,
+                                     ReplayShardService, SumTree, payload_bytes)
 from moolib_tpu_torch.rpc import Rpc, serialization
 from moolib_tpu_torch.utils import nest
 from moolib_tpu_torch.utils.stats import StatMean, StatSum
@@ -285,9 +326,11 @@ def device_profile(fn, top: int = 10) -> dict:
     return profile_summary(prof, wall_ms, top)
 
 
-def profile_summary(prof, wall_ms: float, top: int = 10) -> dict:
+def profile_summary(prof, wall_ms: float, top: int = 10, exclude=()) -> dict:
+    """Device kernels by time over a profiled window; ``exclude`` names
+    record_function ranges, which the trace may also list on the device."""
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in exclude]
     rows = sorted(((e.key[:90], e.self_device_time_total / 1e3, e.count) for e in kernels),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
@@ -2006,6 +2049,517 @@ def phase_accumulator_lm(seed: int, device="cuda", args=None, steps: int = ACC_L
     return res
 
 
+# -------------------------------------------------------------------- r2d2
+# The JAX package's pixel R2D2 geometry (moolib_tpu/models/qnet.py:1-10,
+# benchmarks/r2d2_bench.py): 18 actions, the (16, 32, 32) IMPALA encoder,
+# Dense 512 -> LSTM 512, dueling heads, bf16 compute; 64 sequences of
+# T = 80 (+1) at 84x84x4 uint8; clip_by_global_norm(40) then adam(1e-4),
+# discount 0.997.  4,452,323 parameters.
+R2D2_NET = dict(num_actions=18, encoder="impala", channels=(16, 32, 32), hidden_size=512,
+                core_size=512)
+R2D2_OBS = (84, 84, 4)
+R2D2_DISCOUNT = 0.997
+# r2d2_parity, card against CPU.  Values (q, the final core, td_loss's loss
+# and priorities): the error over max(1, max|CPU value|).  Gradients: the
+# largest error over every parameter, over the largest |CPU gradient|
+# element of the model.
+R2D2_VALUE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+R2D2_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+R2D2_LABELS = ("r2d2_add", "r2d2_sample", "r2d2_update", "r2d2_write_back")  # profiler ranges
+
+
+def r2d2_item_bytes(obs=R2D2_OBS, T: int = 80, core: int = 512) -> int:
+    """Bytes of one replay item: state [T+1, *obs] uint8, done [T+1] bool,
+    action [T+1] int32, reward [T+1] f32 and the stored LSTM state, two
+    [core] f32 (2,290,969 B at the full-width geometry)."""
+    T1 = T + 1
+    return T1 * int(np.prod(obs)) + T1 * (1 + 4 + 4) + 2 * core * 4
+
+
+def qnet_forward_flops(obs, channels, hidden: int, core: int, num_actions: int,
+                       frames: int) -> float:
+    """Forward FLOPs of the pixel RecurrentQNet on ``frames`` frames, 2·m·k·n
+    for every conv and matmul: the encoder as ``bench.analytic_forward_flops``
+    counts it, Dense_0, Dense_1, the LSTM's input and hidden projections
+    (4·core gates each) and the two dueling heads."""
+    h, w, cin = obs
+    flops = 0.0
+    for ch in channels:
+        flops += 2.0 * frames * h * w * 9 * cin * ch
+        h, w = -(-h // 2), -(-w // 2)
+        flops += 4 * 2.0 * frames * h * w * 9 * ch * ch  # two residual blocks, two convs each
+        cin = ch
+    flops += 2.0 * frames * (h * w * cin) * hidden + 2.0 * frames * hidden * core
+    flops += 2 * 2.0 * frames * core * 4 * core
+    flops += 2.0 * frames * core * (1 + num_actions)
+    return flops
+
+
+def r2d2_update_flops(obs, channels, hidden: int, core: int, num_actions: int,
+                      frames: int) -> float:
+    """The learner update's FLOPs: the online forward, the target forward and
+    the backward at twice the forward: 4 x :func:`qnet_forward_flops`."""
+    return 4 * qnet_forward_flops(obs, channels, hidden, core, num_actions, frames)
+
+
+def r2d2_items(rng, n: int, obs, T: int, num_actions: int, core: int) -> list:
+    """``n`` synthetic replay items of the example's layout (time-major per
+    sequence, the stored initial LSTM state as a tuple)."""
+    return [{"state": rng.integers(0, 256, (T + 1, *obs), dtype=np.uint8),
+             "done": rng.random(T + 1) < 0.01,
+             "action": rng.integers(0, num_actions, T + 1).astype(np.int32),
+             "reward": rng.normal(size=T + 1).astype(np.float32),
+             "core": tuple((0.1 * rng.normal(size=core)).astype(np.float32) for _ in range(2))}
+            for _ in range(n)]
+
+
+def qnet_flax_tree(model) -> dict:
+    """A RecurrentQNet's weights as the flax parameter tree of numpy arrays,
+    the inverse of models.convert.qnet_from_flax (conv kernels [kh, kw, in,
+    out], the LSTM as OptimizedLSTMCell's eight gate tensors)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    tree: dict = {}
+    for key, v in sd.items():
+        if key.startswith("core."):
+            continue
+        *path, leaf = key.split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v
+    if "core.bias" in sd:
+        H = sd["core.hidden_kernel"].shape[0]
+        cell = {}
+        for i, g in enumerate("ifgo"):
+            cols = slice(i * H, (i + 1) * H)
+            cell[f"i{g}"] = {"kernel": sd["core.input_kernel"][:, cols]}
+            cell[f"h{g}"] = {"kernel": sd["core.hidden_kernel"][:, cols],
+                             "bias": sd["core.bias"][cols]}
+        tree["Scan_Core_0"] = {"OptimizedLSTMCell_0": cell}
+    return {"params": tree}
+
+
+def _r2d2_batch(T1: int, B: int, obs, num_actions: int, core: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    done = rng.random((T1, B)) < 0.2
+    done[1, 0] = True
+    return {"state": rng.integers(0, 256, (T1, B, *obs), dtype=np.uint8), "done": done,
+            "action": rng.integers(0, num_actions, (T1, B)).astype(np.int32),
+            "reward": rng.normal(size=(T1, B)).astype(np.float32),
+            "is_weight": (rng.random(B) + 0.5).astype(np.float32),
+            "core": tuple(rng.normal(size=(B, core)).astype(np.float32) for _ in range(2))}
+
+
+class PoolRoute:
+    """Stands in for ``models.impala.max_pool_same`` while two runs of one
+    model are compared.  The first run pools as the port does and records
+    which input each window took; the second takes those same inputs (a
+    differentiable gather), so both route the gradient alike.  A window
+    whose two largest inputs lie within rounding of each other may pick
+    another input on each device, and one such pick moves the encoder's f32
+    gradients by ~1e-3 of their scale; ``flips`` counts the windows where the
+    second run's own choice differs from the first's, and ``gap`` is the
+    largest difference, in the second run, between its own choice and the
+    input it took instead."""
+
+    def __init__(self):
+        self.taken, self.replay, self.flips, self.gap = [], None, 0, 0.0
+
+    def __call__(self, x):
+        (hl, hh), (wl, wh) = (impala_model.same_pool_padding(n) for n in x.shape[2:])
+        xp = F.pad(x, (wl, wh, hl, hh), value=float("-inf"))
+        idx = F.max_pool2d(xp.detach(), 3, 2, return_indices=True)[1]
+        if self.replay is None:
+            self.taken.append(idx.cpu())
+            return self.pool(x)
+        want = self.replay.pop(0).to(x.device)
+        flipped = want != idx
+        if flipped.any():
+            flat = xp.detach().float().flatten(2)
+            gaps = flat.gather(2, idx.flatten(2)) - flat.gather(2, want.flatten(2))
+            self.flips += int(flipped.sum())
+            self.gap = max(self.gap, gaps[flipped.flatten(2)].max().item())
+        # Gathered in f32, so that the overlapping windows' gradients add up
+        # in f32 and round once, as the pool's own backward does.
+        taken = xp.float().flatten(2).gather(2, want.flatten(2))
+        return taken.view(idx.shape).to(x.dtype)
+
+    def compare(self, first, second):
+        """(first(), second()) with the second run on the first's routes."""
+        self.pool, impala_model.max_pool_same = impala_model.max_pool_same, self
+        try:
+            a = first()
+            self.replay = self.taken
+            b = second()
+        finally:
+            impala_model.max_pool_same = self.pool
+        if self.replay:
+            raise AssertionError(f"PoolRoute: {len(self.replay)} recorded pools not replayed")
+        return a, b
+
+
+def _r2d2_run(make, weights: tuple, batch: dict, device) -> dict:
+    """q and the final core of a forward, then td_loss and its backward."""
+    model, target = make(device=device), make(device=device)
+    model.load_state_dict(weights[0])
+    target.load_state_dict(weights[1])
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch.items() if k != "core"}
+    b["core"] = tuple(torch.from_numpy(c).to(device) for c in batch["core"])
+    with torch.no_grad():
+        out, (c, h) = model(b, b["core"])
+    loss, prio = r2d2.td_loss(model, target, b, R2D2_DISCOUNT)
+    loss.backward()
+    return {"q": out["q"], "core_c": c, "core_h": h, "loss": loss.detach(), "prio": prio,
+            "grads": {n: p.grad for n, p in model.named_parameters()}}
+
+
+def phase_r2d2_parity(seed: int, device="cuda", obs=R2D2_OBS, T1: int = 5, B: int = 4,
+                      net=None) -> dict:
+    """The full-width RecurrentQNet and examples.r2d2.td_loss on the card
+    against the CPU, on weights converted from the flax layout; the CPU's
+    max-pools take the windows' inputs the card's took (:class:`PoolRoute`)."""
+    net = R2D2_NET if net is None else net
+    out = {}
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        make = functools.partial(RecurrentQNet, dtype=dtype, obs_shape=obs, **net)
+        weights = []
+        for k in range(2):  # the online and the target network
+            src = make(device="cpu", generator=torch.Generator().manual_seed(seed + 2 * i + k))
+            converted = qnet_from_flax(qnet_flax_tree(src))
+            if not all(torch.equal(converted[n], v) for n, v in src.state_dict().items()):
+                raise AssertionError("r2d2_parity: qnet_from_flax(flax tree) != the weights")
+            weights.append(converted)
+        batch = _r2d2_batch(T1, B, obs, net["num_actions"], net["core_size"], seed + i)
+        route = PoolRoute()
+        got, want = route.compare(lambda: _r2d2_run(make, weights, batch, device),
+                                  lambda: _r2d2_run(make, weights, batch, "cpu"))
+        own = _r2d2_run(make, weights, batch, "cpu")["grads"]  # the CPU's own pool choices
+        errs = {k: _parity_err(got[k], want[k]) for k in ("q", "core_c", "core_h", "loss", "prio")}
+        scale = max(g.abs().max().item() for g in want["grads"].values())
+        by_param = {n: (got["grads"][n].cpu().float() - g.float()).abs().max().item()
+                    for n, g in want["grads"].items()}
+        errs["grads"] = max(by_param.values()) / scale
+        own_routes = max((got["grads"][n].cpu().float() - g.float()).abs().max().item()
+                         for n, g in own.items()) / scale
+        peak = {n: max(g.abs().max().item(), 1e-30) for n, g in want["grads"].items()}
+        worst = sorted(by_param, key=lambda n: -by_param[n] / peak[n])
+        name = "f32" if dtype == torch.float32 else "bf16"
+        out[name] = {"errors": errs, "tol": {"values": R2D2_VALUE_TOL[dtype],
+                                             "grads": R2D2_GRAD_TOL[dtype]},
+                     "grad_scale": scale, "loss": want["loss"].item(),
+                     "pool_windows_chosen_differently": route.flips,
+                     "pool_largest_gap": route.gap,
+                     # the gradients' error where the CPU pools by its own choices
+                     "grads_with_own_pool_choices": own_routes,
+                     # each parameter's error over its own largest |gradient|
+                     "worst_params": {n: by_param[n] / peak[n] for n in worst[:3]}}
+        log({"phase": "r2d2_parity_case", "dtype": name, **out[name]})
+        tol = {k: R2D2_GRAD_TOL[dtype] if k == "grads" else R2D2_VALUE_TOL[dtype] for k in errs}
+        bad = {k: e for k, e in errs.items() if not e <= tol[k]}
+        if bad:
+            raise AssertionError(f"r2d2_parity {name}: errors {bad} over tolerance")
+    res = {"phase": "r2d2_parity", "net": {k: list(v) if isinstance(v, tuple) else v
+                                           for k, v in net.items()},
+           "obs": list(obs), "T+1": T1, "B": B,
+           "params": sum(p.numel() for p in make(device="cpu").parameters()),
+           "step": f"forward, then td_loss (double-Q, IS weights, discount {R2D2_DISCOUNT}) "
+           "and its backward", "cases": out}
+    log(res)
+    return res
+
+
+def check_priority_bitexact(device, ops: int = 200, seed: int = 7) -> bool:
+    """benchmarks/r2d2_bench.py's check on the port: a seeded add/update
+    schedule through a 128-slot shard and the numpy SumTree (f32) fed the
+    shard's own transform; the trees compared bitwise."""
+    shard = DeviceReplayShard(128, seed=seed, name="r2d2_check", device=device)
+    ref = SumTree(128, dtype=np.float32)
+    rng = np.random.default_rng(seed)
+
+    def tf(p):
+        return shard.priority_transform(np.asarray(p, np.float32)).cpu().numpy()
+
+    for op in range(ops):
+        if op % 2 == 0:
+            items = [{"x": rng.normal(size=4).astype(np.float32)} for _ in range(8)]
+            prios = (rng.random(8) * 2).astype(np.float32)
+            ref.set(np.asarray(shard.add(items, prios)), tf(prios))
+        elif len(shard) >= 16:
+            idxs = rng.choice(len(shard), size=16, replace=False)
+            prios = (rng.random(16) * 3).astype(np.float32)
+            shard.update_priorities(idxs.astype(np.int32), prios)
+            ref.set(idxs, tf(prios))
+            shard.sample(16)
+    return bool(np.array_equal(shard.tree.cpu().numpy(), ref.tree))
+
+
+def _shard_checks(device) -> dict:
+    """The shard's hazards on the device: last-wins duplicates, and a short
+    insert that writes nothing past its lanes (no device-side assert)."""
+    shard = DeviceReplayShard(32, alpha=1.0, name="r2d2_dup", device=device)
+    shard.add([{"x": np.full(2, 1.0, np.float32)} for _ in range(8)], np.ones(8, np.float32))
+    dup = np.asarray([3, 5, 3, 3, 7, 5, 0, 3], np.int64)
+    prios = np.asarray([0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8], np.float32)
+    shard.update_priorities(torch.from_numpy(dup).to(device), torch.from_numpy(prios).to(device))
+    leaves = shard.leaf_priorities().cpu().numpy()
+    want = np.ones(32, np.float32)
+    want[8:] = 0
+    want[dup] = prios[[7, 5, 7, 7, 4, 5, 6, 7]]
+    if not np.array_equal(leaves, want):
+        raise AssertionError(f"r2d2_learner: duplicate write-back is not last-wins: {leaves[:8]}")
+    shard.add([{"x": np.full(2, 5.0, np.float32)} for _ in range(3)], np.full(3, 4.0, np.float32))
+    ring = shard._ring[0].cpu()
+    if not (torch.equal(ring[8:11], torch.full((3, 2), 5.0))
+            and torch.equal(ring[11:], torch.zeros(21, 2))
+            and shard.leaf_priorities().cpu()[11:].abs().sum().item() == 0):
+        raise AssertionError("r2d2_learner: a short insert wrote past its lanes")
+    if device.type == "cuda":
+        torch.cuda.synchronize()  # a device-side assert would raise here
+    return {"duplicates_last_wins": True, "short_insert_in_bounds": True}
+
+
+def _r2d2_profile(cycle, cycles: int) -> dict:
+    """One torch.profiler window of ``cycles`` learner cycles: the device
+    time of each part of a cycle, and the window's busy time, idle share and
+    top kernels.  add, sample and write-back are the kernels launched inside
+    their record_function ranges; the update is the rest of the busy time
+    (its backward runs on autograd's own thread, outside any range)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(cycles):
+            cycle()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cpu = torch.autograd.DeviceType.CPU
+    ranged = {name: sum(e.device_time_total for e in prof.events()
+                        if e.name == name and e.device_type == cpu) / 1e3 / cycles
+              for name in R2D2_LABELS}
+    summary = profile_summary(prof, wall_ms, top=15, exclude=R2D2_LABELS)
+    parts = {"add": ranged["r2d2_add"], "sample": ranged["r2d2_sample"],
+             "write_back": ranged["r2d2_write_back"]}
+    parts["update"] = summary["device_busy_ms"] / cycles - sum(parts.values())
+    parts["update_forward_in_range"] = ranged["r2d2_update"]
+    return {"parts_device_ms": parts, **summary}
+
+
+def phase_r2d2_learner(seed: int, device="cuda", obs=R2D2_OBS, net=None, capacity: int = 4096,
+                       T: int = 80, B: int = 64, insert: int = 16, pool: int = 64,
+                       warmup: int = 5, cycles: int = 20, profile_cycles: int = 3,
+                       target_update_interval: int = 100) -> dict:
+    """benchmarks/r2d2_bench.py's device arm at the full-width geometry: a
+    4096-sequence DeviceReplayShard on the card, then the learner cycle
+    add -> sample -> time-major -> update -> priority write-back."""
+    net = R2D2_NET if net is None else net
+    dev = torch.device(device)
+    A, core = net["num_actions"], net["core_size"]
+    items = r2d2_items(np.random.default_rng(seed), pool, obs, T, A, core)
+    shard = DeviceReplayShard(capacity, seed=seed, name="r2d2_learner", device=dev)
+    turn = [0]
+
+    def next_items():
+        k = turn[0] * insert % pool
+        turn[0] += 1
+        return items[k : k + insert]
+
+    t0 = time.perf_counter()
+    while len(shard) < capacity:
+        shard.add(next_items())
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    ring_bytes = shard.ring_bytes()
+    if ring_bytes != capacity * r2d2_item_bytes(obs, T, core):
+        raise AssertionError(f"r2d2_learner: the ring holds {ring_bytes} B, not "
+                             f"{capacity} x {r2d2_item_bytes(obs, T, core)}")
+    make = functools.partial(RecurrentQNet, dtype=torch.bfloat16, obs_shape=obs, device=dev, **net)
+    model = make(generator=torch.Generator().manual_seed(seed))
+    target = make().requires_grad_(False)
+    params, target_params = list(model.parameters()), list(target.parameters())
+    torch._foreach_copy_(target_params, params)
+    opt = OptaxOptimizer(params, clip_by_global_norm(40.0), adam(1e-4))
+    sgd = [0]
+
+    def cycle():
+        with torch.profiler.record_function("r2d2_add"):
+            shard.add(next_items())
+        with torch.profiler.record_function("r2d2_sample"):
+            batch_items, idx, w = shard.sample(B)
+            batch = r2d2.time_major(batch_items, w, dev)
+        with torch.profiler.record_function("r2d2_update"):
+            opt.zero_grad()
+            loss, prio = r2d2.td_loss(model, target, batch, R2D2_DISCOUNT)
+            loss.backward()
+            opt.step()
+            sgd[0] += 1
+            if sgd[0] % target_update_interval == 0:
+                torch._foreach_copy_(target_params, params)
+        with torch.profiler.record_function("r2d2_write_back"):
+            shard.update_priorities(idx, prio)
+        return loss.detach()
+
+    losses = [cycle() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(cycles)]
+    t0 = time.perf_counter()
+    for start, end in events:
+        start.record()
+        losses.append(cycle())
+        end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / cycles
+    peak = torch.cuda.max_memory_allocated()
+    times = [a.elapsed_time(b) for a, b in events]
+    prof = _r2d2_profile(cycle, profile_cycles)
+    issue_ms = enqueue_ms(cycle, reps=5)
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"r2d2_learner: non-finite losses {losses}")
+    if shard.tree.device.type != dev.type or any(t.device.type != dev.type for t in shard._ring):
+        raise AssertionError("r2d2_learner: the shard's tensors are not on the card")
+    total = shard.total_host()
+    leaf_sum = shard.leaf_priorities().double().sum().item()
+    if not abs(total - leaf_sum) <= 1e-4 * leaf_sum:
+        raise AssertionError(f"r2d2_learner: root {total} != leaf sum {leaf_sum}")
+    if not check_priority_bitexact(dev):
+        raise AssertionError("r2d2_learner: the shard's tree diverged from the numpy SumTree")
+    checks = _shard_checks(dev)
+    median = float(np.median(times))
+    frames = T * B
+    flops = r2d2_update_flops(obs, net["channels"], net["hidden_size"], core, A, (T + 1) * B)
+    res = {"phase": "r2d2_learner",
+           "model": "RecurrentQNet impala (16, 32, 32), 512/512, 18 actions, bf16 compute, "
+           "f32 parameters; td_loss; clip_by_global_norm(40) + adam(1e-4); target every "
+           f"{target_update_interval} SGD steps",
+           "obs": list(obs), "T": T, "B": B, "capacity": capacity, "insert": insert,
+           "item_bytes": r2d2_item_bytes(obs, T, core), "ring_bytes": ring_bytes,
+           "host_pool_bytes": payload_bytes(items), "fill_s": fill_s,
+           "fill_gb_per_s": ring_bytes / fill_s / 1e9, "cycles": cycles,
+           "step_ms_median": median, "step_ms_min": min(times), "step_ms_max": max(times),
+           "step_ms_host_clock": host_ms, "frames_per_s": frames / (median / 1e3),
+           "frames_per_s_host_clock": frames / (host_ms / 1e3),
+           "update_tflop": flops / 1e12,
+           "update_flops_count": "4 x forward (online + target forward, backward at 2x); "
+           "2mkn per conv and matmul at (T+1) x B frames",
+           "tflops": flops / (median / 1e3) / 1e12,
+           "mfu": flops / (median / 1e3) / PEAK_FLOPS[torch.bfloat16],
+           "parts_device_ms": prof["parts_device_ms"],
+           "host_issue_ms_per_cycle": issue_ms,
+           "device_busy_ms_per_cycle": prof["device_busy_ms"] / profile_cycles,
+           "idle_share": prof["idle_share"],
+           "launches_per_cycle": prof["kernel_launches"] / profile_cycles,
+           "max_memory_allocated": peak, "first_loss": losses[0], "last_loss": losses[-1],
+           "root_vs_leaf_sum": [total, leaf_sum], "priority_bitexact_200_ops": True, **checks}
+    log(res)
+    log({"phase": "r2d2_learner_profile", "window": f"{profile_cycles} learner cycles", **prof})
+    return res
+
+
+def _replay_cohort(device, item_shape, n_items: int, publishes: int, seed: int) -> dict:
+    """Two ReplayShardService peers, each serving a device shard, a
+    ReplayPublisher and a learner-side DistributedReplay over ipc loopback."""
+    hub = Rpc()
+    hub.set_name("r2d2-learner")
+    hub.set_timeout(30)
+    hub.listen(":0")
+    addr = next(a for a in hub._listen_addrs if a.startswith("ipc://"))
+    names = [f"r2d2-shard{i}" for i in range(2)]
+    spokes, services = [], []
+    try:
+        for i, name in enumerate(names):
+            r = Rpc()
+            r.set_name(name)
+            r.set_timeout(30)
+            services.append(ReplayShardService(
+                r, "replay", DeviceReplayShard(256, alpha=1.0, seed=seed + i, name=name,
+                                               device=device), shard_index=i, num_shards=2))
+            r.connect(addr)
+            spokes.append(r)
+        pub = ReplayPublisher(hub, names, "replay")
+        deadline = time.time() + 10
+        while not pub.multicast_ready() and time.time() < deadline:
+            time.sleep(0.01)
+        multicast = pub.multicast_ready()
+        rng = np.random.default_rng(seed)
+        items = [{"state": rng.normal(size=item_shape).astype(np.float32)}
+                 for _ in range(n_items)]
+        per_publish = payload_bytes(items)
+        out0, in0 = _counter('replay_bytes_total{direction="ingest_out"}'), _counter(
+            'replay_bytes_total{direction="ingest_in"}')
+        t0 = time.perf_counter()
+        for _ in range(publishes):
+            pub.publish(items).result(30)
+        publish_ms = (time.perf_counter() - t0) * 1e3 / publishes
+        out_b = _counter('replay_bytes_total{direction="ingest_out"}') - out0
+        in_b = _counter('replay_bytes_total{direction="ingest_in"}') - in0
+        rep = DistributedReplay(rpc=hub, remote_peers=names, name="replay", seed=seed)
+        sizes = [st["size"] for st in rep.stats()]  # drains the queued stripes
+        stripe = n_items // 2 * publishes
+        if not (multicast and out_b == per_publish * publishes and in_b == out_b
+                and sizes == [stripe, stripe]):
+            raise AssertionError(f"r2d2_replay: multicast {multicast}, ingest_out {out_b} "
+                                 f"(payload x publishes {per_publish * publishes}), ingest_in "
+                                 f"{in_b}, shard sizes {sizes} (stripes {stripe})")
+        if any(s._shard.tree.device.type != torch.device(device).type for s in services):
+            raise AssertionError("r2d2_replay: a shard's tree is not on the card")
+        before = [st["total"] for st in rep.stats()]
+        t0 = time.perf_counter()
+        batch, ref, w = rep.sample(8)
+        sample_ms = (time.perf_counter() - t0) * 1e3
+        rep.update_priorities(ref, np.full(8, 50.0, np.float32))
+        deadline = time.time() + 10
+        while time.time() < deadline:  # the remote write-back is fire-and-forget
+            after = [st["total"] for st in rep.stats()]
+            if after[ref.shard] > before[ref.shard]:
+                break
+            time.sleep(0.05)
+        if not (after[ref.shard] > before[ref.shard] and after[1 - ref.shard] == before[
+                1 - ref.shard] and np.asarray(batch["state"]).shape == (8, *item_shape)):
+            raise AssertionError(f"r2d2_replay: write-back to shard {ref.shard} did not land "
+                                 f"there: totals {before} -> {after}")
+        return {"shards": 2, "items_per_publish": n_items, "item_shape": list(item_shape),
+                "publishes": publishes, "payload_bytes_per_publish": per_publish,
+                "ingest_out_bytes": out_b, "ingest_in_bytes": in_b, "multicast_ready": multicast,
+                "write_once": True, "shard_sizes": sizes, "publish_ms": publish_ms,
+                "cohort_sample_ms": sample_ms, "write_back_shard": ref.shard,
+                "totals_before": before, "totals_after": after}
+    finally:
+        for r in spokes:
+            r.close()
+        hub.close()
+
+
+def phase_r2d2_replay(seed: int, device="cuda", item_shape=(21, 512), n_items: int = 32,
+                      publishes: int = 4, agent_steps: int = 3000) -> dict:
+    """The replay wire plane on the card, then examples.r2d2.train()."""
+    cohort = _replay_cohort(device, item_shape, n_items, publishes, seed)
+    ticks = []  # (host clock, env steps, SGD steps) at each of train()'s log ticks
+    t0 = time.perf_counter()
+    stats = r2d2.train(r2d2.make_flags([
+        "--total_steps", str(agent_steps), "--min_replay", "32", "--quiet", "--device", device,
+        "--seed", str(seed), "--log_interval", "0.5"]),
+        on_stats=lambda st: ticks.append((time.perf_counter(), st["steps"], st["sgd_steps"])))
+    end = time.perf_counter()
+    if not (stats["sgd_steps"] > 0 and np.isfinite(stats["loss"])
+            and stats["replay_device"].split(":")[0] == torch.device(device).type):
+        raise AssertionError(f"r2d2_replay agent: sgd_steps {stats['sgd_steps']}, loss "
+                             f"{stats['loss']}, replay on {stats['replay_device']}")
+    # Rates from the first log tick on: the EnvPool's start is set-up.
+    t1, steps1, sgd1 = ticks[0] if ticks else (t0, 0, 0)
+    agent = {"env": "CartPole", "store": "DeviceReplayShard", "env_steps": stats["steps"],
+             "sgd_steps": stats["sgd_steps"], "wall_s": end - t0, "setup_s": t1 - t0,
+             "env_steps_per_s": (stats["steps"] - steps1) / (end - t1),
+             "sgd_steps_per_s": (stats["sgd_steps"] - sgd1) / (end - t1),
+             "loss": stats["loss"], "episodes": stats["episodes"],
+             "replay_device": stats["replay_device"]}
+    res = {"phase": "r2d2_replay", "cohort": cohort, "agent": agent}
+    log(res)
+    return res
+
+
 def make_pool() -> EnvPool:
     """The data path's EnvPool, forked before the first CUDA call."""
     return EnvPool(SyntheticAtariEnv, **POOL)
@@ -2016,7 +2570,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     pool = make_pool()
     try:
-        kern, sass, train, sl, en, rl, cl, acl = _phases(pool, args.seed)
+        kern, sass, train, sl, en, rl, cl, acl, r2 = _phases(pool, args.seed)
     finally:
         pool.close()
     case = kern["train"]
@@ -2041,7 +2595,8 @@ def main(argv=None) -> None:
                              "engine": en["launches"][name],
                              "impala_learner": rl["flash_launches"][name],
                              "cohort_lm": cl["launches"][name],
-                             "accumulator_lm": sum(acl["launches"][name].values())},
+                             "accumulator_lm": sum(acl["launches"][name].values()),
+                             "r2d2": r2[name]},
         "max_abs_err": kern["worst"][name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
@@ -2079,7 +2634,14 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     phase_accumulator_impala(seed)
     torch.cuda.empty_cache()
     acl = phase_accumulator_lm(seed)
-    return kern, sass, train, sl, en, rl, cl, acl
+    torch.cuda.empty_cache()
+    # The r2d2 path: counts start at 0 here and are read right after.
+    fa.reset_launches()
+    phase_r2d2_parity(seed)
+    phase_r2d2_learner(seed)
+    torch.cuda.empty_cache()
+    phase_r2d2_replay(seed)
+    return kern, sass, train, sl, en, rl, cl, acl, _counts()
 
 
 if __name__ == "__main__":

@@ -34,6 +34,13 @@ conv kernel [kh, kw, in, out] becomes torch's [out, in, kh, kw]; both
 libraries compute cross-correlation, so nothing is flipped.  ``Dense_0``'s
 rows stay in flax's (h, w, c) order: the port flattens its activations in
 that order.  Gradient trees convert the same way.
+
+RecurrentQNet
+-------------
+:func:`qnet_from_flax` does the same for the R2D2 network, whose port
+keeps every flax name (``ImpalaEncoder_0`` with ``encoder="impala"``,
+``Dense_0`` … ``Dense_3``); only ``Scan_Core_0`` becomes the packed
+``core``.
 """
 
 from __future__ import annotations
@@ -138,3 +145,9 @@ def actor_critic_from_flax(params) -> Dict[str, torch.Tensor]:
     """Flax ``ActorCriticNet`` params (or gradients) → ``state_dict`` of
     :class:`.actor_critic.ActorCriticNet`."""
     return _rl_from_flax(params, {"Dense_2": "policy", "Dense_3": "baseline"})
+
+
+def qnet_from_flax(params) -> Dict[str, torch.Tensor]:
+    """Flax ``RecurrentQNet`` params (or gradients) → ``state_dict`` of
+    :class:`.qnet.RecurrentQNet`."""
+    return _rl_from_flax(params, {})

@@ -307,3 +307,114 @@ def test_serve_timer_times_only_inside_its_block(cpu_rehearsal):
     assert "prefill" not in vars(model) and "step" not in vars(eng)
     eng.step()
     assert len(timer.prefills) == 1 and len(timer.steps) == 1
+
+
+# ------------------------------------------------------------------ r2d2
+
+SMALL_QNET = dict(num_actions=3, encoder="impala", channels=(4, 8), hidden_size=16,
+                  core_size=8)
+
+
+def test_r2d2_item_bytes_at_the_full_width_geometry():
+    """state [81, 84, 84, 4] uint8 2,286,144 B + done, action, reward 729 B +
+    core 2 x [512] f32 4,096 B: 2,290,969 B an item, 9.38 GB for 4096."""
+    assert chip_smoke.r2d2_item_bytes() == 2_290_969
+    assert chip_smoke.r2d2_item_bytes() * 4096 == 9_383_809_024
+    items = chip_smoke.r2d2_items(np.random.default_rng(0), 2, (84, 84, 4), 80, 18, 512)
+    assert chip_smoke.payload_bytes(items) == 2 * 2_290_969
+
+
+def test_r2d2_update_flops_at_the_full_width_geometry():
+    """Per frame: the encoder's convs 106,463,232 (bench's count less its
+    FC layer and heads), Dense_0 3,964,928, Dense_1 524,288, the LSTM's two
+    projections 4,194,304, the heads 19,456; the update is 4 x the forward
+    over 81 x 64 frames."""
+    from moolib_tpu_torch import bench
+
+    convs = bench.analytic_forward_flops(t1=1, b=1) - 2 * 3872 * 256 - 2 * (256 + 1 + 6) * 7
+    assert convs == 106_463_232
+    per_frame = chip_smoke.qnet_forward_flops((84, 84, 4), (16, 32, 32), 512, 512, 18, 1)
+    assert per_frame == convs + 3_964_928 + 524_288 + 4_194_304 + 19_456
+    assert chip_smoke.r2d2_update_flops((84, 84, 4), (16, 32, 32), 512, 512, 18,
+                                        81 * 64) == 4 * per_frame * 81 * 64
+
+
+def test_r2d2_full_width_net_has_the_reference_parameter_count():
+    model = chip_smoke.RecurrentQNet(obs_shape=chip_smoke.R2D2_OBS, device="cpu",
+                                     **chip_smoke.R2D2_NET)
+    assert sum(p.numel() for p in model.parameters()) == 4_452_323
+    tree = chip_smoke.qnet_flax_tree(model)["params"]
+    assert tree["Dense_0"]["kernel"].shape == (3872, 512)
+    assert tree["ImpalaEncoder_0"]["Conv_0"]["kernel"].shape == (3, 3, 4, 16)
+    assert tree["Scan_Core_0"]["OptimizedLSTMCell_0"]["hf"]["bias"].shape == (512,)
+
+
+def test_r2d2_parity_phase_rehearsal(cpu_rehearsal, capsys):
+    res = chip_smoke.phase_r2d2_parity(0, device="cpu", obs=(20, 20, 4), T1=3, B=2,
+                                       net=SMALL_QNET)
+    assert set(res["cases"]) == {"f32", "bf16"}
+    for name, case in res["cases"].items():
+        errs = dict(case["errors"])
+        assert set(errs) == {"q", "core_c", "core_h", "loss", "prio", "grads"}
+        assert case["pool_windows_chosen_differently"] == 0  # CPU against CPU
+        assert case["pool_largest_gap"] == 0.0 and case["grads_with_own_pool_choices"] >= 0
+        # The replayed pools add the overlapping windows' gradients in f32;
+        # the CPU's own bf16 pool backward adds them in bf16.
+        grads = errs.pop("grads")
+        assert max(errs.values()) == 0.0
+        assert grads == 0.0 if name == "f32" else grads <= case["tol"]["grads"]
+    phases = [json.loads(ln)["phase"] for ln in capsys.readouterr().out.splitlines()]
+    assert phases == ["r2d2_parity_case", "r2d2_parity_case", "r2d2_parity"]
+
+
+def test_r2d2_learner_phase_rehearsal(cpu_rehearsal, monkeypatch, capsys):
+    def fake_profile(cycle, cycles):
+        for _ in range(cycles):
+            cycle()
+        return {"parts_device_ms": dict.fromkeys(("add", "sample", "update", "write_back"), 0.0),
+                "wall_ms": 1.0, "device_busy_ms": 0.0, "idle_share": 1.0,
+                "kernel_launches": 0, "top": [], "flash": []}
+
+    monkeypatch.setattr(chip_smoke, "_r2d2_profile", fake_profile)
+    res = chip_smoke.phase_r2d2_learner(0, device="cpu", obs=(20, 20, 4), net=SMALL_QNET,
+                                        capacity=32, T=3, B=4, insert=4, pool=8, warmup=2,
+                                        cycles=3, profile_cycles=1, target_update_interval=2)
+    assert res["ring_bytes"] == 32 * chip_smoke.r2d2_item_bytes((20, 20, 4), 3, 8)
+    assert res["step_ms_median"] > 0 and np.isfinite(res["last_loss"])
+    assert res["priority_bitexact_200_ops"] and res["duplicates_last_wins"]
+    assert res["short_insert_in_bounds"]
+    phases = [json.loads(ln)["phase"] for ln in capsys.readouterr().out.splitlines()]
+    assert phases == ["r2d2_learner", "r2d2_learner_profile"]
+
+
+def test_r2d2_replay_phase_rehearsal(capsys):
+    res = chip_smoke.phase_r2d2_replay(0, device="cpu", agent_steps=1200)
+    cohort = res["cohort"]
+    assert cohort["write_once"] and cohort["multicast_ready"]
+    assert cohort["ingest_out_bytes"] == 4 * cohort["payload_bytes_per_publish"]
+    assert cohort["shard_sizes"] == [64, 64]
+    assert res["agent"]["sgd_steps"] > 0 and res["agent"]["replay_device"] == "cpu"
+
+
+def test_pool_route_replays_the_first_runs_choices():
+    """The second run's pools take the inputs the first run's took, and a
+    window where they would choose differently is counted: here the second
+    run's input is perturbed so one window's maximum moves."""
+    x = torch.randn(2, 3, 20, 20, generator=torch.Generator().manual_seed(0))  # pads (0, 1)
+    y = x.clone()
+    y[0, 0, 0, 0] = y[0, 0, :3, :3].max() + 1.0  # a new maximum in the first window
+    route = chip_smoke.PoolRoute()
+
+    def run(t):
+        t = t.clone().requires_grad_(True)
+        out = chip_smoke.impala_model.max_pool_same(t)
+        out.sum().backward()
+        return out.detach(), t.grad
+
+    (a, ga), (b, gb) = route.compare(lambda: run(x), lambda: run(y))
+    assert chip_smoke.impala_model.max_pool_same is route.pool  # restored
+    assert route.flips == 1
+    assert route.gap == pytest.approx(1.0)  # the new maximum over the replayed input
+    assert torch.equal(ga, gb)  # the same routes
+    assert torch.equal(a, chip_smoke.impala_model.max_pool_same(x))
+    assert b[0, 0, 0, 0] == x[0, 0, :3, :3].max()  # the first run's input, at y's value

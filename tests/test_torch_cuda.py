@@ -459,3 +459,123 @@ def test_engine_prefill_launches_the_flash_kernel(card):
     torch.cuda.synchronize()
     assert fa.flash_fwd_launches() == 2 * model.num_layers
     assert fa.flash_bwd_dq_launches() == fa.flash_bwd_dkv_launches() == 0
+
+
+# ------------------------------------------------------------- replay, R2D2
+
+
+def _replay_schedule(shard, rng, ops=200):
+    for op in range(ops):
+        if op % 3 == 0:
+            items = [{"x": rng.normal(size=4).astype(np.float32),
+                      "d": rng.random(3) < 0.5} for _ in range(8)]
+            shard.add(items, (rng.random(8) * 4).astype(np.float32))
+        elif len(shard) >= 16:
+            idx = rng.choice(len(shard), size=16, replace=False)
+            shard.update_priorities(idx.astype(np.int32), (rng.random(16) * 3).astype(np.float32))
+
+
+def test_replay_shard_on_card_matches_cpu(card):
+    """The same schedule on a card shard and a CPU shard: the tree bitwise
+    (alpha 1: the transform is exact on both), the ring equal, and the draw
+    equal given the same uniforms (weights within 2 ulps: CUDA's pow)."""
+    from moolib_tpu_torch.replay import DeviceReplayShard
+    from moolib_tpu_torch.replay.device import _draw
+
+    shards = [DeviceReplayShard(128, alpha=1.0, seed=3, device=d) for d in ("cpu", card)]
+    for s in shards:
+        _replay_schedule(s, np.random.default_rng(0))
+    cpu, gpu = shards
+    assert gpu.tree.device.type == "cuda" and all(t.is_cuda for t in gpu._ring)
+    assert torch.equal(gpu.tree.cpu(), cpu.tree)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(gpu._ring, cpu._ring))
+    u = torch.rand(64, generator=torch.Generator().manual_seed(1))
+    for so, to in ((0, 0.0), (4096, 512.0)):
+        i_c, w_c = _draw(u, cpu.tree, 128, len(cpu), so, to, cpu.beta)
+        i_g, w_g = _draw(u.to(card), gpu.tree, 128, len(gpu), so, to, gpu.beta)
+        assert torch.equal(i_g.cpu(), i_c)
+        ulps = (w_g.cpu().view(torch.int32).long() - w_c.view(torch.int32).long()).abs().max()
+        assert ulps.item() <= 2
+    # Default alpha: the card's transform within 1 ulp of the CPU's.
+    p = torch.rand(4096) * 5
+    a = DeviceReplayShard(8, device=card).priority_transform(p.to(card)).cpu()
+    b = DeviceReplayShard(8, device="cpu").priority_transform(p)
+    assert (a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max().item() <= 1
+
+
+def test_replay_shard_duplicates_short_batches_and_storage_on_card(card):
+    from moolib_tpu_torch.replay import DeviceReplayShard, SumTree
+
+    shard = DeviceReplayShard(32, seed=9, device=card)
+    ref = SumTree(32, dtype=np.float32)
+
+    def tf(p):
+        return shard.priority_transform(np.asarray(p, np.float32)).cpu().numpy()
+
+    idxs = shard.add([{"x": np.full(2, i, np.float32)} for i in range(8)], np.ones(8, np.float32))
+    ref.set(np.asarray(idxs), tf(np.ones(8)))
+    ptrs = [shard.tree.data_ptr(), shard._ring[0].data_ptr(), shard._maxp.data_ptr()]
+    dup = torch.tensor([3, 5, 3, 3, 7, 5, 0, 3], device=card)
+    prios = torch.tensor([0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8], device=card)
+    shard.update_priorities(dup, prios)
+    ref.set(dup.cpu().numpy(), tf(prios.cpu().numpy()))
+    assert np.array_equal(shard.tree.cpu().numpy(), ref.tree)
+    shard.add([{"x": np.full(2, 50.0, np.float32)} for _ in range(3)])  # short, default prio
+    torch.cuda.synchronize()
+    assert torch.equal(shard._ring[0][8:11].cpu(), torch.full((3, 2), 50.0))
+    assert shard._ring[0][11:].abs().sum().item() == 0
+    assert shard.leaf_priorities()[11:].abs().sum().item() == 0
+    # Many more adds cycle the two pinned staging sets: the ring holds what went in.
+    for k in range(20):
+        shard.add([{"x": np.full(2, 100 + k * 8 + j, np.float32)} for j in range(8)])
+    want = {float(100 + k * 8 + j) for k in range(16, 20) for j in range(8)}
+    assert {float(v) for v in shard._ring[0][:, 0].cpu()} == want
+    assert ptrs == [shard.tree.data_ptr(), shard._ring[0].data_ptr(), shard._maxp.data_ptr()]
+    with pytest.raises(IndexError):
+        shard.update_priorities(np.asarray([32]), np.ones(1, np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_width_qnet_forward_backward_on_card(card, dtype):
+    """The R2D2 network at the JAX package's pixel geometry (18 actions,
+    (16, 32, 32), 512/512): td_loss and its backward on the card against
+    the CPU, values within 1e-5 (f32) or 2e-2 (bf16) of max(1, max|CPU|),
+    gradients within 1e-4 (f32) or 5e-2 (bf16) of the largest |CPU
+    gradient|.  TF32 is off in the convs too, and the CPU's max-pools take
+    the inputs the card's took (``chip_smoke.PoolRoute``: a near-tie may
+    pick another input on each device)."""
+    import chip_smoke
+    from moolib_tpu_torch.examples.r2d2 import td_loss
+    from moolib_tpu_torch.models import RecurrentQNet
+
+    kw = dict(num_actions=18, encoder="impala", hidden_size=512, core_size=512, dtype=dtype)
+    host = RecurrentQNet(device="cpu", generator=torch.Generator().manual_seed(0), **kw)
+    dev = RecurrentQNet(device=card, **kw)
+    dev.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(0)
+    batch = {"state": torch.from_numpy(rng.integers(0, 256, (3, 2, 84, 84, 4), dtype=np.uint8)),
+             "done": torch.from_numpy(rng.random((3, 2)) < 0.3),
+             "action": torch.from_numpy(rng.integers(0, 18, (3, 2))),
+             "reward": torch.from_numpy(rng.normal(size=(3, 2)).astype(np.float32)),
+             "core": tuple(torch.zeros(2, 512) for _ in range(2))}
+
+    def run(model, d):
+        b = {k: v.to(d) for k, v in batch.items() if k != "core"}
+        b["core"] = tuple(c.to(d) for c in batch["core"])
+        loss, prio = td_loss(model, model, b, 0.997)
+        loss.backward()
+        return (torch.cat([loss.detach().reshape(1), prio]).cpu(),
+                {n: p.grad.float().cpu() for n, p in model.named_parameters()})
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        (v_dev, g_dev), (v_host, g_host) = chip_smoke.PoolRoute().compare(
+            lambda: run(dev, card), lambda: run(host, "cpu"))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert torch.isfinite(v_dev).all()
+    vtol, gtol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 5e-2)}[dtype]
+    assert (v_dev - v_host).abs().max().item() <= vtol * max(1.0, v_host.abs().max().item())
+    scale = max(g.abs().max().item() for g in g_host.values())
+    assert max((g_dev[n] - g).abs().max().item() for n, g in g_host.items()) <= gtol * scale

@@ -59,7 +59,11 @@ def test_import_every_module_leaves_jax_out():
                 "moolib_tpu_torch.engine", "moolib_tpu_torch.engine.engine",
                 "moolib_tpu_torch.engine.kv_pool", "moolib_tpu_torch.engine.service",
                 "moolib_tpu_torch.ops.paged_attention", "moolib_tpu_torch.models.convert",
-                "moolib_tpu_torch.examples.lm_serve", "moolib_tpu_torch.examples.lm"):
+                "moolib_tpu_torch.examples.lm_serve", "moolib_tpu_torch.examples.lm",
+                "moolib_tpu_torch.replay", "moolib_tpu_torch.replay._metrics",
+                "moolib_tpu_torch.replay.host", "moolib_tpu_torch.replay.device",
+                "moolib_tpu_torch.replay.ingest", "moolib_tpu_torch.replay.distributed",
+                "moolib_tpu_torch.models.qnet", "moolib_tpu_torch.examples.r2d2"):
         assert mod in mods, mod
     code = "import sys\n" + "".join(f"import {m}\n" for m in mods) + (
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
