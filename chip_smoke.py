@@ -7,9 +7,12 @@ IMPALA learner at the reference Atari shape, fed once by EnvPool workers
 through the Batcher,
 then allreduce full-width ImpalaNet and TransformerLM gradients taken
 from the card through the port's Broker and Group, train both in
-two-learner Accumulator cohorts through the examples' own loops, and run
+two-learner Accumulator cohorts through the examples' own loops, run
 the R2D2 agent's replay plane and learner at the JAX package's pixel
-geometry.
+geometry, and then the fleet and durability plane: the LM stopped and
+resumed from checkpoints, a distributed checkpoint committed by a
+two-learner cohort and restored by one process, a profiler timeline of
+the train step, and the shared kernel build cache.
 
     python3 chip_smoke.py [--seed N]
 
@@ -169,10 +172,41 @@ exits non-zero, and no result line is printed):
    device shard for 3000 env steps (SGD steps, a finite loss, the shard
    on the card; env and SGD steps/s from the first log tick on).
 
+17. durable_lm — examples.lm.train() at the train phase's widths and
+   batch with --checkpoint_dir in a fresh temporary directory: 10 steps,
+   saved at 10; the example's resume() into a fresh model and AdamW
+   equals the saved params and AdamW state bit for bit; a second train()
+   resumes at 10 and goes to 20; then the newest checkpoint truncated
+   (testing.faults), a third train() resumes from 10 and counts one
+   checkpoint_corrupt_skipped.  Save and restore ms, GB written, launches.
+18. dckpt_lm — two learner processes (spawned, one CUDA context each)
+   hold the d=1024/L=12 LM (B 4 x T 1024, bf16 compute, f32 parameters)
+   and AdamW on the card and take 6 steps through an Accumulator with
+   enable_distributed_checkpoint(interval 1e-3, lead_steps 1, aux_fn
+   steps).  The leader commits a cohort manifest; both shard reports carry
+   its blob sha256.  This process restores it as a cohort of one (the
+   2-host shards re-cut onto 1): the blob's sha equals the manifest's, the
+   restored f32 parameters equal the learners' at that step (sha256) and
+   give the same probe loss (one flash forward/backward on a fixed batch,
+   compared exactly).  checkpoint_stall_seconds per capture,
+   checkpoint_write_seconds, the restore's seconds.
+19. timeline_lm — one telemetry.timeline window (a torch.profiler capture)
+   over 5 train steps of the train phase's LM, each a
+   devmon.dispatch_span: the trace names the three flash kernels 60 times
+   each; every flash_fwd kernel starts after its step's dispatch began
+   (the trace rebased through the window's clock marker); the compute,
+   comm, host and idle seconds sum to the steps' wall time within 1%.
+   Then a __telemetry_profile start/stop from a client Rpc over loopback
+   writes a trace of one more step that names flash_fwd.
+20. compile_cache — a child process with MOOLIB_COMPILE_CACHE at a fresh
+   directory builds every kernel source there (nvcc seconds > 0); a second
+   child, a restarted peer, loads every library from it (seconds 0.0).
+
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
 at the training shape and its launches on every path (the r2d2 phases
-launch none: no Pallas kernel is on the R2D2 path), and {"ok": true,
+launch none: no Pallas kernel is on the R2D2 path; durable_lm, dckpt_lm
+and timeline_lm are the LM's forward and backward), and {"ok": true,
 "device": {...}}.
 """
 
@@ -2560,6 +2594,545 @@ def phase_r2d2_replay(seed: int, device="cuda", item_shape=(21, 512), n_items: i
     return res
 
 
+# ----------------------------------------------------- fleet and durability
+# durable_lm: three examples.lm.train() runs over one --checkpoint_dir: save
+# at step 10, resume to 20, then (the newest truncated) fall back to 10.
+DURABLE_STEPS = (10, 20, 10)
+DCKPT_STEPS = 6  # dckpt_lm: applied steps of the two-learner cohort
+TIMELINE_STEPS = 5
+
+
+def _trees_equal(a, b) -> bool:
+    """Bitwise equality of two checkpoint trees: the same structure, tensor
+    leaves equal in dtype and bytes, every other leaf equal."""
+    la, da = nest.tree_flatten(a)
+    lb, db = nest.tree_flatten(b)
+    if da != db:
+        return False
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)):
+                return False
+            if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def _params_sha(named: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(named):
+        h.update(named[k].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_durable_lm(seed: int, device="cuda", widths=None, batch=(16, 1024),
+                     steps=DURABLE_STEPS) -> dict:
+    """examples.lm.train() with --checkpoint_dir: run 1 saves at step 10;
+    the example's resume() into a fresh model and AdamW gives the saved
+    params and AdamW state bit for bit; run 2 resumes and trains to 20;
+    the newest checkpoint truncated, run 3 resumes from step 10 and counts
+    one checkpoint_corrupt_skipped."""
+    import shutil
+    import tempfile
+
+    from moolib_tpu_torch.checkpoint import Checkpointer
+    from moolib_tpu_torch.testing import FaultPlan
+
+    B, T = batch
+    d = tempfile.mkdtemp(prefix="durable_lm-")
+    base = list(LM_WIDTHS if widths is None else widths) + [
+        "--seq_len", str(T), "--batch_size", str(B), "--attention", "flash", "--mesh", "",
+        "--learning_rate", "1e-4", "--seed", str(seed), "--quiet", "--log_interval", str(10 ** 9),
+        "--device", device, "--checkpoint_dir", d, "--checkpoint_interval", "1e9"]
+    dev = torch.device(device)
+    try:
+        # The main path: counts start at 0 here and are read right after.
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        out1 = lm.train(lm.make_flags(base + ["--steps", str(steps[0])]))
+        ck = Checkpointer(d)
+        if out1["steps"] != steps[0] or ck.all_steps() != [steps[0]]:
+            raise AssertionError(f"durable_lm: run 1 {out1['steps']} steps, saved {ck.all_steps()}")
+        saved = ck.restore(map_location=dev)
+        flags = lm.make_flags(base + ["--steps", str(steps[1])])
+        model = lm.make_model(flags, dev)
+        opt = lm.make_optimizer(model.parameters(), flags.learning_rate)
+        if lm.resume(ck, model, opt, dev) != steps[0]:
+            raise AssertionError("durable_lm: resume() did not find step 10")
+        bit_exact = _trees_equal(lm.checkpoint_state(model, opt, steps[0]), saved)
+        if not bit_exact:
+            raise AssertionError("durable_lm: the resumed params or AdamW state differ from "
+                                 "the saved ones")
+        del model, opt, saved
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out2 = lm.train(flags)
+        if (out2["start_step"], out2["steps"]) != (steps[0], steps[1]):
+            raise AssertionError(f"durable_lm: run 2 went {out2['start_step']} -> {out2['steps']}")
+        victim = FaultPlan(seed).truncate_checkpoint(d)
+        skipped0 = _counter("checkpoint_corrupt_skipped")
+        out3 = lm.train(lm.make_flags(base + ["--steps", str(steps[2])]))
+        skipped = _counter("checkpoint_corrupt_skipped") - skipped0
+        wall_s = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if (out3["start_step"], out3["steps"], skipped) != (steps[0], max(steps[0], steps[2]), 1):
+        raise AssertionError(f"durable_lm: run 3 went {out3['start_step']} -> {out3['steps']} "
+                             f"with {skipped} corrupt checkpoints skipped")
+    losses = [o["loss"] for o in (out1, out2, out3) if o["steps"] > o["start_step"]]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"durable_lm: losses {losses}")
+    # Every train() step (and each run's discarded warm-up pass) runs the
+    # three kernels once per layer.
+    layers = lm.make_flags(base).layers
+    need = layers * (steps[1] + max(0, steps[2] - steps[0]))
+    if dev.type == "cuda" and min(launches.values()) < need:
+        raise AssertionError(f"durable_lm: kernel launches {launches}, each must be >= {need}")
+    c1, c2, c3 = out1["checkpoint"], out2["checkpoint"], out3["checkpoint"]
+    res = {"phase": "durable_lm", "model": "TransformerLM vocab=32768 d=1024 L=12 H=8x128 bf16 "
+           "compute, f32 parameters, flash attention, AdamW" if widths is None
+           else f"TransformerLM {widths}", "batch": B, "seq_len": T, "runs": [
+               {"steps": f"{o['start_step']}->{o['steps']}", "loss": o["loss"]}
+               for o in (out1, out2, out3)],
+           "bit_exact_resume": bit_exact, "truncated": os.path.basename(victim or ""),
+           "corrupt_skipped": skipped,
+           "save_ms": [1e3 * c["save_s"] for c in (c1, c2, c3) if c["saves"]],
+           "restore_ms": [1e3 * c["restore_s"] for c in (c2, c3)],
+           "checkpoint_bytes": c1["bytes"],
+           "gb_written": sum(c["bytes"] * c["saves"] for c in (c1, c2, c3) if c["saves"]) / 1e9,
+           "save_GB_per_s": c1["bytes"] / c1["save_s"] / 1e9,
+           "restore_GB_per_s": c2["bytes"] / c2["restore_s"] / 1e9,
+           "launches": launches, "wall_s": wall_s}
+    log(res)
+    return res
+
+
+def _dckpt_learner(rank, addr, seed, device, lm_cfg, batch, steps, ckpt_dir, out) -> None:
+    try:
+        _dckpt_learner_run(rank, addr, seed, device, lm_cfg, batch, steps, ckpt_dir, out)
+    except BaseException as e:  # noqa: BLE001 - reported to the parent, which fails
+        import traceback
+
+        out.put((rank, {"error": f"{e!r}\n{traceback.format_exc()}"}))
+
+
+def _dckpt_learner_run(rank, addr, seed, device, lm_cfg, batch, steps, ckpt_dir, out) -> None:
+    """One learner of dckpt_lm: the LM and AdamW on the card in an
+    Accumulator cohort with the distributed checkpoint plane on; at every
+    version it captures at, the probe loss (one flash forward/backward on a
+    fixed batch) and the sha256 of its f32 parameters."""
+    from moolib_tpu_torch import Accumulator
+    from moolib_tpu_torch.checkpoint import DistributedCheckpointer
+    from moolib_tpu_torch.examples.common import copy_into, finish_together
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(**lm_cfg, attention="flash", dtype=torch.bfloat16, device=dev,
+                          generator=torch.Generator().manual_seed(seed))
+    opt = lm.make_optimizer(model.parameters(), 1e-4)
+    named = dict(model.named_parameters())
+    B, T = batch
+    rng = np.random.default_rng(seed + 1 + rank)
+    probe = _probe_tokens(seed, lm_cfg, batch, dev)
+
+    def loss_of(tokens):
+        return lm.copy_task_loss(model(tokens), tokens, T // 2)[0]
+
+    acc = Accumulator("dckpt_lm", named)
+    acc.set_name(f"dckpt{rank}")
+    acc.listen()
+    acc.connect(addr)
+    ck = DistributedCheckpointer(ckpt_dir, max_to_keep=1)
+    applied = [0]
+    acc.enable_distributed_checkpoint(ck, interval=1e-3, lead_steps=1, timeout=300.0,
+                                      aux_fn=lambda: {"steps": applied[0]})
+    fa.reset_launches()  # this learner's path: its steps, probes included
+    stalls, history = [], {}
+    deadline = time.time() + 600
+    try:
+        while True:
+            if time.time() > deadline:
+                raise AssertionError(f"dckpt_lm learner {rank}: no commit by the deadline "
+                                     f"(applied {applied[0]}, {ck.stats()}, aborts "
+                                     f"{_counter('checkpoint_aborts_total')})")
+            acc.update()
+            before = ck.stats()
+            acc.checkpoint_tick(state_fn=lambda: {"opt_state": opt.state_dict()})
+            after = ck.stats()
+            if after["captures"] > before["captures"]:
+                stalls.append(after["stall_s"] - before["stall_s"])
+                opt.zero_grad(set_to_none=True)
+                loss = loss_of(probe)
+                loss.backward()
+                opt.zero_grad(set_to_none=True)
+                history[acc.model_version()] = (float(loss.detach()), _params_sha(named))
+            if acc.wants_state():
+                acc.set_state({"opt_state": opt.state_dict(), "steps": applied[0]})
+            if acc.has_new_state():
+                st = acc.state()
+                if st is not None:
+                    copy_into(named, acc.parameters())
+                    lm._load_adamw_state(opt, st["opt_state"])
+                    acc.set_parameters(named)
+            if not acc.connected() or acc.cohort_size() < 2:
+                time.sleep(0.01)
+                continue
+            if applied[0] >= steps:
+                # The steps are done: wait (briefly) for a commit and for
+                # this learner's own captures to be written.
+                if deadline > time.time() + 180:
+                    deadline = time.time() + 180
+                st = ck.stats()
+                if ck.committed_steps() and st["writes"] == st["captures"]:
+                    break
+                time.sleep(0.01)
+            elif acc.has_gradients():
+                grads = acc.gradients()
+                for k, p in named.items():
+                    p.grad = grads[k]
+                opt.step()
+                acc.set_parameters(named)
+                acc.zero_gradients()
+                applied[0] += 1
+            elif acc.wants_gradients():
+                tokens = torch.from_numpy(rng.integers(2, lm_cfg["vocab_size"], size=(B, T))).to(dev)
+                opt.zero_grad(set_to_none=True)
+                loss_of(tokens).backward()
+                acc.reduce_gradients(B, {k: p.grad for k, p in named.items()})
+            else:
+                time.sleep(0.002)
+        finish_together(acc._group, [acc])
+        hist = telemetry.get_registry().snapshot().get("checkpoint_write_seconds", {})
+        writes = [s["value"] for s in hist.get("series", ())]
+        out.put((rank, {
+            "rank": rank, "leader": acc.is_leader(), "model_version": acc.model_version(),
+            "applied": applied[0], "history": {str(k): v for k, v in history.items()},
+            "stall_s": stalls, "stats": ck.stats(),
+            "write_s_sum": sum(w["sum"] for w in writes),
+            "write_count": sum(w["count"] for w in writes),
+            "aborts": _counter("checkpoint_aborts_total"), "launches": _counts(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else 0}))
+    finally:
+        ck.close()
+        acc.close()
+
+
+def _probe_tokens(seed, lm_cfg, batch, dev):
+    B, T = batch
+    return torch.from_numpy(np.random.default_rng(seed + 100).integers(
+        2, lm_cfg["vocab_size"], size=(B, T))).to(dev)
+
+
+def phase_dckpt_lm(seed: int, device="cuda", lm_cfg=None, batch=COHORT_LM_BATCH,
+                   steps: int = DCKPT_STEPS, timeout: float = 900) -> dict:
+    """Two learner processes commit a distributed checkpoint of the LM and
+    its AdamW state; this process restores it as a cohort of one (the
+    2-host shards re-cut onto 1) and checks the blob, the parameters and
+    the probe loss against the learners'."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    from moolib_tpu_torch.checkpoint import DistributedCheckpointer
+
+    lm_cfg = dict(COHORT_LM if lm_cfg is None else lm_cfg)
+    d = tempfile.mkdtemp(prefix="dckpt_lm-")
+    port = free_port()
+    broker = start_broker(port)
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_dckpt_learner, args=(r, f"127.0.0.1:{port}", seed, device,
+                                                      lm_cfg, batch, steps, d, out))
+             for r in range(2)]
+    try:
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        reports = {}
+        deadline = time.time() + timeout
+        while len(reports) < 2:
+            try:
+                rank, rep = out.get(timeout=5)
+            except queue.Empty:
+                if time.time() > deadline or any(p.exitcode not in (None, 0) for p in procs):
+                    raise AssertionError(f"dckpt_lm: learners {[p.exitcode for p in procs]} "
+                                         f"reported {sorted(reports)}")
+                continue
+            if "error" in rep:
+                raise AssertionError(f"dckpt_lm learner {rank}: {rep['error']}")
+            reports[rank] = rep
+        for p in procs:
+            p.join(timeout=120)
+            if p.exitcode != 0:
+                raise AssertionError(f"dckpt_lm: learner exit code {p.exitcode}")
+        cohort_s = time.perf_counter() - t0
+
+        reader = DistributedCheckpointer(d)
+        step = reader.latest_committed_step()
+        with open(os.path.join(d, f"step_{step}", "cohort_manifest.json")) as f:
+            cohort = json.load(f)
+        shard_shas = []
+        for r in range(cohort["world"]):
+            with open(os.path.join(d, f"step_{step}", f"manifest_{r}.json")) as f:
+                shard_shas.append(json.load(f)["blob_sha256"])
+        if cohort["world"] != 2 or set(shard_shas) != {cohort["blob_sha256"]}:
+            raise AssertionError(f"dckpt_lm: world {cohort['world']}, shard shas {shard_shas}, "
+                                 f"cohort sha {cohort['blob_sha256']}")
+        dev = torch.device(device)
+        t1 = time.perf_counter()
+        got_step, (params, _buffers, state) = reader.restore(step=step, map_location=dev)
+        restore_s = time.perf_counter() - t1
+        import hashlib
+
+        blob = reader.last_restored[2]
+        blob_sha = hashlib.sha256(blob).hexdigest()
+        nbytes = len(blob)
+        del blob
+        if got_step != step or blob_sha != cohort["blob_sha256"]:
+            raise AssertionError(f"dckpt_lm: restored step {got_step} sha {blob_sha[:16]}, "
+                                 f"committed {step} sha {cohort['blob_sha256'][:16]}")
+        model = TransformerLM(**lm_cfg, attention="flash", dtype=torch.bfloat16, device=dev)
+        named = dict(model.named_parameters())
+        if sorted(named) != sorted(params):
+            raise AssertionError("dckpt_lm: restored parameter names differ from the model's")
+        with torch.no_grad():
+            for k, p_ in named.items():
+                p_.copy_(params[k])
+        want = [r["history"].get(str(step)) for r in reports.values()]
+        if any(w is None for w in want) or len({tuple(w) for w in want}) != 1:
+            raise AssertionError(f"dckpt_lm: the learners' records at step {step}: {want}")
+        want_loss, want_sha = want[0]
+        got_sha = _params_sha(named)
+        probe = _probe_tokens(seed, lm_cfg, batch, dev)
+        loss = lm.copy_task_loss(model(probe), probe, batch[1] // 2)[0]
+        loss.backward()
+        got_loss = float(loss.detach())
+        if got_sha != want_sha or got_loss != want_loss:
+            raise AssertionError(f"dckpt_lm: restored params sha {got_sha[:16]} loss {got_loss}, "
+                                 f"learners' {want_sha[:16]} {want_loss}")
+        if "opt_state" not in state or "steps" not in state:
+            raise AssertionError(f"dckpt_lm: restored state keys {sorted(state)}")
+        aux_steps = state["steps"]
+        del model, named, params, state, loss
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        stop_process(broker)
+        shutil.rmtree(d, ignore_errors=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in reports.values()) for k in reports[0]["launches"]}
+    if dev.type == "cuda" and min(launches.values()) < 2 * lm_cfg["num_layers"] * steps:
+        raise AssertionError(f"dckpt_lm: kernel launches {launches}")
+    stalls = [x for r in reports.values() for x in r["stall_s"]]
+    res = {"phase": "dckpt_lm", "processes": 2,
+           "model": "TransformerLM vocab=32768 d=1024 L=12 H=8x128 max_len 1024, learned "
+           "positions, bf16 compute, f32 parameters, flash attention, AdamW" if lm_cfg == COHORT_LM
+           else f"TransformerLM {lm_cfg}", "batch_per_learner": list(batch), "steps": steps,
+           "committed_step": step, "blob_bytes": nbytes, "blob_sha16": cohort["blob_sha256"][:16],
+           "shard_reports_one_sha": True, "restored_as_world": 1, "restore_s": restore_s,
+           "restored_params_sha_equal": True, "probe_loss": got_loss,
+           "probe_loss_equal": True, "aux_steps": aux_steps,
+           "checkpoint_stall_seconds": stalls,
+           "checkpoint_write_seconds_mean": sum(r["write_s_sum"] for r in reports.values())
+           / max(1, sum(r["write_count"] for r in reports.values())),
+           "captures": [r["stats"]["captures"] for r in reports.values()],
+           "commits": [r["stats"]["commits"] for r in reports.values()],
+           "aborts": [r["aborts"] for r in reports.values()],
+           "launches": launches, "cohort_wall_s": cohort_s,
+           "max_memory_allocated": [r["max_memory_allocated"] for r in reports.values()]}
+    log(res)
+    return res
+
+
+def phase_timeline_lm(seed: int, device="cuda", widths=None, batch=(16, 1024),
+                      steps: int = TIMELINE_STEPS) -> dict:
+    """One timeline window (telemetry.timeline.begin_window/end_window: a
+    torch.profiler capture) over 5 train steps of the LM, each step a
+    devmon.dispatch_span: the trace names the three flash kernels, each
+    kernel starts after its step's dispatch began, the buckets partition
+    the steps' wall time; then a __telemetry_profile window over loopback
+    Rpc writes a trace of one more step."""
+    from moolib_tpu_torch.telemetry import devmon, timeline
+
+    B, T = batch
+    dev = torch.device(device)
+    flags = lm.make_flags(list(LM_WIDTHS if widths is None else widths) + [
+        "--seq_len", str(T), "--batch_size", str(B), "--attention", "flash", "--mesh", "",
+        "--seed", str(seed)])
+    model = lm.make_model(flags, dev)
+    opt = lm.make_optimizer(model.parameters(), 1e-4)
+    rng = np.random.default_rng(seed)
+    batches = [torch.from_numpy(lm.make_batch(rng, flags)).to(dev) for _ in range(steps + 2)]
+
+    def step(tokens):
+        with devmon.dispatch_span("lm.step"):
+            opt.zero_grad(set_to_none=True)
+            loss = lm.copy_task_loss(model(tokens), tokens, T // 2)[0]
+            loss.backward()
+            opt.step()
+
+    step(batches[-1])  # warm-up outside the window
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    fa.reset_launches()  # the path: the window's steps
+    if not timeline.begin_window():
+        raise AssertionError("timeline_lm: the window did not open")
+    t0 = time.perf_counter()
+    for tokens in batches[:steps]:
+        step(tokens)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    rep = timeline.end_window()
+    window_s = time.perf_counter() - t0
+    launches = _counts()
+    if rep is None or rep["steps"] != steps:
+        raise AssertionError(f"timeline_lm: report {rep and rep['steps']} steps")
+    row = rep["fns"]["lm.step"]
+    total = row["total_seconds"]
+    parts = sum(row["seconds"].values())
+    if abs(parts - total) > 0.01 * total:
+        raise AssertionError(f"timeline_lm: buckets {row['seconds']} sum to {parts}, "
+                             f"steps' wall time {total}")
+    slices = timeline.load_profiler_trace(rep["logdir"])
+    kernels = {}
+    for name in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma_kernel"):
+        kernels[name] = sorted(s["ts_us"] for s in slices if name in s["name"])
+    per_step = flags.layers
+    if dev.type == "cuda":
+        # The launch counters say how many ran; the trace must name each
+        # kernel and hold no more records than were launched.  CUPTI may
+        # lose a device record (one flash_fwd of 60 in one full run), so
+        # the trace's count is reported beside the launches, not held to it.
+        if any(not 0 < len(v) <= per_step * steps for v in kernels.values()):
+            raise AssertionError(f"timeline_lm: kernels in the trace "
+                                 f"{ {k: len(v) for k, v in kernels.items()} }, "
+                                 f"{per_step * steps} launched each")
+        # Clock alignment: the k-th flash_fwd record is the j-th launch for
+        # some j >= k (records are only ever lost), so it belongs to step
+        # k // layers or later and must start after that step's dispatch.
+        unix_ns, perf_ns = rep["anchor"]
+        starts = [(unix_ns + t0_ns - perf_ns) / 1e3 for _n, t0_ns, _t1 in rep["dispatches"]]
+        gaps = [ts - starts[k // per_step]
+                for k, ts in enumerate(kernels["flash_fwd_wgmma_kernel"])]
+        if min(gaps) < -100.0:
+            raise AssertionError(f"timeline_lm: a flash_fwd kernel starts {min(gaps):.1f} us "
+                                 "before its step's dispatch")
+    else:
+        gaps = []
+
+    # The RPC surface: a window opened and closed by a peer over loopback.
+    host, client = Rpc(), Rpc()
+    port = free_port()
+    try:
+        host.set_name("profiled")
+        host.listen(f"127.0.0.1:{port}")
+        telemetry.install_rpc_handlers(host)
+        client.set_name("profiler")
+        client.connect(f"127.0.0.1:{port}")
+        import tempfile
+
+        logdir = tempfile.mkdtemp(prefix="telemetry_profile-")
+        started = client.sync("profiled", "__telemetry_profile", "start", logdir)
+        if not started.get("ok"):
+            raise AssertionError(f"timeline_lm: __telemetry_profile start: {started}")
+        step(batches[steps])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        stopped = client.sync("profiled", "__telemetry_profile", "stop")
+        if not stopped.get("ok") or not os.path.exists(stopped["trace"]):
+            raise AssertionError(f"timeline_lm: __telemetry_profile stop: {stopped}")
+        with open(stopped["trace"]) as f:
+            rpc_names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        rpc_kernel = any("flash_fwd_wgmma_kernel" in n for n in rpc_names)
+        if dev.type == "cuda" and not rpc_kernel:
+            raise AssertionError("timeline_lm: the RPC window's trace names no flash_fwd kernel")
+        rpc_trace_bytes = os.path.getsize(stopped["trace"])
+    finally:
+        client.close()
+        host.close()
+    del model, opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    res = {"phase": "timeline_lm", "model": "TransformerLM vocab=32768 d=1024 L=12 H=8x128 bf16 "
+           "compute, flash attention, AdamW" if widths is None else f"TransformerLM {widths}",
+           "batch": B, "seq_len": T, "steps": rep["steps"], "window_s": window_s,
+           "fractions": row["fractions"], "seconds": row["seconds"], "total_seconds": total,
+           "device_slices": rep["slices"], "bubble": rep["bubble"],
+           "kernels_in_trace": {k: len(v) for k, v in kernels.items()},
+           "kernel_after_dispatch_min_gap_us": min(gaps) if gaps else None,
+           "rpc_window": {"trace_bytes": rpc_trace_bytes, "names_flash_fwd": rpc_kernel,
+                          "duration_s": stopped["duration_s"]},
+           "launches": launches}
+    log(res)
+    return res
+
+
+_CACHE_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, %(root)r)
+from moolib_tpu_torch.utils import init_compile_cache
+d = init_compile_cache()
+from moolib_tpu_torch.ops import _build
+t0 = time.perf_counter()
+_build.build_all()
+# build_info after the builds (a later load() finds the library and says 0.0)
+seconds = {n: i["seconds"] for n, i in _build.build_info.items()}
+libs = {n: _build.load(n) for n in _build.kernel_names()}
+print("RESULT=" + json.dumps({"dir": d, "wall_s": time.perf_counter() - t0,
+      "seconds": seconds}), flush=True)
+"""
+
+
+def phase_compile_cache(timeout: float = 600) -> dict:
+    """A child process with MOOLIB_COMPILE_CACHE at a fresh directory builds
+    every kernel there (seconds > 0); a second child, a restarted peer,
+    loads each library from it (build_info seconds 0.0)."""
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="kernel-cache-")
+    env = dict(os.environ, MOOLIB_COMPILE_CACHE=d,
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    runs = []
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", _CACHE_CHILD % {"root": ROOT}],
+                                  capture_output=True, text=True, env=env, timeout=timeout)
+            if proc.returncode != 0:
+                raise AssertionError(f"compile_cache: child failed:\n{proc.stderr[-4000:]}")
+            line = [l for l in proc.stdout.splitlines() if l.startswith("RESULT=")][-1]
+            runs.append(dict(json.loads(line[len("RESULT="):]),
+                             process_s=time.perf_counter() - t0))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    first, second = runs
+    names = sorted(first["seconds"])
+    if first["dir"] != d or not all(first["seconds"][n] > 0 for n in names):
+        raise AssertionError(f"compile_cache: first child {first}")
+    if second["seconds"] != {n: 0.0 for n in names}:
+        raise AssertionError(f"compile_cache: the restarted child rebuilt: {second['seconds']}")
+    res = {"phase": "compile_cache", "kernels": names,
+           "first": {"build_wall_s": first["wall_s"], "process_s": first["process_s"],
+                     "nvcc_s": first["seconds"]},
+           "restart": {"load_wall_s": second["wall_s"], "process_s": second["process_s"],
+                       "nvcc_s": second["seconds"]}}
+    log(res)
+    return res
+
+
 def make_pool() -> EnvPool:
     """The data path's EnvPool, forked before the first CUDA call."""
     return EnvPool(SyntheticAtariEnv, **POOL)
@@ -2570,7 +3143,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     pool = make_pool()
     try:
-        kern, sass, train, sl, en, rl, cl, acl, r2 = _phases(pool, args.seed)
+        kern, sass, train, sl, en, rl, cl, acl, r2, fleet = _phases(pool, args.seed)
     finally:
         pool.close()
     case = kern["train"]
@@ -2596,7 +3169,8 @@ def main(argv=None) -> None:
                              "impala_learner": rl["flash_launches"][name],
                              "cohort_lm": cl["launches"][name],
                              "accumulator_lm": sum(acl["launches"][name].values()),
-                             "r2d2": r2[name]},
+                             "r2d2": r2[name],
+                             **{path: fleet[path]["launches"][name] for path in fleet}},
         "max_abs_err": kern["worst"][name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
@@ -2641,7 +3215,15 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     phase_r2d2_learner(seed)
     torch.cuda.empty_cache()
     phase_r2d2_replay(seed)
-    return kern, sass, train, sl, en, rl, cl, acl, _counts()
+    r2 = _counts()
+    torch.cuda.empty_cache()
+    fleet = {"durable_lm": phase_durable_lm(seed)}
+    torch.cuda.empty_cache()
+    fleet["dckpt_lm"] = phase_dckpt_lm(seed)
+    torch.cuda.empty_cache()
+    fleet["timeline_lm"] = phase_timeline_lm(seed)
+    phase_compile_cache()
+    return kern, sass, train, sl, en, rl, cl, acl, r2, fleet
 
 
 if __name__ == "__main__":

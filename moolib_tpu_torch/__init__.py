@@ -34,6 +34,14 @@ and never ``jax`` or anything from ``moolib_tpu``.  What it has so far:
   that drive them: ``examples.vtrace.experiment.train``,
   ``examples.a2c.train`` and ``examples.lm``'s elastic path, with
   ``examples.launch`` and ``examples.plot``;
+- fleet and durability: ``checkpoint`` (``Checkpointer``,
+  ``DistributedCheckpointer``: manifest-checked, two-phase committed,
+  byte-compatible with the JAX package's checkpoints), the Accumulator's
+  distributed-checkpoint plane, ``autoscaler`` (``Autoscaler``,
+  ``AutoscalePolicy``, ``SubprocessFleet``), on-demand ``torch.profiler``
+  windows and the step timeline (``telemetry.profiling``,
+  ``telemetry.timeline``), and ``utils.compile_cache`` (a kernel build
+  directory shared between peers);
 - telemetry (metrics, tracing, exporters, the flight recorder, recovery
   phases, the device monitor ``telemetry.devmon``, the cohort aggregator's
   scrape endpoints), ``watchdog``,
@@ -60,17 +68,22 @@ __version__ = "0.1.0"
 __all__ = [
     "Accumulator",
     "AllReduce",
+    "AutoscalePolicy",
+    "Autoscaler",
     "Broker",
     "buckets",
+    "DistributedCheckpointer",
     "engine",
     "Future",
     "Group",
+    "MissingShardError",
     "Queue",
     "rollout",
     "Rpc",
     "RpcDeferredReturn",
     "RpcError",
     "serving",
+    "SubprocessFleet",
     "create_uid",
     "set_log_level",
     "set_logging",
@@ -82,7 +95,12 @@ __all__ = [
 
 _LAZY = {
     "Accumulator": "accumulator",
+    "Autoscaler": "autoscaler",
+    "AutoscalePolicy": "autoscaler",
+    "SubprocessFleet": "autoscaler",
     "Broker": "broker",
+    "DistributedCheckpointer": "checkpoint",
+    "MissingShardError": "checkpoint",
     "Group": "group",
     "AllReduce": "group",
 }

@@ -56,9 +56,14 @@ tensors on the device the parameters live on, each leaf one non-blocking
 H2D copy out of a pinned result buffer.  No path catches a failed pinned
 allocation, copy or collective and retries through ``.cpu()``.
 
+The distributed-checkpoint plane (``enable_distributed_checkpoint``,
+``checkpoint_tick``) speaks the JAX package's ``__accum_ckpt_begin`` /
+``__accum_ckpt_report`` handlers, so a mixed cohort commits one checkpoint;
+its captures snapshot the live tensors before ``begin_capture`` returns
+(``checkpoint.snapshot``), since the next apply writes them in place.
+
 Not ported yet (their entry points raise): the sharded rounds and the
-streaming consumer of ``buckets.GradientStream`` (slice 9) and the
-distributed-checkpoint plane (slice 7).
+streaming consumer of ``buckets.GradientStream`` (slice 9).
 """
 
 from __future__ import annotations
@@ -141,6 +146,20 @@ _M_WARM_REJOINS = _REG.counter(
     "accum_warm_rejoins_total",
     "restarts whose checkpoint-restored version matched the leader: synced "
     "with zero model-sync bytes",
+)
+# Distributed checkpoint coordination (docs/RESILIENCE.md "Distributed
+# checkpoints"): checkpoint epochs the leader abandoned short of commit, and
+# model-sync chunks a joiner satisfied from a locally-restored shard slice
+# instead of the wire.
+_M_CKPT_ABORTS = _REG.counter(
+    "checkpoint_aborts_total",
+    "checkpoint epochs abandoned before commit (missed boundary, membership "
+    "change, member failure, or report deadline)",
+)
+_M_SLICE_PREFILL = _REG.counter(
+    "accum_sync_slice_chunks_total",
+    "model-sync chunks prefilled from a locally-restored checkpoint slice "
+    "(bytes the resumable stream did NOT have to send)",
 )
 # Flat-bucket gradient data plane (docs/DESIGN.md "Gradient data plane"):
 # per-round bucket counts/bytes, staging (tree-flatten -> flat buffer) time,
@@ -285,29 +304,14 @@ def _blob_tree(tree):
     """``(tree, staged)``: the model-sync blob's tree with torch leaves as
     numpy (CUDA ones staged through pinned memory with one event; ``staged``
     says whether there were any), so the pickled bytes equal a JAX peer's
-    for the same values.  bf16 leaves become ml_dtypes arrays where that
-    package imports, else stay CPU tensors."""
+    for the same values (``checkpoint.host_leaf``: bf16 leaves become
+    ml_dtypes arrays where that package imports, else stay CPU tensors)."""
     leaves, treedef = nest.tree_flatten(tree)
     staged, event = buckets.stage(
         [l.detach() if isinstance(l, torch.Tensor) else l for l in leaves])
     if event is not None:
         event.synchronize()
-    out = []
-    for leaf in staged:
-        if isinstance(leaf, torch.Tensor):
-            if leaf.dtype == torch.bfloat16:
-                try:
-                    import ml_dtypes
-                except ImportError:
-                    out.append(leaf.cpu())
-                    continue
-                leaf = leaf.cpu().view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-                out.append(np.array(leaf))
-                continue
-            out.append(np.array(leaf.cpu().numpy()))
-        else:
-            out.append(leaf)
-    return treedef.unflatten(out), event is not None
+    return treedef.unflatten([checkpoint.host_leaf(l) for l in staged]), event is not None
 
 
 def _adopt_tree(tree, device: Optional[torch.device]):
@@ -316,18 +320,7 @@ def _adopt_tree(tree, device: Optional[torch.device]):
     arrays) the tree stays as it arrived."""
     if device is None:
         return tree
-
-    def leaf(x):
-        if isinstance(x, np.ndarray) and x.dtype != object:
-            if x.dtype.name == "bfloat16":  # ml_dtypes
-                x = torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
-            else:
-                x = torch.from_numpy(x if x.flags.writeable else x.copy())
-        if isinstance(x, torch.Tensor) and x.device != device:
-            x = x.to(device)
-        return x
-
-    return nest.tree_map(leaf, tree)
+    return nest.tree_map(lambda x: checkpoint.leaf_to_device(x, device), tree)
 
 
 def _to_device(tree, device: Optional[torch.device]):
@@ -536,6 +529,26 @@ class Accumulator:
         # letting two different byte strings share one version number.
         self._stale_applies = 0
 
+        # Distributed checkpoint plane (docs/RESILIENCE.md "Distributed
+        # checkpoints"): the leader broadcasts a FUTURE target step; every
+        # member captures when its applied-step count reaches exactly that
+        # target, reports its shard digest back, and the leader
+        # two-phase-commits the cohort manifest once the full quorum
+        # agrees.  File I/O runs on the checkpointer's worker or outside
+        # _lock — never under it.
+        self._ckptr = None  # DistributedCheckpointer
+        self._ckpt_interval = 0.0
+        self._ckpt_lead = 2  # steps of advance notice in the begin broadcast
+        self._ckpt_timeout = 60.0  # leader: report-collection deadline
+        self._ckpt_last_begin = 0.0
+        self._ckpt_seq = 0
+        self._ckpt_aux_fn = None  # leader-evaluated, broadcast with begin
+        self._ckpt_pending: Optional[Dict[str, Any]] = None  # member side
+        self._ckpt_open: Optional[Dict[str, Any]] = None  # leader side
+        # Warm-rejoin slice serving: (version, sha16, start, bytes, total)
+        # of a locally-held byte range of the leader's sync blob (e.g. this
+        # host's re-cut shard slice of a restored checkpoint).
+        self._sync_slice: Optional[Tuple[int, str, int, bytes, int]] = None
 
         # Recovery phase accounting (telemetry.recovery): milestone stamps
         # along the rejoin chain; _rec_phases keeps the FIRST occurrence of
@@ -676,6 +689,8 @@ class Accumulator:
             rpc.define("__accum_leader_query", dispatch("_on_leader_query"))
             rpc.define("__accum_buffers_update", dispatch("_on_buffers_update"))
             rpc.define("__accum_ici_abort", dispatch("_on_ici_abort"))
+            rpc.define("__accum_ckpt_begin", dispatch("_on_ckpt_begin"))
+            rpc.define("__accum_ckpt_report", dispatch("_on_ckpt_report"))
         if self._name in registry:
             raise RpcError(f"accumulator {self._name!r} already exists on this Rpc")
         registry[self._name] = self
@@ -1437,6 +1452,7 @@ class Accumulator:
                 t = self._in_transfer = {
                     "version": version, "sha": sha, "total": total, "chunks": {},
                 }
+                self._prefill_from_slice_locked(t, seq, total, len(payload))
             if seq not in t["chunks"]:
                 t["chunks"][seq] = bytes(payload)
                 self._model_sync_bytes_rx += len(payload)
@@ -1496,15 +1512,327 @@ class Accumulator:
             return self._received_state
 
     # ---------------------------------------------- distributed checkpoints
-    def enable_distributed_checkpoint(self, checkpointer, *args, **kwargs) -> None:
-        """The distributed checkpoint plane comes with slice 7."""
-        _unported("Accumulator.enable_distributed_checkpoint", 7)
+    def enable_distributed_checkpoint(self, checkpointer, interval: float = 30.0,
+                                      lead_steps: int = 2,
+                                      timeout: float = 60.0,
+                                      aux_fn=None) -> None:
+        """Attach a :class:`~moolib_tpu_torch.checkpoint.DistributedCheckpointer`
+        and let the cohort snapshot itself (docs/RESILIENCE.md "Distributed
+        checkpoints").
 
-    def preload_sync_slice(self, *args, **kwargs) -> None:
-        _unported("Accumulator.preload_sync_slice", 7)
+        The LEADER opens a checkpoint epoch every ``interval`` seconds by
+        broadcasting a target step ``lead_steps`` applies in the future;
+        every member (leader included) captures its shard asynchronously
+        when its applied-step count reaches exactly that target — lockstep
+        apply order makes the capture version-consistent cohort-wide — and
+        the leader two-phase-commits the cohort manifest once all shard
+        reports agree on the blob digest.  Drive it by calling
+        :meth:`checkpoint_tick` every train-loop iteration.
 
-    def checkpoint_tick(self, *args, **kwargs) -> None:
-        _unported("Accumulator.checkpoint_tick", 7)
+        Version consistency is PROVED, not assumed: every member's blob
+        must hash identically, so the user ``state_fn`` may only return
+        cohort-replicated values (the lockstep opt state).  Host-local
+        values (a wall-clock step count, env-frame totals) go through
+        ``aux_fn`` instead: the LEADER evaluates it once when it opens the
+        epoch, broadcasts the dict, and every member folds the identical
+        copy into its blob.
+
+        When the checkpointer restored a blob this process start
+        (``last_restored``), it is auto-registered as a warm-rejoin sync
+        slice: a full transfer at that exact version is served from local
+        bytes instead of the wire (:meth:`preload_sync_slice`)."""
+        with self._lock:
+            self._ckptr = checkpointer
+            self._ckpt_interval = float(interval)
+            self._ckpt_lead = max(1, int(lead_steps))
+            self._ckpt_timeout = float(timeout)
+            self._ckpt_aux_fn = aux_fn
+        last = getattr(checkpointer, "last_restored", None)
+        if last is not None:
+            step, sha16, blob = last
+            self.preload_sync_slice(step, sha16, 0, blob, len(blob))
+
+    def preload_sync_slice(self, version: int, sha16: str, start: int,
+                           data: bytes, total_bytes: int) -> None:
+        """Register a locally-held byte range ``[start, start+len(data))``
+        of the leader's sync blob for ``(version, sha16)`` — e.g. this
+        host's re-cut shard slice from a distributed checkpoint
+        (``DistributedCheckpointer.restore_slice``).  When a model transfer
+        at that exact version+digest starts, every chunk fully covered by
+        the slice is prefilled into the receive buffer and the resumable
+        stream serves only the missing bytes
+        (``accum_sync_slice_chunks_total``)."""
+        with self._lock:
+            self._sync_slice = (
+                int(version), str(sha16), int(start), bytes(data),
+                int(total_bytes),
+            )
+
+    def checkpoint_tick(self, steps_done: Optional[int] = None,
+                        state_fn=None) -> None:
+        """Drive the distributed checkpoint protocol; call once per train
+        loop iteration.  ``state_fn`` returns the user state to snapshot
+        and is evaluated only when a capture is actually due.  The step
+        boundary defaults to the accumulator's model version — the one
+        counter that is lockstep across the cohort even for warm
+        rejoiners — but tests may pass ``steps_done`` explicitly.  No-op
+        until :meth:`enable_distributed_checkpoint`."""
+        if self._ckptr is None:
+            return
+        now = time.monotonic()
+        begin = capture = missed = finish = abort = None
+        me = self._rpc.get_name()
+        with self._lock:
+            if steps_done is None:
+                steps_done = self._model_version
+            leader = self._leader
+            # Leader: open a checkpoint epoch on the interval.
+            if (
+                self._is_leader
+                and self._ckpt_interval > 0
+                and self._ckpt_open is None
+                and self._ckpt_pending is None
+                and self._epoch_synced
+                and self._group.active()
+                and now - self._ckpt_last_begin > self._ckpt_interval
+            ):
+                self._ckpt_last_begin = now
+                self._ckpt_seq += 1
+                members = sorted(self._group.members())
+                rec = {
+                    "id": self._ckpt_seq,
+                    "epoch": self._group.sync_id(),
+                    "target": int(steps_done) + self._ckpt_lead,
+                    "members": members,
+                    "aux": None,  # filled below, outside the lock
+                }
+                self._ckpt_open = dict(
+                    rec, reports={}, deadline=now + self._ckpt_timeout,
+                    failed=None,
+                )
+                self._ckpt_pending = rec
+                begin = (rec, [m for m in members if m != me])
+            # Member (leader included): capture at EXACTLY the target step —
+            # past it, our params no longer name the agreed version, so the
+            # honest move is to fail the epoch fast, not snapshot drift.
+            p = self._ckpt_pending
+            if p is not None:
+                if p["epoch"] != self._group.sync_id():
+                    self._ckpt_pending = None  # torn by membership change
+                elif int(steps_done) >= p["target"]:
+                    self._ckpt_pending = None
+                    if int(steps_done) == p["target"] and me in p["members"]:
+                        capture = dict(
+                            p,
+                            rank=p["members"].index(me),
+                            world=len(p["members"]),
+                            params=self._params,
+                            buffers=self._buffers,
+                        )
+                    else:
+                        missed = dict(p, steps=int(steps_done))
+            # Leader: commit on full quorum; abort on failure/deadline/churn.
+            o = self._ckpt_open
+            if o is not None:
+                if o["epoch"] != self._group.sync_id():
+                    self._ckpt_open = None
+                    abort = ("membership epoch changed mid-checkpoint", o)
+                elif o["failed"]:
+                    self._ckpt_open = None
+                    abort = (o["failed"], o)
+                elif len(o["reports"]) == len(o["members"]):
+                    self._ckpt_open = None
+                    finish = o
+                elif now > o["deadline"]:
+                    self._ckpt_open = None
+                    abort = (
+                        f"report deadline expired with "
+                        f"{len(o['reports'])}/{len(o['members'])} shards", o,
+                    )
+        # Everything below runs OUTSIDE the lock: RPC sends and commit file
+        # I/O must not nest under state the RPC handlers need.
+        if begin is not None:
+            rec, targets = begin
+            # Host-local companion state (step counters, env totals): the
+            # leader's copy is the one true value — members fold the
+            # broadcast dict into their blobs so the digests can agree.
+            if self._ckpt_aux_fn is not None:
+                try:
+                    rec["aux"] = self._ckpt_aux_fn()
+                except Exception as e:  # noqa: BLE001 — aux is best-effort
+                    utils.log_error(
+                        "accumulator %s: checkpoint aux_fn failed: %r",
+                        self._name, e,
+                    )
+            for m in targets:
+                self._rpc.async_callback(
+                    m, "__accum_ckpt_begin",
+                    self._make_ckpt_begin_ack(m, rec["id"]),
+                    self._name, rec["epoch"], rec["id"], rec["target"],
+                    rec["members"], rec["aux"],
+                )
+        if missed is not None:
+            self._ckpt_send_report(
+                leader, missed["epoch"], missed["id"], -1,
+                {"error": f"missed step boundary {missed['target']} "
+                          f"(at {missed['steps']})"},
+            )
+        if capture is not None:
+            self._ckpt_capture(capture, state_fn, leader)
+        if abort is not None:
+            reason, o = abort
+            _M_CKPT_ABORTS.inc()
+            utils.log_error(
+                "accumulator %s: checkpoint %s at step %s aborted: %s",
+                self._name, o["id"], o["target"], reason,
+            )
+            telemetry.flight_event(
+                "checkpoint.aborted", accumulator=self._name,
+                step=o["target"], reason=str(reason),
+            )
+        if finish is not None:
+            try:
+                self._ckptr.commit_cohort(
+                    finish["target"], list(finish["reports"].values())
+                )
+            except Exception as e:  # noqa: BLE001 — a failed commit = abort
+                _M_CKPT_ABORTS.inc()
+                utils.log_error(
+                    "accumulator %s: checkpoint commit for step %s failed: "
+                    "%r", self._name, finish["target"], e,
+                )
+                telemetry.flight_event(
+                    "checkpoint.aborted", accumulator=self._name,
+                    step=finish["target"], reason=repr(e),
+                )
+
+    def _make_ckpt_begin_ack(self, member, ckpt_id):
+        def _ack(result, error):
+            if error is None and result is True:
+                return
+            # A member that cannot participate (no checkpoint dir, stale
+            # epoch, dead) fails the epoch fast instead of letting the
+            # leader wait out the report deadline.
+            with self._lock:
+                o = self._ckpt_open
+                if o is not None and o["id"] == ckpt_id and not o["failed"]:
+                    o["failed"] = (
+                        f"member {member} refused checkpoint begin: "
+                        f"{error if error is not None else result}"
+                    )
+        return _ack
+
+    def _ckpt_capture(self, rec, state_fn, leader) -> None:
+        # Called outside the lock, on the train thread: begin_capture
+        # snapshots the live tensors (params, state_fn's optimizer state)
+        # before it returns, so the next in-place apply cannot reach the
+        # capture; that handoff is the measured stall.
+        state = state_fn() if callable(state_fn) else state_fn
+        aux = rec.get("aux")
+        if isinstance(state, dict) and isinstance(aux, dict):
+            # Leader-broadcast fields are cohort-identical by construction;
+            # folding them in keeps the blob digest agreeable while still
+            # carrying host-local bookkeeping (step counts etc.).
+            state = dict(state, **aux)
+
+        def _done(report, rec=rec):
+            # Checkpointer worker thread; no accumulator lock held.  A
+            # failed capture arrives as {"error": ...} and aborts the epoch.
+            payload = (
+                report if report is not None
+                else {"error": "shard capture failed"}
+            )
+            self._ckpt_send_report(
+                leader, rec["epoch"], rec["id"], rec["rank"], payload
+            )
+
+        ok = self._ckptr.begin_capture(
+            step=rec["target"], rank=rec["rank"], world=rec["world"],
+            epoch=rec["epoch"],
+            state=(rec["params"], rec["buffers"], state),
+            on_done=_done,
+        )
+        if not ok:
+            self._ckpt_send_report(
+                leader, rec["epoch"], rec["id"], rec["rank"],
+                {"error": "capture declined: both staging slots busy"},
+            )
+
+    def _ckpt_send_report(self, leader, epoch, ckpt_id, rank, report) -> None:
+        if leader is None:
+            return
+        if leader == self._rpc.get_name():
+            self._on_ckpt_report(epoch, ckpt_id, rank, report)
+            return
+        self._rpc.async_callback(
+            leader, "__accum_ckpt_report", lambda r, e: None,
+            self._name, epoch, ckpt_id, rank, report,
+        )
+
+    def _on_ckpt_begin(self, epoch, ckpt_id, target, members, aux=None):
+        """Member handler for the leader's checkpoint-epoch broadcast.
+        Returns True when armed; a string reason otherwise (the leader's
+        ack callback turns a refusal into a fast abort)."""
+        with self._lock:
+            if epoch != self._group.sync_id():
+                return "stale membership epoch"
+            if self._ckptr is None:
+                return "no distributed checkpointer configured"
+            self._ckpt_pending = {
+                "id": ckpt_id, "epoch": epoch, "target": int(target),
+                "members": list(members), "aux": aux,
+            }
+        return True
+
+    def _on_ckpt_report(self, epoch, ckpt_id, rank, report):
+        """Leader handler: one member's shard report (or failure)."""
+        with self._lock:
+            o = self._ckpt_open
+            if o is None or o["id"] != ckpt_id or o["epoch"] != epoch:
+                return False
+            if not isinstance(report, dict) or report.get("error"):
+                if not o["failed"]:
+                    o["failed"] = (
+                        report.get("error", "malformed shard report")
+                        if isinstance(report, dict)
+                        else "malformed shard report"
+                    )
+            else:
+                o["reports"][int(rank)] = report
+        return True
+
+    def _prefill_from_slice_locked(self, t, seq, total, chunk_bytes) -> None:
+        """Warm-rejoin slice serving, receiver side: when a fresh transfer
+        buffer matches a preloaded local slice (version + sha), copy every
+        chunk the slice fully covers into the buffer.  The contiguous-ack
+        protocol then jumps past them and the sender's fast-forward skips
+        their bytes entirely.  The chunk size is inferred from a non-final
+        chunk's payload (all chunks but the last are equal-sized)."""
+        sl = self._sync_slice
+        if sl is None or chunk_bytes <= 0:
+            return
+        version, sha, start, data, total_bytes = sl
+        if (t["version"], t["sha"]) != (version, sha):
+            return
+        if total > 1 and seq >= total - 1:
+            return  # the final chunk may be short: chunk size unknowable
+        if (chunk_bytes * (total - 1) >= total_bytes
+                or chunk_bytes * total < total_bytes):
+            return  # sender's chunk grid doesn't match the slice's blob
+        stop = start + len(data)
+        n = 0
+        for i in range(total):
+            a = i * chunk_bytes
+            b = total_bytes if i == total - 1 else a + chunk_bytes
+            if a >= start and b <= stop and i not in t["chunks"]:
+                t["chunks"][i] = data[a - start:b - start]
+                n += 1
+        if n:
+            _M_SLICE_PREFILL.inc(n)
+            utils.log_info(
+                "accumulator %s: prefilled %d/%d sync chunks from the local "
+                "checkpoint slice (version %s)", self._name, n, total, version,
+            )
 
     # gradients ------------------------------------------------------------
     def wants_gradients(self) -> bool:
@@ -1795,7 +2123,11 @@ class Accumulator:
             # executor must not have its queue wait counted against it.
             round_.t0 = time.monotonic()
         try:
-            summed = self._ici_allreduce(flat, round_)
+            # Marks the collective for any open timeline capture window
+            # (telemetry.timeline): host wall time in communication,
+            # classified as exposed unless compute overlaps it.
+            with telemetry.timeline.comm_span("accum.ici_allreduce"):
+                summed = self._ici_allreduce(flat, round_)
             with self._lock:
                 # Feeds the adaptive progress bound: healthy rounds this
                 # slow must not be proposed for abort.

@@ -128,18 +128,39 @@ def _record_event(device) -> "torch.cuda.Event":
     return event
 
 
-def stage(leaves: Sequence):
+def stage(leaves: Sequence, staging: Optional[dict] = None):
     """Start the D2H copy of every CUDA leaf into its own pinned host tensor
     (``copy_(..., non_blocking=True)``, legal while the kernels producing
     the leaf are still queued: the copy is ordered after them on the
     stream).  Returns ``(staged, event)``: the leaves with each CUDA one
     replaced by its (still filling) host tensor, and the one event recorded
     after the copies — wait on it before reading — or None when no leaf was
-    on the card."""
+    on the card.
+
+    With ``staging`` (a dict the caller keeps, dtype -> flat pinned
+    buffer), the host tensors are slices of those buffers, grown when the
+    leaves outgrow them and reused by the next call with the same dict: a
+    caller that stages the same tree again allocates no page-locked memory.
+    The caller must not reuse the dict before it is done with ``staged``."""
+    if staging is not None:
+        need: Dict = {}
+        for leaf in leaves:
+            if on_card(leaf):
+                need[leaf.dtype] = need.get(leaf.dtype, 0) + leaf.numel()
+        for dt, n in need.items():
+            if dt not in staging or staging[dt].numel() < n:
+                staging[dt] = _pinned_empty(n, dt)
+        offsets = dict.fromkeys(need, 0)
     staged, device, nbytes = [], None, 0
     for leaf in leaves:
         if on_card(leaf):
-            host = _pinned_empty(leaf.numel(), leaf.dtype)
+            n = leaf.numel()
+            if staging is None:
+                host = _pinned_empty(n, leaf.dtype)
+            else:
+                o = offsets[leaf.dtype]
+                host = staging[leaf.dtype][o:o + n]
+                offsets[leaf.dtype] = o + n
             host.copy_(leaf.detach().reshape(-1), non_blocking=True)
             staged.append(host.view(leaf.shape))
             device = leaf.device

@@ -314,7 +314,9 @@ class ContinuousBatchingEngine:
         with torch.no_grad(), use_weight_casts(self._casts):
             packed = self._step_device()
         # The decode loop's one D2H: next-tokens and done flags together.
-        with telemetry.span("engine.decode_fetch"):
+        # host_span marks it host-blocked for any open timeline window.
+        with telemetry.span("engine.decode_fetch"), \
+                telemetry.timeline.host_span("engine.decode_fetch"):
             nxt, done = packed.cpu().numpy()
         emissions: Dict[int, int] = {}
         finished: List[int] = []

@@ -424,6 +424,9 @@ class EnvRunner:
 
 def _worker_main(create_env, worker_index, lo, hi, num_batches, conn, doorbells,
                  discover=False):
+    # A worker whose env runs the port's kernels loads them from the
+    # fleet's shared build directory (no-op unless MOOLIB_COMPILE_CACHE).
+    utils.init_compile_cache()
     task_queue, done_sems, seg = _attach_doorbells(doorbells, worker_index)
     runner = EnvRunner(
         create_env, worker_index, lo, hi, num_batches, conn, task_queue,

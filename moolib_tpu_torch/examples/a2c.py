@@ -84,14 +84,17 @@ def make_flags(argv=None):
                    help="deadman seconds per loop section (0 = off)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs on the CPU)")
-    p.add_argument("--compile_cache_dir", default=None, help="not yet ported (slice 7)")
+    p.add_argument("--compile_cache_dir", default=None,
+                   help="shared kernel build directory (also MOOLIB_COMPILE_CACHE)")
     return finalize_flags(p, argv)
 
 
 def train(flags, on_stats=None) -> dict:
     """Full training loop; returns final stats (for the integration test)."""
-    if flags.compile_cache_dir:
-        raise SystemExit("--compile_cache_dir: not yet ported (slice 7)")
+    from ..utils import init_compile_cache
+
+    # Before the first kernel load (no-op when neither knob is set).
+    init_compile_cache(flags.compile_cache_dir)
     device = resolve(flags.device)
     telemetry.init_from_env()  # opt-in exporters (docs/TELEMETRY.md)
     from ..testing import faults as _faults
@@ -226,7 +229,8 @@ def train(flags, on_stats=None) -> dict:
 
             # --- learn ---------------------------------------------------
             if accumulator.has_gradients():
-                with timer.section("apply"), wd.section("apply"):
+                with timer.section("apply"), wd.section("apply"), \
+                        telemetry.devmon.dispatch_span("a2c.opt_apply"):
                     grads = accumulator.gradients()
                     for k, p in named.items():
                         p.grad = grads[k]
@@ -235,7 +239,8 @@ def train(flags, on_stats=None) -> dict:
                     accumulator.zero_gradients()
                 stats["sgd_steps"] += 1
             elif len(steps_collected) >= T + 1 and accumulator.wants_gradients():
-                with timer.section("learn"), wd.section("learn"):
+                with timer.section("learn"), wd.section("learn"), \
+                        telemetry.devmon.dispatch_span("a2c.grad"):
                     batch = {
                         k: torch.stack([s[k] for s in steps_collected])
                         for k in steps_collected[0]

@@ -28,13 +28,32 @@ Accumulator's Rpc (as the flax tree of numpy leaves, ``models.convert.
 to_flax``): serving replicas of either package subscribed to this peer
 hot-swap to them.
 
-Mesh and ring parallelism, MoE, pipeline stages, checkpoints and the
-autoscaler come with later slices; their flags exit with a message.
+Durability and the fleet (docs/RESILIENCE.md):
+
+- ``--checkpoint_dir D``: a ``checkpoint.Checkpointer`` under ``D`` holding
+  ``{"params": model.state_dict(), "opt_state": opt.state_dict(),
+  "steps"}``.  A start restores the newest intact checkpoint onto the
+  model's device and continues from its step count; the single-device
+  loop (and the leader of an elastic cohort) saves every
+  ``--checkpoint_interval`` seconds and once more when the loop ends.  An
+  elastic peer that restored advertises the step as its model version,
+  so leader election prefers it.
+- ``--compile_cache_dir`` (or ``MOOLIB_COMPILE_CACHE``): the shared kernel
+  build directory (``utils.compile_cache``).
+- ``--autoscale`` (broker-hosting peer): supervise ``--autoscale_min`` ..
+  ``--autoscale_max`` worker processes of this example from their
+  telemetry (``autoscaler``); ``--localdir``: the directory whose
+  decommission flag drains this peer and leaves the cohort.
+
+Mesh and ring parallelism, MoE, pipeline stages and the sharded gradient
+plane (and with it the distributed checkpoint of ``--checkpoint_dir
+--shard_grads``) come with later slices; their flags exit with a message.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -42,6 +61,7 @@ import torch
 
 from .. import telemetry
 from .._device import resolve
+from ..checkpoint import Checkpointer
 from ..models.transformer import REMAT_POLICIES, TransformerLM
 from ..utils.profiling import StepTimer
 from ..watchdog import Watchdog
@@ -99,14 +119,32 @@ def make_flags(argv=None):
                    "while the cohort has fewer members (a peer that seeded the "
                    "model and AdamW state waits for the peers that sync it)")
     # Flags of the JAX example whose planes are not ported yet.
-    for flag in ("localdir", "checkpoint_dir", "compile_cache_dir"):
-        p.add_argument(f"--{flag}", default=None, help="not yet ported")
-    for flag in ("shard_grads", "overlap_grads", "autoscale"):
-        p.add_argument(f"--{flag}", action="store_true", help="not yet ported")
-    p.add_argument("--autoscale_min", type=int, default=1)
-    p.add_argument("--autoscale_max", type=int, default=4)
-    p.add_argument("--autoscale_interval", type=float, default=2.0)
-    p.add_argument("--checkpoint_interval", type=float, default=30.0)
+    for flag in ("shard_grads", "overlap_grads"):
+        p.add_argument(f"--{flag}", action="store_true", help="not yet ported (slice 9)")
+    p.add_argument("--localdir", default=None,
+                   help="per-peer scratch dir: the autoscaler's decommission "
+                   "flag is polled here (and MOOLIB_TELEMETRY_DIR usually "
+                   "points at it)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="broker-hosting peer only: supervise an elastic lm "
+                   "worker fleet from the workers' telemetry snapshots "
+                   "(moolib_tpu_torch.autoscaler; this peer is not counted)")
+    p.add_argument("--autoscale_min", type=int, default=1,
+                   help="minimum supervised workers under --autoscale")
+    p.add_argument("--autoscale_max", type=int, default=4,
+                   help="maximum supervised workers under --autoscale")
+    p.add_argument("--autoscale_interval", type=float, default=2.0,
+                   help="supervision poll cadence seconds under --autoscale")
+    p.add_argument("--checkpoint_dir", default=None,
+                   help="Checkpointer directory (manifest-validated step_<N>/ "
+                   "dirs); the run resumes from the newest intact checkpoint "
+                   "on restart")
+    p.add_argument("--checkpoint_interval", type=float, default=30.0,
+                   help="seconds between checkpoint saves (leader-only in "
+                   "elastic runs)")
+    p.add_argument("--compile_cache_dir", default=None,
+                   help="shared kernel build directory (also "
+                   "MOOLIB_COMPILE_CACHE): restarts load the kernels built there")
     p.add_argument("--publish_every", type=int, default=0,
                    help="elastic: the leader publishes its weights as a new model "
                    "version every N optimizer steps (0 = off); serving replicas "
@@ -128,12 +166,9 @@ def _unported(flags) -> list:
     if flags.overlap_grads:
         found.append(("--overlap_grads", 9))
     if flags.shard_grads:
+        # With --checkpoint_dir this is the distributed checkpoint plane of
+        # the sharded rounds: slice 9 as well.
         found.append(("--shard_grads", 9))
-    if flags.autoscale:
-        found.append(("--autoscale", 7))
-    for name in ("checkpoint_dir", "compile_cache_dir"):
-        if flags.get(name):
-            found.append((f"--{name}", 7))
     return found
 
 
@@ -152,6 +187,42 @@ def make_optimizer(params, learning_rate: float) -> torch.optim.Optimizer:
     own default decay is 1e-2; the update math is otherwise the same."""
     return torch.optim.AdamW(list(params), lr=learning_rate, betas=(0.9, 0.999),
                              eps=1e-8, weight_decay=1e-4)
+
+
+def make_model(flags, device) -> TransformerLM:
+    """The run's TransformerLM, its weights made from ``--seed``."""
+    return TransformerLM(
+        vocab_size=flags.vocab,
+        d_model=flags.d_model,
+        num_layers=flags.layers,
+        num_heads=flags.heads,
+        max_len=flags.seq_len,
+        attention=flags.attention,
+        pos_embedding=flags.pos,
+        remat=flags.remat,
+        remat_policy=flags.remat_policy,
+        num_kv_heads=flags.kv_heads or None,
+        device=device,
+        generator=torch.Generator().manual_seed(flags.seed),
+    )
+
+
+def checkpoint_state(model, opt, steps: int) -> dict:
+    """The state ``--checkpoint_dir`` saves (``Checkpointer.save`` copies
+    its tensors to the CPU)."""
+    return {"params": model.state_dict(), "opt_state": opt.state_dict(), "steps": int(steps)}
+
+
+def resume(ckpt: Checkpointer, model, opt, device) -> int:
+    """Restore the newest intact checkpoint into ``model`` and ``opt`` (its
+    tensors land on ``device``); returns its step count, 0 when there is
+    none."""
+    st = ckpt.restore(map_location=device)
+    if st is None:
+        return 0
+    model.load_state_dict(st["params"])
+    _load_adamw_state(opt, st["opt_state"])
+    return int(st["steps"])
 
 
 def copy_task_loss(logits, tokens, half: int):
@@ -180,23 +251,17 @@ def train(flags, on_stats=None) -> dict:
                          "pass --address, --connect or --broker_addrs")
     if flags.seq_len % 2:
         raise ValueError("--seq_len must be even")
+    from ..utils import init_compile_cache
+
+    # Before the first kernel load: a restart loads the kernels its fleet
+    # built (--compile_cache_dir / MOOLIB_COMPILE_CACHE; no-op when unset).
+    init_compile_cache(flags.compile_cache_dir)
     device = resolve(flags.device)
     telemetry.init_from_env()  # opt-in exporters (docs/TELEMETRY.md)
+    # kill -USR2 toggles an on-demand torch.profiler window.
+    telemetry.profiling.install_signal_toggle()
 
-    model = TransformerLM(
-        vocab_size=flags.vocab,
-        d_model=flags.d_model,
-        num_layers=flags.layers,
-        num_heads=flags.heads,
-        max_len=flags.seq_len,
-        attention=flags.attention,
-        pos_embedding=flags.pos,
-        remat=flags.remat,
-        remat_policy=flags.remat_policy,
-        num_kv_heads=flags.kv_heads or None,
-        device=device,
-        generator=torch.Generator().manual_seed(flags.seed),
-    )
+    model = make_model(flags, device)
     rng = np.random.default_rng(flags.seed)
     tokens0 = torch.from_numpy(make_batch(rng, flags)).to(device)
     opt = make_optimizer(model.parameters(), flags.learning_rate)
@@ -209,9 +274,35 @@ def train(flags, on_stats=None) -> dict:
         return loss.detach(), acc
 
     def step(tokens):
-        loss, acc = fwd_bwd(tokens)
-        opt.step()
+        with telemetry.devmon.dispatch_span("lm.step"):
+            loss, acc = fwd_bwd(tokens)
+            opt.step()
         return loss, acc
+
+    # Durable state: manifest-validated checkpoints; resume picks the
+    # newest INTACT one (corruption costs one interval).  Not restored: the
+    # numpy data rng — the resumed stream replays from the seed, immaterial
+    # for this synthetic i.i.d. copy task.
+    ckpt = None
+    start_step = 0
+    ckpt_info = {"restored_step": None, "restore_s": None, "saves": 0,
+                 "save_s": None, "bytes": None}
+    if flags.checkpoint_dir:
+        ckpt = Checkpointer(flags.checkpoint_dir)
+        t0 = time.perf_counter()
+        start_step = resume(ckpt, model, opt, device)
+        if start_step:
+            ckpt_info["restored_step"] = start_step
+            ckpt_info["restore_s"] = time.perf_counter() - t0
+            if not flags.quiet:
+                print(f"resumed from checkpoint step {start_step}", flush=True)
+
+    def save_checkpoint(steps):
+        t0 = time.perf_counter()
+        path = ckpt.save(steps, checkpoint_state(model, opt, steps))
+        ckpt_info["save_s"] = time.perf_counter() - t0
+        ckpt_info["saves"] += 1
+        ckpt_info["bytes"] = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
     # Outside the clock: the warm-up pass builds the kernels on first use
     # and warms the GEMM heuristics; its gradients are dropped and the
@@ -226,15 +317,18 @@ def train(flags, on_stats=None) -> dict:
 
     if flags.address or flags.connect or flags.broker_addrs:
         return _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
-                              on_stats=on_stats)
+                              on_stats=on_stats, start_step=start_step,
+                              save_checkpoint=save_checkpoint if ckpt else None,
+                              ckpt_info=ckpt_info)
 
     start = time.time()
+    last_ckpt = start
     loss = acc = None
-    steps_done = 0
+    steps_done = start_step
     timer = StepTimer()  # registry-backed section breakdown (docs/TELEMETRY.md)
     wd = Watchdog(timeout=flags.watchdog, name="lm")
     try:
-        for i in range(flags.steps):
+        for i in range(start_step, flags.steps):
             with timer.section("make_batch"), wd.section("make_batch"):
                 tokens = torch.from_numpy(make_batch(rng, flags)).to(device)
             with timer.section("train_step"), wd.section("train_step"):
@@ -250,12 +344,25 @@ def train(flags, on_stats=None) -> dict:
                 if not flags.quiet:
                     mfu_s = (f" mfu={mfu_info['mfu']:.3%} bound={mfu_info['bound']}"
                              if mfu_info is not None else "")
-                    print(f"step={steps_done} loss={loss_v:.4f} acc={acc_v:.3f}{mfu_s}",
+                    # Overlap attribution from the last timeline window,
+                    # when MOOLIB_TIMELINE_INTERVAL enabled the plane.
+                    tl = telemetry.timeline.status()
+                    tl_s = ""
+                    if tl["windows"] and tl["last_report"] is not None:
+                        tl_s = (f" exposed_comm="
+                                f"{tl['last_report']['exposed_comm_seconds']:.4f}s")
+                    print(f"step={steps_done} loss={loss_v:.4f} acc={acc_v:.3f}{mfu_s}{tl_s}",
                           flush=True)
                 if on_stats is not None:
                     on_stats({"step": steps_done, "loss": loss_v, "acc": acc_v})
+            if ckpt is not None and time.time() - last_ckpt > flags.checkpoint_interval:
+                last_ckpt = time.time()
+                save_checkpoint(steps_done)
     finally:
         wd.close()
+        # A watchdog expiry / interrupt still leaves a resumable checkpoint.
+        if ckpt is not None and steps_done > start_step:
+            save_checkpoint(steps_done)
         telemetry.flush()  # final JSONL snapshot + host trace, if enabled
     loss_v = None if loss is None else float(loss)  # waits for the last step
     acc_v = None if acc is None else float(acc)
@@ -270,10 +377,13 @@ def train(flags, on_stats=None) -> dict:
             mfu_v = fin["mfu"]
     return {
         "steps": steps_done,
+        "start_step": start_step,
         "loss": loss_v,
         "acc": acc_v,
         "mfu": mfu_v,
-        "tokens_per_s": steps_done * flags.batch_size * flags.seq_len / max(elapsed, 1e-6),
+        "tokens_per_s": (steps_done - start_step) * flags.batch_size * flags.seq_len
+        / max(elapsed, 1e-6),
+        "checkpoint": ckpt_info,
     }
 
 
@@ -288,7 +398,8 @@ def _load_adamw_state(opt, state) -> None:
 
 
 def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
-                   on_stats=None) -> dict:
+                   on_stats=None, start_step=0, save_checkpoint=None,
+                   ckpt_info=None) -> dict:
     """Elastic data-parallel LM training over the Accumulator cohort: the
     wants/has gradient protocol the RL agents ride (leader election, model
     sync, virtual batches, wire compression), applied unchanged to
@@ -315,9 +426,45 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
     # splits it into the failover list.
     addr = ",".join(broker_list) if broker_list else (flags.connect or flags.address)
 
+    # Elastic fleet supervision: the broker-hosting peer can autoscale lm
+    # worker subprocesses into this cohort.
+    scaler = None
+    if flags.autoscale:
+        if broker is None:
+            raise ValueError("--autoscale requires hosting the broker "
+                             "(pass --address, not --connect)")
+        from .. import autoscaler as autoscaler_mod
+
+        fleet_dir = _os.path.join(flags.localdir or ".", "fleet")
+        worker_args = [
+            "--vocab", str(flags.vocab), "--seq_len", str(flags.seq_len),
+            "--batch_size", str(flags.batch_size),
+            "--d_model", str(flags.d_model), "--layers", str(flags.layers),
+            "--heads", str(flags.heads), "--steps", str(flags.steps),
+            "--virtual_batch_size", str(flags.virtual_batch_size),
+            "--mesh", "", "--attention", flags.attention, "--quiet",
+        ]
+        if flags.device:
+            worker_args += ["--device", flags.device]
+        scaler = autoscaler_mod.Autoscaler(
+            autoscaler_mod.AutoscalePolicy(flags.autoscale_min, flags.autoscale_max),
+            autoscaler_mod.SubprocessFleet(
+                autoscaler_mod.example_spawn(
+                    addr, fleet_dir, "moolib_tpu_torch.examples.lm", worker_args),
+                fleet_dir,
+            ),
+            poll_interval=flags.autoscale_interval,
+        )
+    from ..autoscaler import decommission_requested
+
+    decommissioning = False
+
     named = dict(model.named_parameters())
     acc = Accumulator("lm", named)
     acc.set_name(flags.local_name or f"lm_{_os.getpid()}")
+    if start_step:
+        # Leader election prefers the restored peer.
+        acc.set_model_version(start_step)
     acc.listen()
     if flags.virtual_batch_size:
         acc.set_virtual_batch_size(flags.virtual_batch_size)
@@ -337,10 +484,11 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
         publisher = ModelPublisher(acc.rpc, name=flags.publish_channel)
         acc.add_model_version_callback(lambda v: announced_version.__setitem__(0, v))
 
-    steps_done = 0
+    steps_done = start_step
     applied = 0
     loss_v = acc_v = None
     start = time.time()
+    last_ckpt = start
     full_applies = []  # apply times while the cohort had --min_cohort members
     steps_counter = telemetry.get_registry().counter(
         "train_steps_total", "train-step invocations"
@@ -357,6 +505,11 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
             if broker is not None:
                 broker.update()
             acc.update()
+            if scaler is not None:
+                scaler.step()  # self-rate-limited supervision tick
+            if decommission_requested(flags.localdir):
+                decommissioning = True
+                break  # drain + graceful __broker_leave in finally
             if acc.wants_state():
                 acc.set_state({"opt_state": opt.state_dict(), "steps": steps_done})
             if acc.has_new_state():
@@ -411,8 +564,13 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
                     if on_stats is not None:
                         on_stats({"step": steps_done, "loss": loss_v, "acc": acc_v,
                                   "cohort": acc.cohort_size()})
+                if (save_checkpoint is not None and acc.is_leader()
+                        and time.time() - last_ckpt > flags.checkpoint_interval):
+                    last_ckpt = time.time()
+                    save_checkpoint(steps_done)
             elif acc.wants_gradients():
-                with timer.section("learn"), wd.section("learn"):
+                with timer.section("learn"), wd.section("learn"), \
+                        telemetry.devmon.dispatch_span("lm.step"):
                     tokens = torch.from_numpy(make_batch(rng, flags)).to(device)
                     loss, a = fwd_bwd(tokens)
                     loss_v, acc_v = float(loss), float(a)
@@ -422,9 +580,11 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
                 time.sleep(0.002)
         # Leave together: a peer that applied the last result first (and may
         # host the broker) must not take that result's delivery down with it.
+        # A decommissioned peer leaves alone, mid-run.
         from .common import finish_together
 
-        finish_together(acc._group, [b for b in (broker,) if b] + [acc])
+        if not decommissioning:
+            finish_together(acc._group, [b for b in (broker,) if b] + [acc])
         import hashlib
 
         h = hashlib.sha256()
@@ -434,6 +594,15 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
                       "is_leader": acc.is_leader(), "recovery": acc.recovery_info()}
     finally:
         wd.close()
+        if save_checkpoint is not None and steps_done > start_step and acc.is_leader():
+            try:
+                save_checkpoint(steps_done)
+            except Exception as e:  # noqa: BLE001 — teardown must reach close()
+                print(f"final checkpoint failed: {e!r}", flush=True)
+        if decommissioning:
+            acc.decommission(timeout=10.0)
+        if scaler is not None:
+            scaler.fleet.terminate_all()
         info = acc.debug_info()
         if publisher is not None:
             publisher.close()
@@ -460,6 +629,9 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
         "reduces": info["rpc_reduces"] + info["ici_reduces"],
         "wire_dtype": info["wire_dtype"],
         "step_s": per_step,
+        "start_step": start_step,
+        "decommissioned": decommissioning,
+        "checkpoint": ckpt_info,
         "accumulator": info,
         **cohort_end,
     }

@@ -37,8 +37,8 @@ share a length (the queue stacks them); pad client-side for mixed lengths.
 
 Servers run on CUDA unless ``--device`` names another device.
 ``--mesh`` and ``--prefill_devices`` (tensor-parallel serving) exit "not
-yet ported (slice 9)"; ``--localdir`` (the autoscaler's decommission flag)
-exits "not yet ported (slice 7)".
+yet ported (slice 9)".  With ``--localdir`` a serving replica watches the
+autoscaler's decommission flag there and leaves when it appears.
 """
 
 from __future__ import annotations
@@ -169,6 +169,44 @@ def serve(rpc: Rpc, model: TransformerLM, max_new_tokens: int, *, name: str = "g
     return loop()
 
 
+async def _serve_until_decommissioned(loop, localdir, replica, rpc):
+    """Run the service coroutine ``loop``; with ``localdir``, a watcher
+    thread polls the autoscaler's decommission flag there and, when it
+    appears, drains the service (``replica.close()``: queued requests get
+    typed errors and the broker sees an explicit leave; a plain server
+    closes its Rpc) and ends the coroutine, so the process exits."""
+    task = asyncio.ensure_future(loop)
+    if not localdir:
+        return await task
+    import threading
+
+    from ..autoscaler import decommission_requested
+
+    aloop = asyncio.get_running_loop()
+    leaving = threading.Event()
+
+    def _watch():
+        while not task.done():
+            if decommission_requested(localdir):
+                print("decommission requested; leaving", flush=True)
+                leaving.set()
+                if replica is not None:
+                    replica.close()
+                else:
+                    rpc.close()
+                aloop.call_soon_threadsafe(task.cancel)
+                return
+            time.sleep(0.5)
+
+    threading.Thread(target=_watch, name="decommission-watch", daemon=True).start()
+    try:
+        return await task
+    except asyncio.CancelledError:
+        if not leaving.is_set():
+            raise
+        return None
+
+
 def _unported(flags) -> list:
     """(flag, slice) for every flag set to a path this slice does not port."""
     found = []
@@ -176,8 +214,6 @@ def _unported(flags) -> list:
         found.append(("--mesh", 9))
     if flags.prefill_devices:
         found.append(("--prefill_devices", 9))
-    if flags.localdir:
-        found.append(("--localdir", 7))
     return found
 
 
@@ -359,7 +395,8 @@ def main(argv=None):
                    help="add this many milliseconds to every service iteration "
                    "(a load-testing hook that makes saturation deterministic)")
     p.add_argument("--localdir", default=None,
-                   help="the autoscaler's decommission flag directory (not yet ported)")
+                   help="per-replica scratch dir: the autoscaler's decommission "
+                   "flag is polled here")
     flags = p.parse_args(argv)
     unported = _unported(flags)
     if unported:
@@ -408,7 +445,7 @@ def main(argv=None):
                 warm_seq_len=flags.seq_len,
             )
         print(f"serving 'generate' on {flags.listen} [device={device}]", flush=True)
-        asyncio.run(loop)
+        asyncio.run(_serve_until_decommissioned(loop, flags.localdir, replica, rpc))
     finally:
         if replica is not None:
             replica.close()

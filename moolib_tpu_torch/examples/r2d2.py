@@ -29,6 +29,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from .. import telemetry
 from .._device import resolve
 from ..envpool import EnvPool
 from ..envs import CartPoleEnv
@@ -224,10 +225,11 @@ def train(flags, on_stats=None) -> dict:
             if replay_warm:
                 batch_items, idxs, weights = replay.sample(flags.learn_batch)
                 batch = time_major(batch_items, weights, device)
-                opt.zero_grad()
-                loss, prio = td_loss(model, target_model, batch, flags.discounting)
-                loss.backward()
-                opt.step()
+                with telemetry.devmon.dispatch_span("r2d2.step"):
+                    opt.zero_grad()
+                    loss, prio = td_loss(model, target_model, batch, flags.discounting)
+                    loss.backward()
+                    opt.step()
                 loss = loss.detach()
                 # Priority write-back: the device store consumes the device
                 # TD errors without a host read; the others take numpy.

@@ -13,8 +13,19 @@ priority order (reference ``experiment.py:364-529``):
 
 The learner step on the card is forward + :func:`compute_loss` + backward +
 ``make_optimizer(...).step()``; ``moolib_tpu_torch.bench`` times it at the
-reference Atari shape.  Flags of planes the port does not have yet exit
-with their slice (:func:`unported`).
+reference Atari shape.
+
+Durability and the fleet: ``--checkpoint PATH`` saves the leader's
+``{"params", "opt_state", "steps", "model_version"}`` every
+``--checkpoint_interval`` seconds and on the way out, and a start resumes
+from it — a ``.pkl`` path is one ``torch.save`` file (tmp + rename), any
+other path a ``checkpoint.Checkpointer`` directory.  ``--trace_dir`` opens
+a ``torch.profiler`` window over the first 30 s of training;
+``--autoscale`` / ``--localdir`` supervise and drain worker peers
+(``autoscaler``); ``--compile_cache_dir`` shares the kernel build
+directory.  ``--checkpoint_dir`` is the distributed checkpoint plane of
+``--shard_grads`` cohorts, as in the JAX package.  Flags of planes the
+port does not have yet exit with their slice (:func:`unported`).
 
 Run: ``python -m moolib_tpu_torch.examples.vtrace.experiment --env catch``
 (``--device cpu`` without a card).
@@ -125,17 +136,33 @@ def make_flags(argv=None):
         "card written in place by the act step, uint8 single-crossing obs "
         "upload, async action fetch, learner batches assembled on the card.  "
         "--device_rollout false keeps the host-batcher path")
+    p.add_argument("--checkpoint", default=None,
+                   help="leader checkpoint: a .pkl file (one torch.save) or a "
+                   "Checkpointer directory; a start resumes from it")
+    p.add_argument("--checkpoint_interval", type=float, default=600.0)
+    p.add_argument("--checkpoint_dir", default=None,
+                   help="distributed checkpoint plane for --shard_grads cohorts "
+                   "(not yet ported: slice 9)")
+    p.add_argument("--trace_dir", default=None,
+                   help="torch.profiler window over the first 30 s of training")
+    p.add_argument("--compile_cache_dir", default=None,
+                   help="shared kernel build directory (also MOOLIB_COMPILE_CACHE)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="broker-hosting peer only: keep between --autoscale_min "
+                   "and --autoscale_max supervised workers "
+                   "(moolib_tpu_torch.autoscaler; this peer is not counted)")
+    p.add_argument("--autoscale_min", type=int, default=1,
+                   help="minimum supervised workers under --autoscale")
+    p.add_argument("--autoscale_max", type=int, default=4,
+                   help="maximum supervised workers under --autoscale")
+    p.add_argument("--autoscale_interval", type=float, default=2.0,
+                   help="supervision poll cadence seconds under --autoscale")
     # Flags of the JAX example whose planes the port has not yet, with the
     # JAX defaults; unported() names the ones set and their slice.
-    for flag, default in (("checkpoint", None), ("checkpoint_dir", None), ("mesh", None),
-                          ("trace_dir", None), ("compile_cache_dir", None)):
-        p.add_argument(f"--{flag}", default=default, help="not yet ported")
-    for flag in ("shard_grads", "overlap_grads", "autoscale"):
+    p.add_argument("--mesh", default=None, help="not yet ported")
+    for flag in ("shard_grads", "overlap_grads"):
         p.add_argument(f"--{flag}", action="store_true", help="not yet ported")
-    for flag, default in (("checkpoint_interval", 600.0), ("autoscale_interval", 2.0)):
-        p.add_argument(f"--{flag}", type=float, default=default, help="not yet ported")
-    for flag, default in (("actor_mesh", 0), ("autoscale_min", 1), ("autoscale_max", 4)):
-        p.add_argument(f"--{flag}", type=int, default=default, help="not yet ported")
+    p.add_argument("--actor_mesh", type=int, default=0, help="not yet ported")
     p.add_argument("--env_backend", default="envpool", choices=["envpool", "jax"],
                    help="envpool: host envs in worker processes; jax: on-device "
                    "envs (not yet ported)")
@@ -282,13 +309,49 @@ def unported(flags) -> list:
     yet."""
     out = []
     for flag, slice_ in (("mesh", 9), ("actor_mesh", 9), ("shard_grads", 9),
-                         ("overlap_grads", 9), ("checkpoint", 7), ("checkpoint_dir", 7),
-                         ("autoscale", 7), ("compile_cache_dir", 7), ("trace_dir", 7)):
+                         ("overlap_grads", 9)):
         if flags.get(flag):
             out.append((f"--{flag}", slice_))
     if flags.env_backend == "jax":
         out.append(("--env_backend jax", 10))
     return out
+
+
+def _use_checkpointer(path: str) -> bool:
+    """A ``.pkl`` path keeps the reference-style single file; any other
+    path is a :class:`~moolib_tpu_torch.checkpoint.Checkpointer`
+    directory (manifest-checked, retains history)."""
+    return not path.endswith(".pkl")
+
+
+def save_checkpoint(path, model, opt, steps, model_version) -> None:
+    state = {
+        "params": model.state_dict(),
+        "opt_state": opt.state,
+        "steps": steps,
+        "model_version": model_version,
+    }
+    if _use_checkpointer(path):
+        from ...checkpoint import Checkpointer
+
+        Checkpointer(path).save(int(steps), state)
+        return
+    from ...checkpoint import to_cpu
+
+    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(to_cpu(state), tmp)
+    os.replace(tmp, path)  # atomic tmp+rename like the reference (:186-204)
+
+
+def load_checkpoint(path, device):
+    """The saved state with its tensors on ``device`` (None when a
+    Checkpointer directory holds nothing intact)."""
+    if _use_checkpointer(path):
+        from ...checkpoint import Checkpointer
+
+        return Checkpointer(path).restore(map_location=device)
+    return torch.load(path, map_location=device)
 
 
 def train(flags, on_stats=None) -> dict:
@@ -302,8 +365,19 @@ def train(flags, on_stats=None) -> dict:
     missing = unported(flags)
     if missing:
         raise SystemExit("; ".join(f"{f}: not yet ported (slice {n})" for f, n in missing))
+    if flags.checkpoint_dir:
+        raise ValueError(
+            "--checkpoint_dir is the distributed checkpoint plane and "
+            "requires --shard_grads (use --checkpoint for single-host "
+            "snapshots)"
+        )
+    # Before the first kernel load (--compile_cache_dir /
+    # MOOLIB_COMPILE_CACHE; no-op when neither is set).
+    utils.init_compile_cache(flags.compile_cache_dir)
     device = resolve(flags.device)
     tele = telemetry.init_from_env()
+    # kill -USR2 toggles an on-demand torch.profiler window.
+    telemetry.profiling.install_signal_toggle()
     if tele["http_port"]:
         print(f"telemetry: http://127.0.0.1:{tele['http_port']}/metrics", flush=True)
     from ...testing import faults as _faults
@@ -349,6 +423,18 @@ def train(flags, on_stats=None) -> dict:
         loss.backward()
         return loss.detach(), aux, {k: p.grad for k, p in named.items()}
 
+    steps_done = 0
+    model_version = 0
+    if flags.checkpoint and os.path.exists(flags.checkpoint):
+        ck = load_checkpoint(flags.checkpoint, device)
+        if ck is not None:
+            model.load_state_dict(ck["params"])
+            common.copy_into(opt.state, ck["opt_state"])
+            steps_done, model_version = ck["steps"], ck["model_version"]
+            if not flags.quiet:
+                print(f"resumed from checkpoint steps={steps_done} "
+                      f"model_version={model_version}", flush=True)
+
     # --- cohort wiring ---------------------------------------------------
     broker: Optional[Broker] = None
     broker_list = [a.strip() for a in (flags.broker_addrs or "").split(",")
@@ -365,6 +451,45 @@ def train(flags, on_stats=None) -> dict:
         if standbys:
             broker.set_peer_brokers(standbys)
     connect_addrs = broker_list or [flags.connect or flags.address]
+    # Comma-joined for the autoscaler: example_spawn re-emits a multi-address
+    # plane as --broker_addrs so supervised workers inherit the failover list.
+    broker_addr = ",".join(connect_addrs)
+
+    # Elastic fleet supervision: the broker-hosting peer can run the
+    # telemetry-driven autoscaler, spawning/decommissioning worker
+    # subprocesses that join this same cohort.
+    scaler = None
+    if flags.autoscale:
+        if broker is None:
+            raise ValueError("--autoscale requires hosting the broker "
+                             "(omit --connect)")
+        from ... import autoscaler as autoscaler_mod
+
+        fleet_dir = os.path.join(flags.localdir or ".", "fleet")
+        worker_args = [
+            "--env", flags.env,
+            "--total_steps", str(flags.total_steps),
+            "--batch_size", str(flags.batch_size),
+            "--virtual_batch_size", str(flags.virtual_batch_size),
+            "--actor_batch_size", str(flags.actor_batch_size),
+            "--unroll_length", str(flags.unroll_length),
+            "--num_env_processes", str(flags.num_env_processes),
+            "--train_id", flags.train_id,
+            "--quiet",
+        ]
+        if flags.device:
+            worker_args += ["--device", flags.device]
+        scaler = autoscaler_mod.Autoscaler(
+            autoscaler_mod.AutoscalePolicy(flags.autoscale_min, flags.autoscale_max),
+            autoscaler_mod.SubprocessFleet(
+                autoscaler_mod.example_spawn(
+                    broker_addr, fleet_dir,
+                    "moolib_tpu_torch.examples.vtrace.experiment", worker_args,
+                ),
+                fleet_dir,
+            ),
+            poll_interval=flags.autoscale_interval,
+        )
 
     rpc = Rpc()
     rpc.set_name(flags.local_name or f"impala-{os.getpid()}")
@@ -376,6 +501,7 @@ def train(flags, on_stats=None) -> dict:
         rpc_group.set_brokers(connect_addrs)
     accumulator = Accumulator("model", named, buffers=None, group=rpc_group)
     accumulator.set_virtual_batch_size(flags.virtual_batch_size)
+    accumulator.set_model_version(model_version)
     if flags.ici:
         accumulator.set_ici_backend(True)
     if flags.wire_dtype == "bf16":
@@ -386,6 +512,13 @@ def train(flags, on_stats=None) -> dict:
         accumulator.set_chunked_allreduce(True)
     if flags.debug_checksums:
         accumulator.set_debug_checksums(True)
+    trace_stop_at = None
+    if flags.trace_dir:
+        # Trace the first seconds of training through the profiler slot.
+        res = telemetry.profiling.start_device_trace(flags.trace_dir)
+        if not res.get("ok"):
+            raise RuntimeError(f"--trace_dir: {res.get('error')}")
+        trace_stop_at = time.monotonic() + 30.0
 
     stats = {
         "mean_episode_return": common.StatMean(),
@@ -397,6 +530,8 @@ def train(flags, on_stats=None) -> dict:
         "pg_loss": common.StatMean(),
         "entropy_loss": common.StatMean(),
     }
+    # Resume: continue the step count from the checkpoint.
+    stats["steps_done"] += steps_done
     # Registry counter deltas piggyback on the same periodic stats reduce:
     # leader logs can show fleet-wide env/wire rates with no extra protocol.
     stats["telemetry"] = telemetry.CohortCounters()
@@ -462,13 +597,20 @@ def train(flags, on_stats=None) -> dict:
 
     last_stats = time.monotonic()
     last_log = time.monotonic()
+    last_checkpoint = time.monotonic()
     final_return = None
     start = time.time()
     sgd_times = []  # (wall time, this peer's env steps) at each applied SGD step
     sps_samples = [(start, 0.0)]
     cur = 0
-    # Graceful shutdown: SIGTERM stops the loop so the finally block runs.
+    # Graceful shutdown: SIGTERM stops the loop so the finally block runs
+    # (the leader checkpoints on the way out).
     stop_requested = False
+    # Graceful scale-down: the autoscaler drops a flag file in --localdir;
+    # the loop drains + __broker_leave's instead of waiting to be evicted.
+    from ...autoscaler import decommission_requested
+
+    decommissioning = False
 
     def _on_sigterm(signum, frame):
         nonlocal stop_requested
@@ -491,6 +633,13 @@ def train(flags, on_stats=None) -> dict:
                 broker.update()
             rpc_group.update()
             accumulator.update()
+            if scaler is not None:
+                scaler.step()  # self-rate-limited supervision tick
+            if not decommissioning and decommission_requested(flags.localdir):
+                # Drain and leave gracefully, then exit through the normal
+                # checkpoint/teardown path.
+                decommissioning = True
+                stop_requested = True
 
             if accumulator.wants_state():
                 accumulator.set_state(
@@ -511,13 +660,27 @@ def train(flags, on_stats=None) -> dict:
                 continue
 
             now = time.monotonic()
+            if trace_stop_at is not None and now > trace_stop_at:
+                trace_stop_at = None
+                res = telemetry.profiling.stop_device_trace()
+                if not flags.quiet:
+                    print(f"profiler trace written to {res.get('trace')}", flush=True)
             if now - last_stats > flags.stats_interval:
                 last_stats = now
                 _flush_learn_stats()  # one fetch; cohort sees fresh loss
                 global_stats.reduce(stats)
+            if (
+                flags.checkpoint
+                and accumulator.is_leader()
+                and now - last_checkpoint > flags.checkpoint_interval
+            ):
+                last_checkpoint = now
+                save_checkpoint(flags.checkpoint, model, opt,
+                                stats["steps_done"].value, accumulator.model_version())
 
             if accumulator.has_gradients():
-                with timer.section("apply"), wd.section("apply"):
+                with timer.section("apply"), wd.section("apply"), \
+                        telemetry.devmon.dispatch_span("vtrace.opt_apply"):
                     grads = accumulator.gradients()
                     for k, p in named.items():
                         p.grad = grads[k]
@@ -533,7 +696,8 @@ def train(flags, on_stats=None) -> dict:
                         _as_tensors(core_batcher.get(), device)
                         if core_batcher is not None else ()
                     )
-                    loss, aux, grads = learn_step(batch, initial_core)
+                    with telemetry.devmon.dispatch_span("vtrace.grad"):
+                        loss, aux, grads = learn_step(batch, initial_core)
                     pending_learn_stats.append(
                         (loss, aux["pg_loss"].detach(), aux["entropy_loss"].detach())
                     )
@@ -605,12 +769,20 @@ def train(flags, on_stats=None) -> dict:
                         if mfu_info is not None
                         else ""
                     )
+                    # Overlap attribution, when periodic timeline windows
+                    # are on (MOOLIB_TIMELINE_INTERVAL): exposed comm
+                    # seconds from the last ingested window.
+                    tl = telemetry.timeline.status()
+                    tl_s = ""
+                    if tl["windows"] and tl["last_report"] is not None:
+                        tl_s = (f" exposed_comm="
+                                f"{tl['last_report']['exposed_comm_seconds']:.4f}s")
                     print(
                         f"steps={int(stats['steps_done'].value)} sps={sps:.0f} "
                         f"return={ret if ret is None else round(ret, 2)} "
                         f"sgd={int(stats['sgd_steps'].value)} "
                         f"loss={stats['loss'].result()} "
-                        f"fleet_env_steps={int(fleet_env)}{mfu_s} "
+                        f"fleet_env_steps={int(fleet_env)}{mfu_s}{tl_s} "
                         f"[{timer.report()}]",
                         flush=True,
                     )
@@ -669,10 +841,21 @@ def train(flags, on_stats=None) -> dict:
         }
     finally:
         wd.close()
+        if trace_stop_at is not None:
+            telemetry.profiling.stop_device_trace()
         if prev_sigterm is not None:
             _signal.signal(_signal.SIGTERM, prev_sigterm)
+        if flags.checkpoint and accumulator.is_leader():
+            save_checkpoint(flags.checkpoint, model, opt,
+                            stats["steps_done"].value, accumulator.model_version())
+        if decommissioning:
+            # Drain in-flight contributions, then tell the broker we're gone
+            # so the cohort's epoch bumps now (not after the ping timeout).
+            accumulator.decommission(timeout=15.0)
         for e in envs:
             e.close()
+        if scaler is not None:
+            scaler.fleet.terminate_all()
         accumulator.close()
         rpc.close()
         if broker is not None:

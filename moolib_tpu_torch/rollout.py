@@ -114,7 +114,10 @@ class PendingAction:
     def realize(self) -> np.ndarray:
         if self._host is None:
             t0 = time.monotonic()
-            with telemetry.span("rollout.act_fetch"):
+            # host_span marks this D2H wait as host-blocked for any open
+            # timeline capture window (telemetry.timeline).
+            with telemetry.span("rollout.act_fetch"), \
+                    telemetry.timeline.host_span("rollout.act_fetch"):
                 if self._event is not None:
                     self._event.synchronize()
                 self._host = self._pinned.numpy()

@@ -8,10 +8,12 @@ watchdog expiries), :class:`CohortCounters`, which ship counter deltas
 on the agents' ``GlobalStatsAccumulator`` reduce, the device monitor
 (``devmon``: card memory, counted step FLOPs, MFU), and the cohort
 aggregator (``aggregator``: the ``__telemetry_*`` scrape endpoints every
-serving replica and Accumulator installs, :class:`CohortAggregator`).  The
-profiling and timeline planes come with a later slice;
-``recovery`` (the ``recovery_seconds{phase}`` family) came with EnvPool's
-worker supervision.
+serving replica and Accumulator installs, :class:`CohortAggregator`),
+on-demand ``torch.profiler`` windows (``profiling``: RPC- or
+signal-driven, one profiler-owner thread), the fused host+device step
+timeline (``timeline``: per-step compute / comm / host / idle shares from
+a profiler window and the devmon dispatch hook), and ``recovery`` (the
+``recovery_seconds{phase}`` family).
 
 Environment knobs (read by :func:`init_from_env`, which entry points call
 once; everything defaults to off):
@@ -26,6 +28,11 @@ once; everything defaults to off):
 - ``MOOLIB_TELEMETRY_SIGUSR1`` — ``0`` disables the dump-on-signal
   handler (installed by default when ``init_from_env`` runs on the main
   thread).
+- ``MOOLIB_TIMELINE_INTERVAL`` / ``MOOLIB_TIMELINE_WINDOW_S`` /
+  ``MOOLIB_TIMELINE_DEVICE`` — periodic timeline windows (off by default;
+  ``timeline.install_from_env``).
+- ``MOOLIB_PROFILE_DIR`` / ``MOOLIB_PROFILE_MAX_WINDOW_S`` — where
+  profiler windows write, and the ceiling on a window's life.
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ from .cohort import CohortCounters  # noqa: F401
 from .aggregator import CohortAggregator, install_rpc_handlers  # noqa: F401
 from .recovery import observe_phase  # noqa: F401
 from . import devmon  # noqa: F401,E402  (torch imported lazily inside)
+from . import profiling, timeline  # noqa: F401,E402
 
 __all__ = [
     "CohortAggregator",
@@ -152,6 +160,12 @@ def init_from_env() -> dict:
         if os.environ.get("MOOLIB_TELEMETRY_SIGUSR1", "1") != "0":
             install_signal_dump(run_dir)
         devmon.install_from_env()  # MOOLIB_DEVMON_INTERVAL memory sampler
+        try:
+            # Fused host+device step timeline: periodic overlap/exposure
+            # capture windows (MOOLIB_TIMELINE_INTERVAL; off by default).
+            timeline.install_from_env()
+        except Exception as e:  # noqa: BLE001 — same degradation contract
+            _warn(f"timeline disabled ({e!r})")
         return {"http_port": _http_port, "run_dir": run_dir}
 
 

@@ -16,9 +16,11 @@ Accumulator do this by default); the aggregating process connects an
 dying mid-scrape costs one per-peer timeout and an
 ``aggregator_scrape_errors_total`` increment — never the scrape.
 
-On-demand device profiling (``__telemetry_profile``) and the autoscaler's
-``peer_samples`` come with the fleet slice (ROADMAP slice 7): until then
-the endpoint answers with an error that says so.
+The ``__telemetry_profile`` handler makes every scrapable peer remotely
+profilable: it opens and closes an on-demand ``torch.profiler`` window
+(:mod:`moolib_tpu_torch.telemetry.profiling`), answering as the JAX
+package's handler does.  :meth:`CohortAggregator.peer_samples` turns a
+scrape into the autoscaler's ``PeerSample`` rows.
 """
 
 from __future__ import annotations
@@ -80,9 +82,9 @@ def install_rpc_handlers(
       the JSONL row shape the JAX package's autoscaler consumes.
     - ``__telemetry_trace()`` → this peer's Chrome trace dict (feed files to
       ``scripts/trace_merge.py``).
-    - ``__telemetry_profile(action, logdir=None, seconds=None)`` → an error
-      naming "not yet ported (slice 7)" until on-demand device profiling
-      is ported.
+    - ``__telemetry_profile(action, logdir=None, seconds=None)`` → on-demand
+      ``torch.profiler`` window control (``profiling.handle_command``:
+      start / stop / status / window).
 
     Returns False when the endpoints were already installed on this ``rpc``.
     """
@@ -111,10 +113,9 @@ def install_rpc_handlers(
         return tr.chrome_trace()
 
     def _profile(action: str, logdir: Optional[str] = None, seconds: Optional[float] = None):
-        raise NotImplementedError(
-            f"__telemetry_profile {action!r}: on-demand device profiling is not "
-            "yet ported (slice 7)"
-        )
+        from . import profiling
+
+        return profiling.handle_command(action, logdir=logdir, seconds=seconds)
 
     rpc.define("__telemetry_snapshot", _snapshot)
     rpc.define("__telemetry_trace", _trace)
@@ -170,6 +171,7 @@ class CohortAggregator:
         self._lock = threading.Lock()
         self._roster: Dict[str, str] = {}  # name -> role
         self._fused: Dict[str, Any] = {"time": 0.0, "peers": {}, "errors": {}}
+        self._last_steps: Dict[str, tuple] = {}  # peer -> (time, steps)
         # step_skew() state: peer -> (dispatch_sum, dispatch_count,
         # psum_sum, psum_count) from the previous call, so per-peer step
         # time reflects the window BETWEEN skew computations, not lifetime.
@@ -269,10 +271,31 @@ class CohortAggregator:
 
     # ------------------------------------------------------------ autoscaler
     def peer_samples(self) -> List[Any]:
-        """The autoscaler's ``PeerSample`` rows: the autoscaler is not yet
-        ported (slice 7)."""
-        raise NotImplementedError("CohortAggregator.peer_samples: the autoscaler is not "
-                                  "yet ported (slice 7)")
+        """The last fused scrape as :class:`moolib_tpu_torch.autoscaler.PeerSample`
+        rows, with step rates from successive scrape deltas — the RPC-pull
+        counterpart of ``SubprocessFleet.samples()``."""
+        from .. import autoscaler  # deferred: autoscaler imports telemetry
+
+        with self._lock:
+            peers = dict(self._fused["peers"])
+        out = []
+        for name, row in peers.items():
+            s = autoscaler.sample_from_snapshot(name, row)
+            if s.steps is not None:
+                prev = self._last_steps.get(name)
+                # A counter BELOW the previous reading means the peer
+                # restarted (registry counters never decrease): treat it as
+                # fresh rather than publishing a negative rate the policy
+                # would read as a stall.
+                if prev is not None and s.time > prev[0] and s.steps >= prev[1]:
+                    s.step_rate = (s.steps - prev[1]) / (s.time - prev[0])
+                self._last_steps[name] = (s.time, s.steps)
+            out.append(s)
+        # Peers that left the cohort must not pin their last reading forever
+        # (a name reused by a respawned peer would inherit a stale delta).
+        for gone in set(self._last_steps) - set(peers):
+            del self._last_steps[gone]
+        return out
 
     # ----------------------------------------------------------- cohort skew
     @staticmethod

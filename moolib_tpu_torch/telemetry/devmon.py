@@ -20,10 +20,17 @@ registry under the JAX package's metric names:
   its tensor inputs and parameters, each read once: a lower bound, not a
   measurement of traffic.
 
-The JAX package's compile observability (``instrument_jit``, the
-``jax.monitoring`` listeners) has no torch counterpart here: eager torch
-compiles nothing per signature.  Torch is imported inside the functions
-that need it, so the telemetry package stays importable from env workers.
+- **Dispatch timing** — :func:`set_dispatch_hook` installs one
+  ``(fn, t0_ns, t1_ns)`` listener; :class:`dispatch_span` around a train
+  step and :func:`instrument` around a callable feed it (free while no
+  hook is installed).  ``telemetry.timeline`` anchors its capture windows
+  onto train steps through this seam.
+
+The JAX package's compile observability (``instrument_jit``'s recompile
+detector, the ``jax.monitoring`` listeners) has no torch counterpart here:
+eager torch compiles nothing per signature.  Torch is imported inside the
+functions that need it, so the telemetry package stays importable from env
+workers.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from __future__ import annotations
 import os
 import sys
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from . import metrics
@@ -38,13 +46,16 @@ from .flightrec import flight_event
 
 __all__ = [
     "StepCost",
+    "dispatch_span",
     "install_from_env",
+    "instrument",
     "peak_bandwidth",
     "peak_flops",
     "publish_step",
     "reset_for_tests",
     "roofline",
     "sample_memory",
+    "set_dispatch_hook",
     "start",
     "step_cost",
     "stop",
@@ -110,6 +121,80 @@ _thread_stop = threading.Event()
 
 
 # ---------------------------------------------------------------------- memory
+# Optional (fn, t0_ns, t1_ns) listener for instrumented dispatches — the
+# seam telemetry.timeline uses to anchor capture windows onto train steps.
+# Module-global read (no lock) on the call path; None means untimed.
+_dispatch_hook = None
+
+
+def set_dispatch_hook(hook) -> None:
+    """Install (or clear, with None) the dispatch listener.  The hook is
+    called as ``hook(name, t0_ns, t1_ns)`` with perf_counter_ns bounds of
+    each instrumented call; it must be cheap and must not raise."""
+    global _dispatch_hook
+    _dispatch_hook = hook
+
+
+class dispatch_span:
+    """Times the body as one dispatch of ``name`` for the dispatch hook when
+    one is installed; otherwise free.  The examples wrap each train step."""
+
+    __slots__ = ("_name", "_t0")
+
+    def __init__(self, name: str):
+        self._name = name
+        self._t0 = None
+
+    def __enter__(self):
+        if _dispatch_hook is not None:
+            self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        hook = _dispatch_hook
+        if hook is not None and self._t0 is not None:
+            try:
+                hook(self._name, self._t0, time.perf_counter_ns())
+            except Exception:  # noqa: BLE001 — listener must never break the step
+                pass
+        return False
+
+
+class _Instrumented:
+    """Callable wrapper timing each call for the dispatch hook; attribute
+    access forwards to the wrapped callable."""
+
+    __slots__ = ("_fn", "_name")
+
+    def __init__(self, fn, name: str):
+        self._fn = fn
+        self._name = name
+
+    def __call__(self, *args, **kwargs):
+        hook = _dispatch_hook
+        if hook is None:
+            return self._fn(*args, **kwargs)
+        t0 = time.perf_counter_ns()
+        try:
+            return self._fn(*args, **kwargs)
+        finally:
+            try:
+                hook(self._name, t0, time.perf_counter_ns())
+            except Exception:  # noqa: BLE001 — listener must never break the step
+                pass
+
+    def __getattr__(self, item):
+        return getattr(self._fn, item)
+
+
+def instrument(fn, name: str):
+    """Wrap ``fn`` so each call is a dispatch of ``name`` (the timing half
+    of the JAX package's ``instrument_jit``; idempotent)."""
+    if isinstance(fn, _Instrumented):
+        return fn
+    return _Instrumented(fn, name)
+
+
 def _host_memory() -> Optional[Dict[str, float]]:
     """RSS + MemTotal for a process without a card."""
     try:

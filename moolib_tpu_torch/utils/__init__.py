@@ -2,7 +2,9 @@
 
 Copies of the JAX package's ``utils`` helpers the slice needs: uid
 generation, leveled logging with a Python-logging bridge, the
-worker-thread cap and the agents' stats counters (``utils.stats``).
+worker-thread cap, the agents' stats counters (``utils.stats``), the
+shared kernel build cache (``utils.compile_cache``) and the batch-size
+finder (``utils.batchsize``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional
 
 from . import nest  # noqa: F401
 from .stats import RunningMeanStd, StatMean, StatSum  # noqa: F401
+from .compile_cache import compile_cache_dir, init_compile_cache  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # uid / naming  (reference: randomName(), src/util.h — 16 hex chars)

@@ -462,22 +462,29 @@ def test_canonical_tree_and_sync_blob_match_the_jax_package():
         ref.close()
 
 
-def test_out_of_slice_planes_say_so():
+def test_out_of_slice_planes_say_so(tmp_path):
+    """The sharded and streaming rounds still raise (slice 9); the
+    distributed-checkpoint plane is ported: it attaches a checkpointer,
+    registers a restored blob as the warm-rejoin slice, and ticks as a
+    no-op on a peer outside any cohort."""
     from moolib_tpu_torch import buckets, checkpoint
 
     acc = Accumulator("t", {"w": torch.zeros(2)})
     try:
         with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9\)"):
             acc.set_sharded_allreduce(True)
-        with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 7\)"):
-            acc.enable_distributed_checkpoint(object())
+        ck = checkpoint.DistributedCheckpointer(str(tmp_path))
+        ck.last_restored = (4, "ab" * 8, b"blob")
+        acc.enable_distributed_checkpoint(ck, interval=0.0, lead_steps=1)
+        assert acc._ckptr is ck and acc._sync_slice == (4, "ab" * 8, 0, b"blob", 4)
+        acc.checkpoint_tick(state_fn=lambda: {})
+        assert acc._ckpt_open is None and ck.committed_steps() == []
         stream = buckets.GradientStream(None, [(2,)], [np.float32])
         with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9\)"):
             acc.reduce_gradients(1, stream)
     finally:
         acc.close()
-    with pytest.raises(ImportError, match=r"not yet ported \(slice 7\)"):
-        checkpoint.Checkpointer  # noqa: B018
+    assert checkpoint.Checkpointer(str(tmp_path / "single")).latest_step() is None
 
 
 def test_results_come_back_as_tensors_with_the_callers_dtypes(free_port):

@@ -418,3 +418,62 @@ def test_pool_route_replays_the_first_runs_choices():
     assert torch.equal(ga, gb)  # the same routes
     assert torch.equal(a, chip_smoke.impala_model.max_pool_same(x))
     assert b[0, 0, 0, 0] == x[0, 0, :3, :3].max()  # the first run's input, at y's value
+
+
+# ------------------------------------------------------ fleet and durability
+SMALL_LM_WIDTHS = ["--vocab", "64", "--d_model", "64", "--layers", "2", "--heads", "2"]
+SMALL_LM = dict(vocab_size=64, d_model=64, num_heads=2, num_layers=2, max_len=32)
+
+
+def test_durable_lm_phase_rehearsal(capsys):
+    """Three lm.train() runs over one --checkpoint_dir at d_model 64: save at
+    10, a bit-exact resume(), resume to 20, fall back past a truncation."""
+    res = chip_smoke.phase_durable_lm(0, device="cpu", widths=SMALL_LM_WIDTHS, batch=(4, 32))
+    assert res["bit_exact_resume"] and res["corrupt_skipped"] == 1
+    assert [r["steps"] for r in res["runs"]] == ["0->10", "10->20", "10->10"]
+    assert res["gb_written"] > 0 and all(ms > 0 for ms in res["save_ms"] + res["restore_ms"])
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "durable_lm"
+
+
+def test_dckpt_lm_phase_rehearsal(capsys, monkeypatch):
+    """Two spawned learners at d_model 64 commit a distributed checkpoint;
+    the parent restores it as a cohort of one and matches the learners'
+    parameters and probe loss."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    res = chip_smoke.phase_dckpt_lm(0, device="cpu", lm_cfg=SMALL_LM, batch=(4, 32), steps=3,
+                                    timeout=300)
+    assert res["shard_reports_one_sha"] and res["restored_params_sha_equal"]
+    assert res["probe_loss_equal"] and res["committed_step"] >= 1
+    assert res["checkpoint_stall_seconds"] and res["checkpoint_write_seconds_mean"] > 0
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "dckpt_lm"
+
+
+def test_timeline_lm_phase_rehearsal(capsys, monkeypatch, tmp_path):
+    """The timeline window over 5 steps and the loopback __telemetry_profile
+    window, on the CPU (no kernels: the trace holds CPU operators)."""
+    monkeypatch.setenv("MOOLIB_PROFILE_DIR", str(tmp_path))
+    res = chip_smoke.phase_timeline_lm(0, device="cpu", widths=SMALL_LM_WIDTHS, batch=(4, 32))
+    assert res["steps"] == 5 and res["device_slices"] > 0
+    assert sum(res["seconds"].values()) == pytest.approx(res["total_seconds"], rel=0.01)
+    assert res["rpc_window"]["trace_bytes"] > 0
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "timeline_lm"
+
+
+def test_compile_cache_phase_rehearsal(capsys, monkeypatch, tmp_path):
+    """Both children against a stand-in nvcc (there is none here): the
+    first builds every kernel source, the second loads them all from the
+    cache directory.  ctypes cannot load the stand-in's output, so the
+    children's load() is replaced by a marker."""
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    nvcc = home / "bin" / "nvcc"
+    nvcc.write_text('#!/bin/sh\nout=""\nwhile [ $# -gt 0 ]; do if [ "$1" = "-o" ]; then '
+                    'out="$2"; shift; fi; shift; done\nsleep 0.1\necho lib > "$out"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setattr(chip_smoke, "_CACHE_CHILD",
+                        chip_smoke._CACHE_CHILD.replace("_build.load(n)", "n"))
+    res = chip_smoke.phase_compile_cache(timeout=120)
+    assert all(s > 0 for s in res["first"]["nvcc_s"].values())
+    assert set(res["restart"]["nvcc_s"].values()) == {0.0}
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "compile_cache"

@@ -579,3 +579,127 @@ def test_full_width_qnet_forward_backward_on_card(card, dtype):
     assert (v_dev - v_host).abs().max().item() <= vtol * max(1.0, v_host.abs().max().item())
     scale = max(g.abs().max().item() for g in g_host.values())
     assert max((g_dev[n] - g).abs().max().item() for n, g in g_host.items()) <= gtol * scale
+
+
+# ------------------------------------------------------ fleet and durability
+def test_begin_capture_of_cuda_leaves_stalls_less_than_it_writes(card, tmp_path):
+    """begin_capture snapshots CUDA leaves into pinned memory behind one
+    event before it returns: an in-place write right after it cannot reach
+    the shard, and the caller's stall is below the background write."""
+    import hashlib
+    import pickle
+    import time
+
+    from moolib_tpu_torch import checkpoint
+
+    g = torch.Generator(device=card).manual_seed(0)
+    params = {f"w{i}": torch.randn(1 << 20, generator=g, device=card) for i in range(16)}
+    want = pickle.dumps(checkpoint.canonical_tree(
+        {k: v.cpu().numpy() for k, v in params.items()}), protocol=pickle.HIGHEST_PROTOCOL)
+    ck = checkpoint.DistributedCheckpointer(str(tmp_path))
+    done = []
+    assert ck.begin_capture(step=1, rank=0, world=1, state=params, on_done=done.append)
+    for v in params.values():
+        v.mul_(-1.0)  # the next optimizer step, in place, on the card
+    deadline = time.time() + 60
+    while not done and time.time() < deadline:
+        time.sleep(0.01)
+    assert done[0]["blob_sha256"] == hashlib.sha256(want).hexdigest()
+    st = ck.stats()
+    assert st["stall_s"] < st["write_s"]
+    ck.close()
+
+
+def test_checkpointer_round_trip_lands_on_the_callers_card(card, tmp_path):
+    from moolib_tpu_torch.checkpoint import Checkpointer
+
+    model = torch.nn.Linear(64, 64, device=card)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+    model(torch.randn(8, 64, device=card)).square().mean().backward()
+    opt.step()
+    state = {"params": model.state_dict(), "opt_state": opt.state_dict(), "steps": 1}
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, state)
+    got = ck.restore(map_location=card)
+    assert got["params"]["weight"].device.type == "cuda"
+    assert torch.equal(got["params"]["weight"], state["params"]["weight"])
+    for i, s in state["opt_state"]["state"].items():
+        assert torch.equal(got["opt_state"]["state"][i]["exp_avg"], s["exp_avg"])
+    by_target = ck.restore(target={"params": model.state_dict()})
+    assert by_target["params"]["bias"].device.type == "cuda"
+
+
+def test_profiler_window_names_a_port_kernel(card, tmp_path):
+    import json
+
+    from moolib_tpu_torch.telemetry import profiling, timeline
+
+    q, k, v = (torch.randn(2, 256, 4, 128, device=card).to(torch.bfloat16) for _ in range(3))
+    fa.flash_attention(q, k, v)  # built and warm
+    torch.cuda.synchronize()
+    res = profiling.start_device_trace(str(tmp_path))
+    assert res["ok"]
+    fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    out = profiling.stop_device_trace()
+    assert out["ok"]
+    with open(out["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "flash_fwd_wgmma_kernel" in e.get("name", "")
+               for e in events)
+    slices = timeline.load_profiler_trace(str(tmp_path))
+    assert any("flash_fwd_wgmma_kernel" in s["name"] and s["bucket"] == "compute"
+               for s in slices)
+
+
+def test_find_batch_size_on_full_width_impala_stops_before_oom(card):
+    from moolib_tpu_torch.utils.batchsize import find_batch_size
+
+    model = ImpalaNet(6, (84, 84, 4), dtype=torch.bfloat16, device=card)
+
+    def make_batch(n):
+        obs = torch.zeros((1, n, 84, 84, 4), dtype=torch.uint8, device=card)
+        return ({"state": obs, "reward": torch.zeros((1, n), device=card),
+                 "done": torch.zeros((1, n), dtype=torch.bool, device=card),
+                 "prev_action": torch.zeros((1, n), dtype=torch.int64, device=card)},)
+
+    @torch.no_grad()
+    def fwd(inputs):
+        return model(inputs, ())
+
+    # Up to 64Ki frames a call: the search runs into the card's memory and
+    # must stop there, not raise.
+    best = find_batch_size(make_batch, fwd, start=32, max_batch=1 << 16, iters=3)
+    assert 32 <= best <= 1 << 16
+    torch.cuda.empty_cache()
+
+
+def test_capture_slots_reuse_their_pinned_buffers(card, tmp_path):
+    """Captures alternate over two staging slots whose pinned buffers are
+    allocated once: later captures stage into the same memory, and each
+    capture still holds its own step's values."""
+    import hashlib
+    import pickle
+    import time
+
+    from moolib_tpu_torch import checkpoint
+
+    params = {"w": torch.zeros(1 << 20, device=card), "b": torch.zeros(7, device=card)}
+    ck = checkpoint.DistributedCheckpointer(str(tmp_path))
+    ptrs, shas = [], []
+    for step in range(1, 5):
+        for v in params.values():
+            v.fill_(float(step))
+        want = pickle.dumps(checkpoint.canonical_tree({k: v.cpu().numpy() for k, v in
+                                                       params.items()}),
+                            protocol=pickle.HIGHEST_PROTOCOL)
+        done = []
+        assert ck.begin_capture(step=step, rank=0, world=1, state=params, on_done=done.append)
+        deadline = time.time() + 60
+        while not done and time.time() < deadline:
+            time.sleep(0.005)
+        shas.append(done[0]["blob_sha256"] == hashlib.sha256(want).hexdigest())
+        ptrs.append(sorted(b[torch.float32].data_ptr() for b in ck._staging if b))
+    assert all(shas)
+    assert ptrs[1] == ptrs[2] == ptrs[3] and len(ptrs[3]) == 1  # one slot, reused
+    ck.close()

@@ -1,7 +1,7 @@
 """Smoke tests for the port's example tooling (the port of
 ``tests/test_examples_tools.py``): launcher script generation and TSV
 plotting (reference counterparts: ``examples/sbatch_experiment.py``,
-``examples/plot.py``).  ``utils.batchsize`` comes with slice 7."""
+``examples/plot.py``), and ``utils.batchsize``'s search."""
 
 import numpy as np
 
@@ -64,3 +64,41 @@ def test_plot_tsv_roundtrip(tmp_path, capsys):
     plot.main([str(path), "--xkey", "step", "--ykey", "return", "--ascii"])
     out = capsys.readouterr().out
     assert "return" in out
+
+
+def test_batch_size_finder():
+    import torch
+
+    from moolib_tpu_torch.utils.batchsize import find_batch_size
+
+    def fn(x):
+        return torch.tanh(x @ x.T).sum()
+
+    def make_batch(n):
+        return (torch.ones((n, 16)),)
+
+    best = find_batch_size(make_batch, fn, start=4, max_batch=64)
+    assert 4 <= best <= 64
+
+
+def test_batch_size_finder_stops_on_out_of_memory(monkeypatch):
+    """The search stops at the first size the card cannot hold, empties the
+    allocator's cache, and answers the best size timed before it; the first
+    call at each size is a warm-up that the timing leaves out."""
+    import torch
+
+    from moolib_tpu_torch.utils import batchsize
+
+    calls, emptied = [], []
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: emptied.append(True))
+
+    def fn(x):
+        calls.append(x.shape[0])
+        if x.shape[0] > 16:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        return x.sum()
+
+    best = batchsize.find_batch_size(lambda n: (torch.ones(n, 4),), fn, start=4,
+                                     max_batch=1024, threshold=0.0, iters=2)
+    assert best == 16 and emptied == [True]
+    assert calls == [4, 4, 4, 8, 8, 8, 16, 16, 16, 32]

@@ -63,7 +63,10 @@ def test_import_every_module_leaves_jax_out():
                 "moolib_tpu_torch.replay", "moolib_tpu_torch.replay._metrics",
                 "moolib_tpu_torch.replay.host", "moolib_tpu_torch.replay.device",
                 "moolib_tpu_torch.replay.ingest", "moolib_tpu_torch.replay.distributed",
-                "moolib_tpu_torch.models.qnet", "moolib_tpu_torch.examples.r2d2"):
+                "moolib_tpu_torch.models.qnet", "moolib_tpu_torch.examples.r2d2",
+                "moolib_tpu_torch.autoscaler", "moolib_tpu_torch.telemetry.profiling",
+                "moolib_tpu_torch.telemetry.timeline", "moolib_tpu_torch.utils.compile_cache",
+                "moolib_tpu_torch.utils.batchsize"):
         assert mod in mods, mod
     code = "import sys\n" + "".join(f"import {m}\n" for m in mods) + (
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
@@ -142,7 +145,7 @@ def test_unported_paths_say_so():
     from moolib_tpu_torch.examples import lm_serve
     from moolib_tpu_torch.models import transformer
 
-    for flags, slice_ in ((["--listen", "x", "--localdir", "x"], 7),
+    for flags, slice_ in ((["--listen", "x", "--localdir", "x", "--mesh", "tp=2"], 9),
                           (["--listen", "x", "--engine", "--prefill_devices", "1"], 9),
                           (["--listen", "x", "--mesh", "tp=2"], 9)):
         with pytest.raises(SystemExit, match=rf"not yet ported \(slice {slice_}\)"):
@@ -171,31 +174,41 @@ def test_unported_paths_say_so():
 
 
 @pytest.mark.parametrize("argv,named", [
-    (["--trace_dir", "d"], "--trace_dir: not yet ported (slice 7)"),
-    (["--compile_cache_dir", "d"], "--compile_cache_dir: not yet ported (slice 7)"),
     (["--mesh", "dp=2"], "--mesh: not yet ported (slice 9)"),
     (["--actor_mesh", "1"], "--actor_mesh: not yet ported (slice 9)"),
     (["--env_backend", "jax"], "--env_backend jax: not yet ported (slice 10)"),
     (["--overlap_grads"], "--overlap_grads: not yet ported (slice 9)"),
     (["--shard_grads"], "--shard_grads: not yet ported (slice 9)"),
-    (["--checkpoint", "ckpt_dir"], "--checkpoint: not yet ported (slice 7)"),
-    (["--device_rollout", "false", "--autoscale"], "--autoscale: not yet ported (slice 7)"),
-    (["--checkpoint", "x.pkl"], "--checkpoint: not yet ported (slice 7)"),
-    (["--checkpoint_dir", "d"], "--checkpoint_dir: not yet ported (slice 7)"),
-    (["--autoscale"], "--autoscale: not yet ported (slice 7)"),
+    # --checkpoint_dir is the distributed plane of --shard_grads cohorts.
+    (["--checkpoint_dir", "d", "--shard_grads"], "--shard_grads: not yet ported (slice 9)"),
 ])
 def test_unported_rl_paths_say_so(argv, named):
     from moolib_tpu_torch.examples.vtrace import experiment
 
     with pytest.raises(SystemExit, match=re.escape(named)):
         experiment.train(experiment.make_flags(argv))
+    if "--checkpoint_dir" in argv:
+        # Without --shard_grads it is the JAX example's ValueError.
+        with pytest.raises(ValueError, match="requires --shard_grads"):
+            experiment.train(experiment.make_flags(["--checkpoint_dir", "d"]))
 
 
-def test_unported_a2c_train_says_so():
+def test_unported_a2c_train_says_so(no_cuda, tmp_path, monkeypatch):
+    """a2c's last JAX-only flag, --compile_cache_dir, is ported: it wires the
+    shared kernel build directory before the entry point asks for the card
+    (which it then refuses without one)."""
+    from moolib_tpu_torch._device import NoCudaError
     from moolib_tpu_torch.examples import a2c
+    from moolib_tpu_torch.ops import _build
+    from moolib_tpu_torch.utils import compile_cache
 
-    with pytest.raises(SystemExit, match=re.escape("--compile_cache_dir: not yet ported (slice 7)")):
-        a2c.train(a2c.make_flags(["--compile_cache_dir", "d"]))
+    monkeypatch.setattr(compile_cache, "_initialized_dir", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(NoCudaError):
+        a2c.train(a2c.make_flags(["--compile_cache_dir", str(tmp_path / "kc")]))
+    assert compile_cache.compile_cache_dir() == str(tmp_path / "kc")
+    assert _build.BUILD_DIR == str(tmp_path / "kc")
 
 
 def test_lockgraph_installs_before_any_other_import():

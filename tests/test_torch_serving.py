@@ -784,8 +784,10 @@ def test_port_replica_answers_the_cohort_aggregator(free_port):
             assert row["name"] == "rep0" and row["role"] == "replica"
             assert "serve_requests_total" in row["metrics"]
         assert 'peer="rep0"' in fused_prometheus_text(fused["peers"])
-        with pytest.raises(Exception, match=r"not yet ported \(slice 7\)"):
-            rpcs[0].sync("rep0", "__telemetry_profile", "start")
+        # On-demand profiling answers as the JAX handler does.
+        assert rpcs[0].sync("rep0", "__telemetry_profile", "status") == {"active": False}
+        assert rpcs[0].sync("rep0", "__telemetry_profile", "stop") == {
+            "ok": False, "error": "no profile active"}
     finally:
         for rpc in rpcs:
             rpc.close()
