@@ -12,7 +12,8 @@ the R2D2 agent's replay plane and learner at the JAX package's pixel
 geometry, and then the fleet and durability plane: the LM stopped and
 resumed from checkpoints, a distributed checkpoint committed by a
 two-learner cohort and restored by one process, a profiler timeline of
-the train step, and the shared kernel build cache.
+the train step, and the shared kernel build cache; last, the zero-crossing
+actor plane: batched envs stepped on the card inside the act step.
 
     python3 chip_smoke.py [--seed N]
 
@@ -201,13 +202,30 @@ exits non-zero, and no result line is printed):
 20. compile_cache — a child process with MOOLIB_COMPILE_CACHE at a fresh
    directory builds every kernel source there (nvcc seconds > 0); a second
    child, a restarted peer, loads every library from it (seconds 0.0).
+21. anakin — the JAX package's Anakin operating point
+   (benchmarks/agent_bench.py:167-176): catch_flat, ActorCriticNet (no
+   LSTM), 256 x 2 = 512 envs on the card in one rollout, unroll 40, learner
+   batch 128, virtual batch 512.  The seeding contract's draws (fold_in,
+   split, bits, randint with a negative minval) for 4,096 keys, and
+   JaxCatch and JaxProcCatch over 512 envs for 2,000 steps under a seeded
+   action stream, on the card against the CPU: bitwise equal across every
+   auto-reset.  AnakinRollout.unroll() against step() over two unrolls,
+   bitwise.  At full width: the unroll's median ms (CUDA events), acting
+   frames/s, launches per unroll and per body step (torch.profiler), the
+   host's time to issue an unroll against the device's busy time; the
+   actor_{h2d,d2h} and batcher_{h2d,d2h} byte counters must not move, and
+   actor_stats_d2h_bytes_total must count exactly what stats() moved.
+   Then examples.vtrace.experiment.train(--env_backend jax) at that
+   configuration for the bench's 1.5M frames at learning rate 2e-2: sps,
+   SGD steps, the mean episode return, which must clear the tier-1 bar
+   (0.4), and again no byte across the boundary.
 
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
-at the training shape and its launches on every path (the r2d2 phases
-launch none: no Pallas kernel is on the R2D2 path; durable_lm, dckpt_lm
-and timeline_lm are the LM's forward and backward), and {"ok": true,
-"device": {...}}.
+at the training shape and its launches on every path (the r2d2 and anakin
+phases launch none: no Pallas kernel is on either path; durable_lm,
+dckpt_lm and timeline_lm are the LM's forward and backward), and {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -229,10 +247,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from moolib_tpu_torch import bench, buckets, telemetry
+from moolib_tpu_torch import bench, buckets, rollout, telemetry
 from moolib_tpu_torch.batcher import Batcher
 from moolib_tpu_torch.envpool import EnvPool
-from moolib_tpu_torch.envs import SyntheticAtariEnv
+from moolib_tpu_torch.envs import SyntheticAtariEnv, _threefry, jax_envs
 from moolib_tpu_torch.examples import lm, r2d2
 from moolib_tpu_torch.examples.common import (GlobalStatsAccumulator, OptaxOptimizer, adam,
                                               clip_by_global_norm)
@@ -3133,6 +3151,184 @@ def phase_compile_cache(timeout: float = 600) -> dict:
     return res
 
 
+# anakin: the JAX package's Anakin operating point
+# (benchmarks/agent_bench.py:167-176): catch_flat, ActorCriticNet, 256 x 2
+# actor envs in one rollout, unroll 40, learner batch 128, virtual batch 512.
+ANAKIN = {"actor_batch_size": 256, "num_actor_batches": 2, "batch_size": 128,
+          "virtual_batch_size": 512, "unroll_length": 40}
+ANAKIN_KEYS = 4096
+ANAKIN_ENV_STEPS = 2000
+# The learning check: the JAX bench's frame budget (agent_bench.py:177) at
+# learning rate 2e-2, held to the tier-1 bar of tests/test_torch_jax_envs.py
+# (mean episode return above 0.4).  The budget is 73 SGD steps of 20,480
+# frames each, too few to learn Catch at the default 1e-3.
+ANAKIN_FRAMES = 1_500_000
+ANAKIN_LR = 0.02
+ANAKIN_BAR = 0.4
+BOUNDARY = ("actor_h2d_bytes_total", "actor_d2h_bytes_total", "batcher_h2d_bytes_total",
+            "batcher_d2h_bytes_total")
+
+
+def _boundary() -> dict:
+    return {name: _counter(name) for name in BOUNDARY}
+
+
+def _check_no_crossing(before: dict, what: str) -> dict:
+    """The boundary counters' deltas since ``before``; raises unless all 0."""
+    deltas = {k: v - before[k] for k, v in _boundary().items()}
+    if any(deltas.values()):
+        raise AssertionError(f"anakin: {what} moved bytes across the host boundary: {deltas}")
+    return deltas
+
+
+def _threefry_holds(device, n: int, seed: int) -> list:
+    """The seeding contract's draws on the card against the port's CPU
+    draws (the tier-1 tests hold those to jax.random), bit for bit."""
+    keys = _threefry.fold_in(_threefry.seed(seed), torch.arange(n))
+    data = (torch.arange(n) * 7919) % 100_003
+    draws = {"fold_in": lambda k, d: _threefry.fold_in(k, d),
+             "split_3": lambda k, d: _threefry.split(k, 3),
+             "bits": lambda k, d: _threefry.random_bits(k),
+             "randint_0_5": lambda k, d: _threefry.randint(k, 0, 5),
+             "randint_-1_2": lambda k, d: _threefry.randint(k, -1, 2)}
+    for name, fn in draws.items():
+        want, got = fn(keys, data), fn(keys.to(device), data.to(device)).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"anakin: _threefry {name} differs on the card at "
+                                 f"{int((got != want).sum())} of {want.numel()} words")
+    return sorted(draws)
+
+
+def _env_run(env, key, actions) -> tuple:
+    """(obs, reward, done) of ``env`` stepped over ``actions`` [S, B], on
+    the actions' device, kept there until the end."""
+    S, B = actions.shape
+    dev = actions.device
+    state = jax_envs.batch_init(env, key.to(dev), B)
+    obs = torch.empty((S, B, *env.obs_spec[0]), dtype=torch.uint8, device=dev)
+    reward = torch.empty((S, B), dtype=torch.float32, device=dev)
+    done = torch.empty((S, B), dtype=torch.bool, device=dev)
+    for t in range(S):
+        state, ts = jax_envs.batch_step(env, state, actions[t])
+        obs[t], reward[t], done[t] = ts["state"], ts["reward"], ts["done"]
+    return obs, reward, done
+
+
+def _envs_hold(device, B: int, steps: int, seed: int) -> dict:
+    """JaxCatch and JaxProcCatch, B envs for ``steps`` steps under a seeded
+    action stream, on the card against the CPU: obs, reward and done
+    bitwise equal across every auto-reset."""
+    actions = torch.randint(0, 3, (steps, B), generator=torch.Generator().manual_seed(seed))
+    key = _threefry.seed(seed)
+    out = {}
+    for name in ("catch_flat", "catch_proc"):
+        env = jax_envs.make_jax_env(name)
+        t0 = time.perf_counter()
+        want = _env_run(env, key, actions)
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = _env_run(env, key, actions.to(device))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        for field, g, w in zip(("obs", "reward", "done"), got, want):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"anakin: {name} {field} differs between the card and "
+                                     f"the CPU at {int((g.cpu() != w).sum())} places")
+        out[name] = {"episodes": int(want[2].sum()), "card_ms_per_step": card_s / steps * 1e3,
+                     "cpu_ms_per_step": cpu_s / steps * 1e3}
+    return out
+
+
+def _anakin_rollout(device, B: int, T: int, seed: int):
+    model = ActorCriticNet(3, obs_size=50, use_lstm=False, device=device,
+                           generator=torch.Generator().manual_seed(seed))
+    return rollout.AnakinRollout(model, jax_envs.JaxCatch(), B, T,
+                                 env_key=_threefry.seed(seed), act_seed=seed + 1)
+
+
+def _unroll_equals_step(device, B: int, T: int, seed: int) -> None:
+    """Two whole unrolls against 2T+1 per-step calls, same seeds: bitwise."""
+    whole, stepped = _anakin_rollout(device, B, T, seed), _anakin_rollout(device, B, T, seed)
+    for i, n in enumerate((T + 1, T)):
+        got = whole.unroll()
+        for _ in range(n):
+            stepped.step()
+        want = stepped.take_unroll()
+        for k in want:
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"anakin: unroll {i} {k}: unroll() differs from step()")
+
+
+def _anakin_train(device, seed: int, cfg: dict, frames: int, lr: float, bar: float) -> dict:
+    """examples.vtrace.experiment.train(--env_backend jax) at ``cfg`` for
+    ``frames`` frames: the frames reach the learn Batcher on the card with
+    no host crossing, and the mean episode return clears ``bar``."""
+    argv = ["--env", "catch_flat", "--env_backend", "jax", "--device", str(device), "--quiet",
+            "--seed", str(seed), "--total_steps", str(frames), "--learning_rate", str(lr),
+            "--address", f"127.0.0.1:{free_port()}"]
+    for k, v in cfg.items():
+        argv += [f"--{k}", str(v)]
+    before = _boundary()
+    t0 = time.perf_counter()
+    out = experiment.train(experiment.make_flags(argv))
+    wall_s = time.perf_counter() - t0
+    crossed = _check_no_crossing(before, "experiment.train(--env_backend jax)")
+    ret = out["mean_episode_return"]
+    if ret is None or not ret > bar:
+        raise AssertionError(f"anakin: train reached a mean episode return of {ret}, not above "
+                             f"the bar {bar} ({out['sgd_steps']} SGD steps)")
+    return {"frames": out["steps"], "sps": out["sps"], "steady_sps": out["steady_sps"],
+            "sgd_steps": out["sgd_steps"], "episodes": out["episodes"],
+            "mean_episode_return": ret, "bar": bar, "learning_rate": lr, "wall_s": wall_s,
+            "boundary_bytes": crossed}
+
+
+def phase_anakin(seed: int, device="cuda", cfg=None, keys: int = ANAKIN_KEYS,
+                 env_steps: int = ANAKIN_ENV_STEPS, frames: int = ANAKIN_FRAMES,
+                 lr: float = ANAKIN_LR, bar: float = ANAKIN_BAR) -> dict:
+    """The zero-crossing actor plane at the JAX package's Anakin operating
+    point: the seeding contract and both envs on the card against the CPU,
+    unroll() against step(), the unroll's time, launches and boundary bytes
+    at full width, then the IMPALA loop on it."""
+    t0 = time.perf_counter()
+    cfg = dict(ANAKIN if cfg is None else cfg)
+    B, T = cfg["actor_batch_size"] * cfg["num_actor_batches"], cfg["unroll_length"]
+    res = {"phase": "anakin", "config": cfg, "envs": B, "unroll_length": T,
+           "threefry_equal": _threefry_holds(device, keys, seed), "threefry_keys": keys,
+           "env_steps": env_steps, "envs_equal": _envs_hold(device, B, env_steps, seed)}
+    _unroll_equals_step(device, B, T, seed)
+    res["unroll_equals_step"] = True
+
+    roll = _anakin_rollout(device, B, T, seed)
+    roll.unroll()  # the bootstrap unroll (T+1 steps); the timed ones take T
+    before = _boundary()
+    median, lo, hi = median_call_ms(roll.unroll, reps=6)
+    issue_ms = enqueue_ms(roll.unroll, reps=3)
+    prof = device_profile(roll.unroll, top=8)
+    crossed = _check_no_crossing(before, "AnakinRollout.unroll()")
+    stats_before = _counter("actor_stats_d2h_bytes_total")
+    snap = roll.stats()
+    moved = _counter("actor_stats_d2h_bytes_total") - stats_before
+    if moved != 8 * (2 * B + 3):
+        raise AssertionError(f"anakin: stats() counted {moved} bytes, moved {8 * (2 * B + 3)}")
+    if snap["episodes"] <= 0 or snap["len_sum"] != 9 * snap["episodes"]:
+        raise AssertionError(f"anakin: device episode stats {snap['episodes']} episodes, "
+                             f"{snap['len_sum']} steps (catch episodes are 9 steps)")
+    res["unroll"] = {"ms_median": median, "ms_min": lo, "ms_max": hi,
+                     "acting_frames_per_s": B * T / (median / 1e3),
+                     "launches": prof["kernel_launches"],
+                     "launches_per_body_step": prof["kernel_launches"] / T,
+                     "host_issue_ms": issue_ms, "device_busy_ms": prof["device_busy_ms"],
+                     "idle_share": prof["idle_share"],
+                     "boundary_bytes": crossed,
+                     "stats_d2h_bytes": moved, "stats_episodes": snap["episodes"]}
+    res["train"] = _anakin_train(device, seed, cfg, frames, lr, bar)
+    res["wall_s"] = time.perf_counter() - t0
+    log(res)
+    log({"phase": "anakin_profile", "window": "one unroll", **prof})
+    return res
+
+
 def make_pool() -> EnvPool:
     """The data path's EnvPool, forked before the first CUDA call."""
     return EnvPool(SyntheticAtariEnv, **POOL)
@@ -3143,7 +3339,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     pool = make_pool()
     try:
-        kern, sass, train, sl, en, rl, cl, acl, r2, fleet = _phases(pool, args.seed)
+        kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin = _phases(pool, args.seed)
     finally:
         pool.close()
     case = kern["train"]
@@ -3170,7 +3366,8 @@ def main(argv=None) -> None:
                              "cohort_lm": cl["launches"][name],
                              "accumulator_lm": sum(acl["launches"][name].values()),
                              "r2d2": r2[name],
-                             **{path: fleet[path]["launches"][name] for path in fleet}},
+                             **{path: fleet[path]["launches"][name] for path in fleet},
+                             "anakin": anakin[name]},
         "max_abs_err": kern["worst"][name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
@@ -3223,7 +3420,12 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     torch.cuda.empty_cache()
     fleet["timeline_lm"] = phase_timeline_lm(seed)
     phase_compile_cache()
-    return kern, sass, train, sl, en, rl, cl, acl, r2, fleet
+    torch.cuda.empty_cache()
+    # The anakin path: counts start at 0 here and are read right after.
+    fa.reset_launches()
+    phase_anakin(seed)
+    anakin = _counts()
+    return kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin
 
 
 if __name__ == "__main__":

@@ -30,7 +30,9 @@ and never ``jax`` or anything from ``moolib_tpu``.  What it has so far:
   two-phase virtual batch, tree/bucketed/ring rounds with bf16/int8 wires,
   chunked model sync, the ``torch.distributed`` collective plane;
   byte-compatible with the JAX package's cohorts), ``rollout``
-  (``DeviceRollout``: [T+1, B] rollout buffers on the card), and the loops
+  (``DeviceRollout``: [T+1, B] rollout buffers on the card;
+  ``AnakinRollout``: the batched envs of ``envs.jax_envs`` stepped on the
+  card inside the act step, zero host-boundary bytes per frame), and the loops
   that drive them: ``examples.vtrace.experiment.train``,
   ``examples.a2c.train`` and ``examples.lm``'s elastic path, with
   ``examples.launch`` and ``examples.plot``;

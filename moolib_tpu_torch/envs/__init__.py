@@ -7,12 +7,18 @@ throughput benchmarking, and ``atari.py``: the reference's full Atari
 preprocessing stack over any gymnasium-API env, a :class:`GymEnv` adapter
 and an ALE factory (``create_env``, which needs ale_py).
 
-Not yet ported (slice 3's actor data plane): ``jax_envs``, the JAX
-package's device-side Anakin envs; the port's counterpart will be
-torch-batched envs on the card.
+``jax_envs`` holds the on-device ("Anakin") env family, torch-batched on
+the card with the JAX package's seeding contract (``_threefry``), behind
+``make_jax_env`` and ``--env_backend jax``.
 """
 
 from .atari import AtariPreprocessing, GymEnv, create_env  # noqa: F401
 from .cartpole import CartPoleEnv  # noqa: F401
 from .catch import CatchEnv, FlatCatchEnv, FrameStack  # noqa: F401
+from .jax_envs import (  # noqa: F401
+    JaxCatch,
+    JaxEnv,
+    JaxProcCatch,
+    make_jax_env,
+)
 from .synthetic import SyntheticAtariEnv  # noqa: F401

@@ -9,7 +9,10 @@ priority order (reference ``experiment.py:364-529``):
    forward + V-trace loss + backward → ``reduce_gradients``
 5. else act: round-robin over double-buffered actor batches — EnvPool step,
    the T=1 act forward writing the [T+1, B] rollout buffer on the card
-   (``rollout.DeviceRollout``), learner batches assembled by the Batcher
+   (``rollout.DeviceRollout``), learner batches assembled by the Batcher;
+   with ``--env_backend jax``, one ``rollout.AnakinRollout`` over every
+   actor env instead: the batched env steps on the card inside the act
+   step, and a whole unroll goes to the Batcher with no host crossing
 
 The learner step on the card is forward + :func:`compute_loss` + backward +
 ``make_optimizer(...).step()``; ``moolib_tpu_torch.bench`` times it at the
@@ -48,7 +51,7 @@ from ... import Accumulator, Broker, Group, Rpc, rollout, telemetry, utils
 from ..._device import resolve
 from ...batcher import Batcher
 from ...envpool import EnvPool
-from ...envs import CartPoleEnv, CatchEnv, SyntheticAtariEnv
+from ...envs import CartPoleEnv, CatchEnv, SyntheticAtariEnv, _threefry
 from ...models.actor_critic import ActorCriticNet
 from ...models.impala import ImpalaNet
 from ...ops import vtrace
@@ -164,8 +167,9 @@ def make_flags(argv=None):
         p.add_argument(f"--{flag}", action="store_true", help="not yet ported")
     p.add_argument("--actor_mesh", type=int, default=0, help="not yet ported")
     p.add_argument("--env_backend", default="envpool", choices=["envpool", "jax"],
-                   help="envpool: host envs in worker processes; jax: on-device "
-                   "envs (not yet ported)")
+                   help="envpool: host envs in worker processes; jax: batched "
+                   "envs on the device inside the act step (envs.jax_envs: "
+                   "catch_flat | catch_proc), zero host-boundary bytes per frame")
     return common.finalize_flags(p, argv)
 
 
@@ -312,8 +316,6 @@ def unported(flags) -> list:
                          ("overlap_grads", 9)):
         if flags.get(flag):
             out.append((f"--{flag}", slice_))
-    if flags.env_backend == "jax":
-        out.append(("--env_backend jax", 10))
     return out
 
 
@@ -384,18 +386,28 @@ def train(flags, on_stats=None) -> dict:
 
     _faults.install_from_env()  # opt-in chaos (MOOLIB_FAULTS; no-op unset)
 
-    env_factory, num_actions, obs_shape = make_env_factory(flags)
-    # Fork env workers before this process touches the card or joins a
-    # process group (EnvPool forks only then; forkserver after).
-    envs = [
-        EnvPool(
-            env_factory,
-            num_processes=flags.num_env_processes,
-            batch_size=flags.actor_batch_size,
-            num_batches=1,
-        )
-        for _ in range(flags.num_actor_batches)
-    ]
+    jax_env = None
+    if flags.env_backend == "jax":
+        # Anakin: the env lives on the device; no worker processes at all.
+        from ...envs import make_jax_env
+
+        jax_env = make_jax_env(flags.env)
+        num_actions = jax_env.num_actions
+        obs_shape = tuple(jax_env.obs_spec[0])
+        envs = []
+    else:
+        env_factory, num_actions, obs_shape = make_env_factory(flags)
+        # Fork env workers before this process touches the card or joins a
+        # process group (EnvPool forks only then; forkserver after).
+        envs = [
+            EnvPool(
+                env_factory,
+                num_processes=flags.num_env_processes,
+                batch_size=flags.actor_batch_size,
+                num_batches=1,
+            )
+            for _ in range(flags.num_actor_batches)
+        ]
     if flags.coordinator:
         # Multi-process collective plane (--ici): join the process group
         # after the pools forked.
@@ -558,9 +570,26 @@ def train(flags, on_stats=None) -> dict:
         except Exception as e:  # noqa: BLE001 — gated: package absent or offline
             utils.log_error("wandb requested but unavailable: %s", e)
 
-    env_states = [common.EnvBatchState(B, T, model) for _ in range(flags.num_actor_batches)]
+    anakin = None
+    anakin_frames_seen = 0
+    anakin_prev = {"episodes": 0, "return_sum": 0.0, "len_sum": 0.0}
+    if jax_env is not None:
+        # Anakin: ONE rollout over all the envs the EnvPool configuration
+        # would spread across actor batches (double buffering hides host
+        # env latency, and there is none to hide).  The keys follow the JAX
+        # loop's chain: key(seed), split off its init key, then split
+        # (rng, env key, act key); the act key seeds the torch generator.
+        rng = _threefry.split(_threefry.seed(flags.seed), 2)[0]
+        rng, env_rng, act_key = _threefry.split(rng, 3)
+        act_words = act_key.tolist()
+        anakin = rollout.AnakinRollout(
+            model, jax_env, B * flags.num_actor_batches, T,
+            env_key=env_rng, act_seed=(act_words[0] << 32) | act_words[1],
+        )
+    env_states = [] if anakin is not None else [
+        common.EnvBatchState(B, T, model) for _ in range(flags.num_actor_batches)]
     act_gen = torch.Generator(device=device).manual_seed(flags.seed + 1)
-    if flags.device_rollout:
+    if flags.device_rollout and anakin is None:
         # Rollout buffers on the card, sized from the pool's discovered spec
         # so the env's own dtype — uint8 for frames — is what crosses.
         env_obs_shape, env_obs_dtype = envs[0].obs_spec["state"]
@@ -580,6 +609,27 @@ def train(flags, on_stats=None) -> dict:
         if flags.use_lstm
         else None
     )
+
+    def _sync_anakin_stats() -> None:
+        """Fold the device-side episode aggregates into the stats (the
+        deltas since the last snapshot): the Anakin plane's only D2H, per
+        stats/log tick, not per frame."""
+        if anakin is None:
+            return
+        snap = anakin.stats()
+        de = snap["episodes"] - anakin_prev["episodes"]
+        stats["mean_episode_return"] += common.StatMean(
+            snap["return_sum"] - anakin_prev["return_sum"], de
+        )
+        stats["mean_episode_step"] += common.StatMean(
+            snap["len_sum"] - anakin_prev["len_sum"], de
+        )
+        stats["episodes_done"] += de
+        anakin_prev.update(
+            episodes=snap["episodes"],
+            return_sum=snap["return_sum"],
+            len_sum=snap["len_sum"],
+        )
 
     # Learner scalars stay on the card until the stats/log tick: one fetch
     # per tick instead of a float(loss) sync every SGD step.
@@ -668,6 +718,7 @@ def train(flags, on_stats=None) -> dict:
             if now - last_stats > flags.stats_interval:
                 last_stats = now
                 _flush_learn_stats()  # one fetch; cohort sees fresh loss
+                _sync_anakin_stats()
                 global_stats.reduce(stats)
             if (
                 flags.checkpoint
@@ -688,7 +739,8 @@ def train(flags, on_stats=None) -> dict:
                     accumulator.set_parameters(named)
                     accumulator.zero_gradients()
                 stats["sgd_steps"] += 1
-                sgd_times.append((time.time(), sum(e.step_count for e in env_states)))
+                sgd_times.append((time.time(), anakin.frames_done if anakin is not None
+                                  else sum(e.step_count for e in env_states)))
             elif not learn_batcher.empty() and accumulator.wants_gradients():
                 with timer.section("learn"), wd.section("learn"):
                     batch = _as_tensors(learn_batcher.get(), device)
@@ -711,6 +763,17 @@ def train(flags, on_stats=None) -> dict:
                     devmon_cost["cost"] = telemetry.devmon.step_cost(
                         "vtrace.grad", learn_step, batch, initial_core
                     )
+            elif anakin is not None:
+                # --- act: Anakin -----------------------------------------
+                # One whole [T+1, B] unroll: env, model, auto-reset and the
+                # episode accounting all run on the device.
+                with timer.section("act"), wd.section("act"):
+                    unroll = anakin.unroll()
+                learn_batcher.cat(unroll)
+                if core_batcher is not None:
+                    core_batcher.cat(anakin.completed_initial_core)
+                stats["steps_done"] += anakin.frames_done - anakin_frames_seen
+                anakin_frames_seen = anakin.frames_done
             else:
                 # --- act ------------------------------------------------
                 st = env_states[cur]
@@ -750,6 +813,7 @@ def train(flags, on_stats=None) -> dict:
             if now - last_log > flags.log_interval:
                 last_log = now
                 _flush_learn_stats()
+                _sync_anakin_stats()
                 sps = stats["steps_done"].value / max(time.time() - start, 1e-6)
                 sps_samples.append((time.time(), stats["steps_done"].value))
                 ret = stats["mean_episode_return"].result()
@@ -817,6 +881,7 @@ def train(flags, on_stats=None) -> dict:
                     "mean_episode_return", "mean_episode_step",
                 )
         _flush_learn_stats()
+        _sync_anakin_stats()
         sps_samples.append((time.time(), stats["steps_done"].value))
         if flags.total_sgd_steps:
             # Every peer stops at the same version: leave together, so the

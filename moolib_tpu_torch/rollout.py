@@ -31,14 +31,21 @@ rollout on the card instead:
 Telemetry: ``actor_h2d_bytes_total`` / ``actor_d2h_bytes_total`` /
 ``actor_frames_total`` make the one-crossing contract a measured artifact;
 ``actor_act_dispatch_seconds`` vs ``actor_act_realize_seconds`` split the
-act time into its dispatch and fetch halves.  ``AnakinRollout`` (envs on
-the card) comes with slice 10.
+act time into its dispatch and fetch halves.
+
+:class:`AnakinRollout` goes one step further: when the env itself is a
+batched tensor env on the card (``envs.jax_envs``), its step runs inside
+the act step, auto-reset included, so observation, action and reward never
+exist on the host and a rollout moves **zero host-boundary bytes per
+frame** (``actor_h2d/d2h_bytes_total`` stay untouched).  Episode stats
+accumulate on the card and leave only through :meth:`AnakinRollout.stats`,
+counted on ``actor_stats_d2h_bytes_total``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +75,11 @@ _M_DEPTH = _REG.gauge(
     "actor_act_dispatch_depth", "act steps dispatched but not yet realized"
 )
 _M_UNROLLS = _REG.counter("actor_unrolls_total", "completed [T+1, B] unrolls")
+_M_STATS_D2H = _REG.counter(
+    "actor_stats_d2h_bytes_total",
+    "device-side episode aggregates fetched by AnakinRollout.stats() (the "
+    "zero-crossing plane's only D2H)",
+)
 
 
 def count_h2d(nbytes: int) -> None:
@@ -262,3 +274,289 @@ class DeviceRollout:
         next unroll completes."""
         out, self._completed = self._completed, None
         return out
+
+
+# --------------------------------------------------------------------------
+# Anakin: the env inside the act step (zero host-boundary bytes per frame)
+# --------------------------------------------------------------------------
+
+# Backpressure for AnakinRollout's whole-unroll mode: unroll() only
+# enqueues, so a host loop with nothing else to wait on would race
+# arbitrarily far ahead of the card.  At most this many unrolls are enqueued
+# but unfinished (2: one computing, one queued); the caller waits on the
+# oldest one's event before passing it.
+_MAX_INFLIGHT = 2
+
+
+def _build_anakin_fns(env, unroll_length: int):
+    """The rollout's functions over one env configuration (the JAX
+    package's ``_build_anakin_jits``).  Eager torch compiles nothing, so
+    these are plain functions of the model and the carry; each body step
+    issues its kernels one by one (a CUDA graph of the unroll is the
+    counterpart of ``lax.scan``'s one dispatch)."""
+    T = unroll_length
+
+    def _body(model, carry, generator):
+        """One fused timestep: act on the carried observation (f32, as the
+        host path stages it), sample by Gumbel-max from the rollout's
+        generator, then step the batched env on its device, auto-reset
+        included, and fold the episode stats on the device."""
+        obs = carry["obs"]
+        inputs = {
+            "state": obs.to(torch.float32)[None],
+            "reward": carry["reward"][None],
+            "done": carry["done"][None],
+            "prev_action": carry["prev_action"][None],
+        }
+        out, new_core = model(inputs, carry["core"], sample_generator=generator)
+        action = out["action"][0]
+        row = {
+            "state": obs,
+            "reward": carry["reward"],
+            "done": carry["done"],
+            "prev_action": carry["prev_action"],
+            "action": action,
+            "policy_logits": out["policy_logits"][0],
+        }
+        env_state, ts = env.step(carry["env"], action)
+        # Episode accounting on the device: aggregates leave only through
+        # the explicit stats() snapshot, never per frame.
+        st, d = carry["stats"], ts["done"]
+        ep_return = st["ep_return"] + ts["reward"]
+        ep_len = st["ep_len"] + 1
+        stats = {
+            "ep_return": torch.where(d, 0.0, ep_return),
+            "ep_len": torch.where(d, 0, ep_len),
+            "return_sum": st["return_sum"] + torch.where(d, ep_return, 0.0).sum(),
+            "len_sum": st["len_sum"] + torch.where(d, ep_len, 0).sum(),
+            "episodes": st["episodes"] + d.sum(),
+        }
+        new_carry = {
+            "env": env_state,
+            "obs": ts["state"],
+            "reward": ts["reward"],
+            "done": ts["done"],
+            "prev_action": action,
+            "core": new_core,
+            "stats": stats,
+        }
+        return new_carry, row
+
+    def _step(model, buf, t, carry, generator):
+        carry, row = _body(model, carry, generator)
+        for k, v in row.items():
+            buf[k][t].copy_(v)
+        return carry
+
+    def _scan(model, carry, length, generator):
+        rows = []
+        for _ in range(length):
+            carry, row = _body(model, carry, generator)
+            rows.append(row)
+        return carry, rows
+
+    def _finish(model, carry, rows_head, generator):
+        """Shared tail of both unroll entry points: the last body step, so
+        the core state entering row T (row 0 of the next unroll) is
+        ``completed_initial_core`` for the learner."""
+        core_into_last = carry["core"]
+        carry, last = _body(model, carry, generator)
+        rows = rows_head + [last]
+        buf = {k: torch.stack([r[k] for r in rows]) for k in last}
+        return buf, last, carry, core_into_last
+
+    def _unroll_first(model, carry, generator):
+        # Bootstrap: rows 0..T-1 from the loop, row T from the tail step.
+        carry, rows = _scan(model, carry, T, generator)
+        return _finish(model, carry, rows, generator)
+
+    def _unroll_next(model, last_row, carry, generator):
+        # Steady state: row 0 is the carried last row of the previous
+        # unroll, rows 1..T-1 from the loop, row T from the tail step.
+        carry, rows = _scan(model, carry, T - 1, generator)
+        return _finish(model, carry, [last_row] + rows, generator)
+
+    return _step, _unroll_first, _unroll_next
+
+
+class AnakinRollout:
+    """Fully on-device rollout: the batched env and the model on one
+    device, zero crossings per frame.
+
+    Two modes over the same body (``tests/test_torch_jax_envs.py`` holds
+    them bitwise equal):
+
+    - **per-step** (:meth:`step`): the fused env+act step writes row ``t``
+      of the ``[T+1, B]`` buffer in place; ``DeviceRollout``'s bookkeeping
+      (row ``T`` becomes row 0 of a fresh buffer), with the env inside;
+    - **whole unroll** (:meth:`unroll`): ``T+1`` body steps to bootstrap,
+      then ``T`` (row 0 carried over from row ``T``), stacked into a
+      fresh ``[T+1, B]`` dict.  The host enqueues the steps without ever
+      waiting on the card.
+
+    Neither mode touches ``actor_h2d/d2h_bytes_total``.  Episode stats
+    accumulate on the device and leave only through :meth:`stats`
+    (``actor_stats_d2h_bytes_total``).  ``env_key`` is the raw key ``[2]``
+    of the env batch (env ``i`` seeded with ``fold_in(env_key, i)``);
+    ``act_seed`` seeds the rollout's sampling generator on the model's
+    device.  One instance is one mode: mixing :meth:`step` and
+    :meth:`unroll` raises.
+    """
+
+    def __init__(self, model, env, batch_size: int, unroll_length: int, *,
+                 env_key: torch.Tensor, act_seed: int):
+        from .envs import jax_envs
+
+        self.model = model
+        self.device = model.device
+        self.batch_size = batch_size
+        self.unroll_length = unroll_length
+        self.env = env
+        self.frames_done = 0
+        self._inflight: list = []
+        self._step_fn, self._unroll_first_fn, self._unroll_next_fn = \
+            _build_anakin_fns(env, unroll_length)
+        self._generator = torch.Generator(device=self.device).manual_seed(int(act_seed))
+
+        B, dev = batch_size, self.device
+        obs_shape, obs_dtype = env.obs_spec
+        obs_dtype = torch.from_numpy(np.empty(0, np.dtype(obs_dtype))).dtype
+        env_state = jax_envs.batch_init(env, env_key.to(dev), B)
+        self._carry = {
+            "env": env_state,
+            "obs": jax_envs.batch_observe(env, env_state),
+            # First reset: reward 0, done False (EnvPool's first-obs
+            # convention, so backends line up from step 0).
+            "reward": torch.zeros((B,), dtype=torch.float32, device=dev),
+            "done": torch.zeros((B,), dtype=torch.bool, device=dev),
+            "prev_action": torch.zeros((B,), dtype=torch.int64, device=dev),
+            "core": model.initial_state(B),
+            "stats": {
+                "ep_return": torch.zeros((B,), dtype=torch.float32, device=dev),
+                "ep_len": torch.zeros((B,), dtype=torch.int64, device=dev),
+                "return_sum": torch.zeros((), dtype=torch.float32, device=dev),
+                "len_sum": torch.zeros((), dtype=torch.int64, device=dev),
+                "episodes": torch.zeros((), dtype=torch.int64, device=dev),
+            },
+        }
+        self._shapes = {
+            "state": ((*obs_shape,), obs_dtype),
+            "reward": ((), torch.float32),
+            "done": ((), torch.bool),
+            "prev_action": ((), torch.int64),
+            "action": ((), torch.int64),
+            "policy_logits": ((env.num_actions,), torch.float32),
+        }
+        self._buf = self._new_buffer()
+        # Pinned landing zone of stats(): [ep_return, ep_len, return_sum,
+        # len_sum, episodes] packed as float64 (exact for these counts).
+        self._stats_host = torch.empty((2 * B + 3,), dtype=torch.float64,
+                                       pin_memory=dev.type == "cuda")
+        self._t = 0
+        self._mode: Optional[str] = None
+        self._last_row: Optional[Dict[str, torch.Tensor]] = None
+        self._initial_core = self._carry["core"]
+        self._completed: Optional[Dict[str, torch.Tensor]] = None
+        self.completed_initial_core = None
+
+    def _new_buffer(self) -> Dict[str, torch.Tensor]:
+        T1, B = self.unroll_length + 1, self.batch_size
+        return {k: torch.empty((T1, B, *shape), dtype=dtype, device=self.device)
+                for k, (shape, dtype) in self._shapes.items()}
+
+    def _claim_mode(self, mode: str) -> None:
+        if self._mode is None:
+            self._mode = mode
+        elif self._mode != mode:
+            raise RuntimeError(
+                f"AnakinRollout is in {self._mode!r} mode; one instance is "
+                "one mode (per-step and whole-unroll bookkeeping share the "
+                "env state)"
+            )
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One fused env+act step into the buffer.  Nothing to upload and
+        no action to fetch: the env that consumes the action is on the same
+        device, in the same stream."""
+        self._claim_mode("step")
+        t0 = time.monotonic()
+        core_before = self._carry["core"]
+        self._carry = self._step_fn(self.model, self._buf, self._t, self._carry,
+                                    self._generator)
+        _M_FRAMES.inc(self.batch_size)
+        self.frames_done += self.batch_size
+        if self._t == self.unroll_length:
+            # Row T written: hand the unroll over and start a fresh buffer
+            # whose row 0 is a copy of this row T.
+            self._completed = self._buf
+            self.completed_initial_core = self._initial_core
+            self._initial_core = core_before
+            self._buf = self._new_buffer()
+            for k, v in self._completed.items():
+                self._buf[k][0].copy_(v[self.unroll_length])
+            self._t = 1
+            _M_UNROLLS.inc()
+        else:
+            self._t += 1
+        _M_DISPATCH.observe(time.monotonic() - t0)
+
+    def take_unroll(self) -> Optional[Dict[str, torch.Tensor]]:
+        """Per-step mode hand-over: the completed unroll, or None."""
+        out, self._completed = self._completed, None
+        return out
+
+    @torch.no_grad()
+    def unroll(self) -> Dict[str, torch.Tensor]:
+        """One completed ``[T+1, B]`` unroll on the device.  Sets
+        ``completed_initial_core`` to the core state entering its row 0, as
+        the per-step mode does."""
+        self._claim_mode("unroll")
+        t0 = time.monotonic()
+        if self._last_row is None:
+            buf, self._last_row, self._carry, next_initial = self._unroll_first_fn(
+                self.model, self._carry, self._generator)
+            steps = self.unroll_length + 1
+        else:
+            buf, self._last_row, self._carry, next_initial = self._unroll_next_fn(
+                self.model, self._last_row, self._carry, self._generator)
+            steps = self.unroll_length
+        self.completed_initial_core = self._initial_core
+        self._initial_core = next_initial
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self._inflight.append(event)
+            while len(self._inflight) > _MAX_INFLIGHT:
+                # mtlint: allow-host-sync(backpressure: wait for the oldest enqueued unroll so the host stays within _MAX_INFLIGHT unrolls of the card)
+                self._inflight.pop(0).synchronize()
+        _M_FRAMES.inc(self.batch_size * steps)
+        self.frames_done += self.batch_size * steps
+        _M_UNROLLS.inc()
+        _M_DISPATCH.observe(time.monotonic() - t0)
+        return buf
+
+    @torch.no_grad()
+    def stats(self) -> Dict[str, Any]:
+        """Snapshot the device-side episode aggregates (cumulative): the
+        plane's only D2H, one pinned copy counted on its own counter so the
+        per-frame boundary reads a measured zero."""
+        st, B = self._carry["stats"], self.batch_size
+        packed = torch.cat([st["ep_return"].double(), st["ep_len"].double(),
+                            torch.stack([st["return_sum"].double(), st["len_sum"].double(),
+                                         st["episodes"].double()])])
+        self._stats_host.copy_(packed, non_blocking=True)
+        if self.device.type == "cuda":
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(self.device))
+            # mtlint: allow-host-sync(the documented sole D2H of the Anakin plane, counted on actor_stats_d2h_bytes_total)
+            copied.synchronize()
+        _M_STATS_D2H.inc(self._stats_host.nbytes)
+        host = self._stats_host.numpy()  # mtlint: allow-host-sync(a view of the pinned snapshot the copy above already landed)
+        return {
+            "episodes": int(host[2 * B + 2]),
+            "return_sum": float(host[2 * B]),
+            "len_sum": int(host[2 * B + 1]),
+            "ep_return": host[:B].astype(np.float32),
+            "ep_len": host[B:2 * B].astype(np.int64),
+        }

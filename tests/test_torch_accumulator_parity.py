@@ -114,6 +114,11 @@ class _Cohort:
         self.broker.set_timeout(5.0)
         self.broker.listen(self.addr)
         self.peers = []
+        # Diagnostics for the assertion messages: each peer's membership
+        # epochs (sync_id) in the order it saw them, and the longest stretch
+        # between two pump iterations (nobody pings the broker meanwhile).
+        self.epochs = {}
+        self.max_gap = 0.0
         for i, kind in enumerate(kinds):
             self.peers.append(self.join(f"peer{i}", kind, versions[i], marker=float(i + 1)))
 
@@ -133,10 +138,17 @@ class _Cohort:
 
     def pump(self, until, seconds=30):
         deadline = time.time() + seconds
+        last = time.monotonic()
         while time.time() < deadline:
+            now = time.monotonic()
+            self.max_gap = max(self.max_gap, now - last)
+            last = now
             self.broker.update()
             for a in self.peers:
                 a.update()
+                seen = self.epochs.setdefault(a._rpc.get_name(), [])
+                if not seen or seen[-1] != a._group.sync_id():
+                    seen.append(a._group.sync_id())
                 if a.wants_state():
                     nu = np.arange(3, dtype=np.float32)
                     a.set_state({"nu": torch.from_numpy(nu) if a.kind == "port" else nu,
@@ -145,6 +157,18 @@ class _Cohort:
                 return True
             time.sleep(0.005)
         return until()
+
+    def describe(self):
+        def peer(a):
+            with a._lock:
+                return (f"{a._rpc.get_name()}: has_gradients={a.has_gradients()} "
+                        f"inflight={len(a._inflight)} "
+                        f"epochs={self.epochs.get(a._rpc.get_name())}")
+
+        peers = ", ".join(peer(a) for a in self.peers)
+        # Process-wide counts (every session so far) of rounds that errored.
+        errors = {k: m.accumulator._M_ROUND_ERRORS._default().get() for k, m in PKG.items()}
+        return f"longest pump gap {self.max_gap:.2f} s; round errors {errors}; {peers}"
 
     def close(self):
         for a in self.peers:
@@ -167,6 +191,16 @@ def _configure(a, kw):
 def _canon(g):
     return [(k, np.asarray(v.numpy() if isinstance(v, torch.Tensor) else v).tobytes())
             for k, v in sorted(g.items())]
+
+
+def _settled(a):
+    """Whether peer ``a`` holds its result or has no round in flight, read
+    under its lock.  The thread that completes a round takes it off
+    ``_inflight`` and then sets ``has_gradients()``, both inside one locked
+    drain; an unlocked read can land between the two and take a peer still
+    applying its result for one with nothing pending."""
+    with a._lock:
+        return a.has_gradients() or not a._inflight
 
 
 def _session(kinds, broker_kind, versions):
@@ -195,6 +229,7 @@ def _session(kinds, broker_kind, versions):
             for a in c.peers:
                 _configure(a, kw)
             res = []
+            partial = 0  # rounds that ended with some peer holding no result
             for r, contribs in enumerate(rounds):
                 for a, (bs, g) in zip(c.peers, contribs):
                     if g is None:
@@ -203,14 +238,16 @@ def _session(kinds, broker_kind, versions):
                         if a.kind == "port":
                             g = {k: torch.from_numpy(x.copy()) for k, x in g.items()}
                         a.reduce_gradients(bs, g)
-                done = lambda: all(a.has_gradients() or not a._inflight for a in c.peers)
-                assert c.pump(done, 30), f"{name} round {r} hung"
+                done = lambda: all(_settled(a) for a in c.peers)
+                assert c.pump(done, 30), f"{name} round {r} hung; {c.describe()}"
                 if not all(a.has_gradients() for a in c.peers):
+                    partial += 1
                     continue  # a virtual batch still filling
                 res.append([(a.get_gradient_stats(), _canon(a.gradients())) for a in c.peers])
                 for a in c.peers:
                     a.zero_gradients()
-            assert res, f"{name}: no result"
+            assert res, (f"{name}: no result after {len(rounds)} round(s), "
+                         f"{partial} without every peer's result; {c.describe()}")
             out[name] = res
         return out
     finally:

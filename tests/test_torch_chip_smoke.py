@@ -477,3 +477,27 @@ def test_compile_cache_phase_rehearsal(capsys, monkeypatch, tmp_path):
     assert all(s > 0 for s in res["first"]["nvcc_s"].values())
     assert set(res["restart"]["nvcc_s"].values()) == {0.0}
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "compile_cache"
+
+
+def test_anakin_phase_rehearsal(cpu_rehearsal, capsys):
+    """The anakin phase at B 8 (4 x 2 actor envs), T 5 on the CPU: every
+    check runs (the 'card' is the CPU, so the parity checks compare the CPU
+    with itself), and a 20k-frame train() through --env_backend jax, whose
+    return is held only to be a number (the bar needs the full budget)."""
+    cfg = {"actor_batch_size": 4, "num_actor_batches": 2, "batch_size": 4,
+           "virtual_batch_size": 8, "unroll_length": 5}
+    res = chip_smoke.phase_anakin(0, device="cpu", cfg=cfg, keys=64, env_steps=30,
+                                  frames=20_000, lr=0.01, bar=-1.01)
+    assert res["envs"] == 8 and res["unroll_length"] == 5 and res["unroll_equals_step"]
+    assert res["threefry_equal"] == ["bits", "fold_in", "randint_-1_2", "randint_0_5", "split_3"]
+    assert res["envs_equal"]["catch_flat"]["episodes"] == 8 * (30 // 9)
+    unroll = res["unroll"]
+    assert unroll["stats_d2h_bytes"] == 8 * (2 * 8 + 3) and unroll["stats_episodes"] > 0
+    assert unroll["ms_median"] > 0 and unroll["acting_frames_per_s"] > 0
+    assert unroll["boundary_bytes"] == {k: 0 for k in chip_smoke.BOUNDARY}
+    train = res["train"]
+    assert train["boundary_bytes"] == {k: 0 for k in chip_smoke.BOUNDARY}
+    assert train["frames"] >= 20_000 and train["sgd_steps"] > 0 and res["wall_s"] > 0
+    assert np.isfinite(train["mean_episode_return"])
+    phases = [json.loads(ln)["phase"] for ln in capsys.readouterr().out.splitlines()]
+    assert phases == ["anakin", "anakin_profile"]

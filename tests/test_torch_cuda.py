@@ -703,3 +703,70 @@ def test_capture_slots_reuse_their_pinned_buffers(card, tmp_path):
     assert all(shas)
     assert ptrs[1] == ptrs[2] == ptrs[3] and len(ptrs[3]) == 1  # one slot, reused
     ck.close()
+
+
+def test_threefry_draws_on_card_match_cpu(card):
+    """The seeding contract's draws in int64 on the card, bit for bit the
+    CPU's (which the tier-1 tests hold to jax.random)."""
+    from moolib_tpu_torch.envs import _threefry
+
+    keys = _threefry.fold_in(_threefry.seed(7), torch.arange(4096))
+    data = torch.arange(4096) * 7919 % 100_003
+    for fn in (lambda k, d: _threefry.fold_in(k, d), lambda k, d: _threefry.split(k, 3),
+               lambda k, d: _threefry.random_bits(k), lambda k, d: _threefry.randint(k, -1, 2),
+               lambda k, d: _threefry.randint(k, -1000, 123456789)):
+        assert torch.equal(fn(keys.to(card), data.to(card)).cpu(), fn(keys, data))
+
+
+@pytest.mark.parametrize("name", ["catch_flat", "catch_proc"])
+def test_jax_envs_on_card_match_cpu(card, name):
+    """64 envs for 300 steps (33 auto-resets each) under one action stream:
+    obs, reward and done on the card equal the CPU's bit for bit."""
+    from moolib_tpu_torch.envs import _threefry, jax_envs
+
+    env = jax_envs.make_jax_env(name)
+    actions = torch.randint(0, 3, (300, 64), generator=torch.Generator().manual_seed(1))
+    states = {dev: jax_envs.batch_init(env, _threefry.seed(3).to(dev), 64)
+              for dev in ("cpu", card)}
+    for a in actions:
+        (states["cpu"], want), (states[card], got) = (
+            jax_envs.batch_step(env, states["cpu"], a),
+            jax_envs.batch_step(env, states[card], a.to(card)))
+        for k in ("state", "reward", "done"):
+            assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_anakin_rollout_on_card(card):
+    """AnakinRollout on the card: unroll() equals step() bitwise, the unroll
+    stays on the card, no boundary counter moves, and stats() moves one
+    pinned snapshot, counted."""
+    from moolib_tpu_torch import rollout, telemetry
+    from moolib_tpu_torch.envs import _threefry, jax_envs
+    from moolib_tpu_torch.models.actor_critic import ActorCriticNet
+
+    def make():
+        model = ActorCriticNet(3, obs_size=50, use_lstm=True, device=card,
+                               generator=torch.Generator().manual_seed(0))
+        return rollout.AnakinRollout(model, jax_envs.JaxProcCatch(), 32, 10,
+                                     env_key=_threefry.seed(5), act_seed=6)
+
+    def counters():
+        return dict(telemetry.get_registry().counter_values())
+
+    whole, stepped = make(), make()
+    before = counters()
+    for n in (11, 10):
+        got = whole.unroll()
+        for _ in range(n):
+            stepped.step()
+        want = stepped.take_unroll()
+        for k in want:
+            assert got[k].device.type == "cuda" and torch.equal(got[k], want[k]), k
+    after = counters()
+    for name in ("actor_h2d_bytes_total", "actor_d2h_bytes_total",
+                 "batcher_h2d_bytes_total", "batcher_d2h_bytes_total"):
+        assert after.get(name, 0.0) == before.get(name, 0.0), name
+    snap = whole.stats()
+    assert snap["episodes"] == 32 * (21 // 9) and snap["len_sum"] == 9 * snap["episodes"]
+    assert (counters()["actor_stats_d2h_bytes_total"]
+            - after.get("actor_stats_d2h_bytes_total", 0.0)) == 8 * (2 * 32 + 3)

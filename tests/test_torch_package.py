@@ -66,7 +66,10 @@ def test_import_every_module_leaves_jax_out():
                 "moolib_tpu_torch.models.qnet", "moolib_tpu_torch.examples.r2d2",
                 "moolib_tpu_torch.autoscaler", "moolib_tpu_torch.telemetry.profiling",
                 "moolib_tpu_torch.telemetry.timeline", "moolib_tpu_torch.utils.compile_cache",
-                "moolib_tpu_torch.utils.batchsize"):
+                "moolib_tpu_torch.utils.batchsize", "moolib_tpu_torch.envs.jax_envs",
+                "moolib_tpu_torch.envs._threefry", "moolib_tpu_torch.analysis",
+                "moolib_tpu_torch.analysis.core", "moolib_tpu_torch.analysis.checks",
+                "moolib_tpu_torch.analysis.cli", "moolib_tpu_torch.analysis.__main__"):
         assert mod in mods, mod
     code = "import sys\n" + "".join(f"import {m}\n" for m in mods) + (
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
@@ -176,7 +179,6 @@ def test_unported_paths_say_so():
 @pytest.mark.parametrize("argv,named", [
     (["--mesh", "dp=2"], "--mesh: not yet ported (slice 9)"),
     (["--actor_mesh", "1"], "--actor_mesh: not yet ported (slice 9)"),
-    (["--env_backend", "jax"], "--env_backend jax: not yet ported (slice 10)"),
     (["--overlap_grads"], "--overlap_grads: not yet ported (slice 9)"),
     (["--shard_grads"], "--shard_grads: not yet ported (slice 9)"),
     # --checkpoint_dir is the distributed plane of --shard_grads cohorts.
@@ -191,6 +193,22 @@ def test_unported_rl_paths_say_so(argv, named):
         # Without --shard_grads it is the JAX example's ValueError.
         with pytest.raises(ValueError, match="requires --shard_grads"):
             experiment.train(experiment.make_flags(["--checkpoint_dir", "d"]))
+
+
+def test_env_backend_jax_runs_and_actor_mesh_still_says_so(free_port):
+    """``--env_backend jax`` is ported: the Anakin loop runs on the CPU (no
+    EnvPool workers) and counts every frame; the Sebulba split on top of it
+    (``--actor_mesh``) needs ``--mesh`` and still exits with slice 9."""
+    from moolib_tpu_torch.examples.vtrace import experiment
+
+    flags = experiment.make_flags([
+        "--env", "catch_proc", "--env_backend", "jax", "--device", "cpu", "--quiet",
+        "--total_steps", "2000", "--actor_batch_size", "8", "--unroll_length", "5",
+        "--batch_size", "4", "--virtual_batch_size", "4", "--address", f"127.0.0.1:{free_port}"])
+    out = experiment.train(flags)
+    assert out["steps"] >= 2000 and out["sgd_steps"] > 0 and out["episodes"] > 0
+    with pytest.raises(SystemExit, match=re.escape("--actor_mesh: not yet ported (slice 9)")):
+        experiment.train(experiment.make_flags(["--env_backend", "jax", "--actor_mesh", "1"]))
 
 
 def test_unported_a2c_train_says_so(no_cuda, tmp_path, monkeypatch):
@@ -241,4 +259,4 @@ def test_lazy_cohort_exports():
 
     assert moolib_tpu_torch.engine is engine and moolib_tpu_torch.serving is serving
     with pytest.raises(AttributeError):
-        moolib_tpu_torch.AnakinRollout  # noqa: B018 - slice 10
+        moolib_tpu_torch.AnakinRollout  # noqa: B018 - rollout.AnakinRollout, as in JAX
