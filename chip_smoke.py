@@ -220,6 +220,19 @@ exits non-zero, and no result line is printed):
    SGD steps, the mean episode return, which must clear the tier-1 bar
    (0.4), and again no byte across the boundary.
 
+22. sharded_lm — the hierarchical learner: two elastic hosts through
+   examples.lm.train() --mesh dp=2 --shard_grads, each host 2 rank
+   processes (it spawns its second itself) sharing the card over gloo, the
+   d=1024/L=12 LM (B 4 x T 1024 a rank), host 0 one step alone, then 2
+   cohort steps; arm (a) --overlap_grads (the hook-streamed backward),
+   arm (b) the barrier step.  Checks: both hosts and every rank end with
+   the same params sha, and both arms; the joiner host ships (N-1)/N of
+   the flat payload a round (within half a bucket); every rank launches
+   each flash kernel at least 12 x its learn steps.  Prints each arm's
+   step seconds, exposed comm (step returned -> result ready) per round,
+   accum_psum_seconds and host-staged collective bytes and peak memory
+   per rank, and the phase's wall_s.
+
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
 at the training shape and its launches on every path (the r2d2 and anakin
@@ -2101,6 +2114,112 @@ def phase_accumulator_lm(seed: int, device="cuda", args=None, steps: int = ACC_L
     return res
 
 
+# -------------------------------------------------------------- sharded_lm
+# The hierarchical learner (ROADMAP slice 9a): two elastic hosts, each a
+# dp=2 mesh of rank processes sharing the one card over gloo, the LM at
+# accumulator_lm's widths and per-rank batch (B 4 x T 1024 a rank, 8 a host).
+SHARDED_LM_ARGS = ["--vocab", "32768", "--d_model", "1024", "--layers", "12", "--heads", "8",
+                   "--seq_len", "1024", "--batch_size", "8", "--attention", "flash",
+                   "--mesh", "dp=2", "--shard_grads", "--learning_rate", "1e-4"]
+SHARDED_LM_STEPS = 3  # one step of host 0 alone, then 2 of the cohort
+
+
+def _sharded_arm(seed: int, device: str, args: list, steps: int, overlap: bool,
+                 timeout: float) -> list:
+    port = free_port()
+    common = list(args) + ["--device", device, "--seed", str(seed), "--steps", str(steps),
+                           "--min_cohort", "2", "--quiet", "--log_interval", "1"]
+    if overlap:
+        common.append("--overlap_grads")
+    argvs = [common + ["--address", f"127.0.0.1:{port}", "--local_name", "host0"],
+             common + ["--connect", f"127.0.0.1:{port}", "--local_name", "host1"]]
+    return _run_cohort("lm", argvs, timeout, wait_first=True)
+
+
+def phase_sharded_lm(seed: int, device="cuda", args=None, steps: int = SHARDED_LM_STEPS,
+                     layers: int = 12, timeout: float = 400) -> dict:
+    """Two hosts x dp=2 ranks through examples.lm.train() (each host spawns
+    its second rank), arm (a) --overlap_grads, arm (b) the barrier step,
+    from the same seed.  Checks: both hosts and every rank end with equal
+    params sha, and the two arms too (two terms per sum: exact in any
+    order); the joiner host's scatter bytes per round are (N-1)/N of the
+    flat payload within half a bucket (the range cut sits on the bucket
+    grid); every rank launched each flash kernel at least layers x its
+    learn steps times."""
+    t_phase = time.perf_counter()
+    args = SHARDED_LM_ARGS if args is None else args
+    arms = {}
+    for name, overlap in (("overlap", True), ("barrier", False)):
+        reps = _sharded_arm(seed, device, args, steps, overlap, timeout)
+        if len({r["model_version"] for r in reps}) != 1:
+            raise AssertionError(f"sharded_lm {name}: versions "
+                                 f"{[r['model_version'] for r in reps]}")
+        shas = {r["params_sha256"] for r in reps}
+        shas |= {x["params_sha256"] for r in reps for x in r["ranks"]}
+        if len(shas) != 1:
+            raise AssertionError(f"sharded_lm {name}: parameters differ across hosts "
+                                 f"or ranks: {sorted(shas)}")
+        leaders = [r for r in reps if r["is_leader"]]
+        if len(leaders) != 1 or leaders[0]["rank"] != 0:
+            raise AssertionError(f"sharded_lm {name}: host 0 stepped first and must lead")
+        joiner = reps[1]
+        if joiner["recovery"]["model_sync_bytes_rx"] <= 0:
+            raise AssertionError(f"sharded_lm {name}: the joiner host received no model")
+        arms[name] = reps
+    if arms["overlap"][0]["params_sha256"] != arms["barrier"][0]["params_sha256"]:
+        raise AssertionError("sharded_lm: the overlap and barrier arms end with "
+                             "different parameters")
+    payload = 4 * arms["barrier"][0]["n_params"]  # the f32 flat payload
+    half_bucket = buckets.bucket_bytes() / 2
+    out = {"phase": "sharded_lm", "hosts": 2, "dp": 2, "steps": steps,
+           "model": "TransformerLM vocab=32768 d=1024 L=12 H=8x128 max_len 1024, learned "
+           "positions, bf16 compute, f32 parameters, flash attention" if args is SHARDED_LM_ARGS
+           else f"TransformerLM {args}",
+           "batch_per_rank": [4, 1024] if args is SHARDED_LM_ARGS else None,
+           "params_sha256_equal": True, "payload_bytes": payload, "arms": {}}
+    launches_total = {k: 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for name, reps in arms.items():
+        hosts = []
+        for r in reps:
+            info = r["accumulator"]
+            rounds = info["rpc_reduces"]
+            scatter = info["reduce_bytes"]["rpc"]
+            if r["rank"] == 0:  # its first round ran alone: a full payload, no wire
+                rounds, scatter = rounds - 1, scatter - payload
+            per_round = scatter / max(1, rounds)
+            if abs(per_round - payload / 2) > half_bucket:
+                raise AssertionError(f"sharded_lm {name}: host {r['rank']} shipped "
+                                     f"{per_round} B a round, want {payload / 2} +- {half_bucket}")
+            learns = info["rpc_reduces"]
+            for x in r["ranks"]:
+                for k, v in x["launches"].items():
+                    launches_total[k] += v
+                    if device != "cpu" and v < layers * learns:
+                        raise AssertionError(f"sharded_lm {name}: host {r['rank']} rank "
+                                             f"{x['rank']} launched {k} {v} times for "
+                                             f"{learns} learn steps")
+            exposed = r["exposed_comm_s"]
+            hosts.append({
+                "host": r["rank"], "leader": r["is_leader"], "loss": r["loss"],
+                "step_s": r["step_s"], "rounds": info["rpc_reduces"],
+                "scatter_bytes_per_round": per_round,
+                "scatter_share_of_payload": per_round / payload,
+                "exposed_comm_s_median": float(np.median(exposed)) if exposed else None,
+                "exposed_comm_s": exposed,
+                "launch_leads_max_s": max(info["last_launch_leads"], default=None),
+                "model_sync_bytes_rx": r["recovery"]["model_sync_bytes_rx"],
+                "ranks": [{"rank": x["rank"], "max_memory_allocated": x["max_memory_allocated"],
+                           "host_staged_bytes": x["host_staged_bytes"],
+                           "psum_seconds": x["psum_seconds"], "launches": x["launches"]}
+                          for x in r["ranks"]],
+                "wall_s": r["wall_s"]})
+        out["arms"][name] = {"step_s": [h["step_s"] for h in hosts], "hosts": hosts}
+    out["launches"] = launches_total
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(out)
+    return out
+
+
 # -------------------------------------------------------------------- r2d2
 # The JAX package's pixel R2D2 geometry (moolib_tpu/models/qnet.py:1-10,
 # benchmarks/r2d2_bench.py): 18 actions, the (16, 32, 32) IMPALA encoder,
@@ -3339,7 +3458,8 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     pool = make_pool()
     try:
-        kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin = _phases(pool, args.seed)
+        kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded = _phases(
+            pool, args.seed)
     finally:
         pool.close()
     case = kern["train"]
@@ -3367,7 +3487,8 @@ def main(argv=None) -> None:
                              "accumulator_lm": sum(acl["launches"][name].values()),
                              "r2d2": r2[name],
                              **{path: fleet[path]["launches"][name] for path in fleet},
-                             "anakin": anakin[name]},
+                             "anakin": anakin[name],
+                             "sharded_lm": sharded[name]},
         "max_abs_err": kern["worst"][name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
@@ -3425,7 +3546,11 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     fa.reset_launches()
     phase_anakin(seed)
     anakin = _counts()
-    return kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin
+    torch.cuda.empty_cache()
+    # The sharded_lm path: every rank process counts from 0 (each host's
+    # rank 0 resets in _cohort_child, its other rank starts fresh).
+    sharded = phase_sharded_lm(seed)["launches"]
+    return kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded
 
 
 if __name__ == "__main__":

@@ -77,8 +77,10 @@ __all__ = [
     "DistributedCheckpointer",
     "engine",
     "Future",
+    "GradientShardingError",
     "Group",
     "MissingShardError",
+    "parallel",
     "Queue",
     "rollout",
     "Rpc",
@@ -105,13 +107,14 @@ _LAZY = {
     "MissingShardError": "checkpoint",
     "Group": "group",
     "AllReduce": "group",
+    "GradientShardingError": "accumulator",
 }
 
 
 def __getattr__(name):  # lazy imports keep `import moolib_tpu_torch` light
     import importlib
 
-    if name in ("buckets", "engine", "rollout", "serving"):
+    if name in ("buckets", "engine", "parallel", "rollout", "serving"):
         value = importlib.import_module(f".{name}", __name__)
         globals()[name] = value
         return value

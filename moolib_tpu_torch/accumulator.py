@@ -62,8 +62,14 @@ The distributed-checkpoint plane (``enable_distributed_checkpoint``,
 its captures snapshot the live tensors before ``begin_capture`` returns
 (``checkpoint.snapshot``), since the next apply writes them in place.
 
-Not ported yet (their entry points raise): the sharded rounds and the
-streaming consumer of ``buckets.GradientStream`` (slice 9).
+The sharded hierarchical rounds (``set_sharded_allreduce``) and the
+streaming consumer (``reduce_gradients`` of a ``buckets.GradientStream``)
+are the JAX package's, op for op: same op names, ranges, owner rule and
+meta, so sharded and streaming peers of either package share one round.
+A gradient tree of ``DTensor`` leaves (a mesh host's in-mesh-reduced
+gradients) is gathered in full onto this rank first, through
+``parallel.collectives.gather_full``, which every rank of the mesh enters
+in the same order (JAX: ``np.asarray`` of a sharded array).
 """
 
 from __future__ import annotations
@@ -185,13 +191,35 @@ _M_D2H_OVERLAP = _REG.histogram(
     "device-to-host transfer time overlapped with bucket staging (async "
     "copy_to_host issued for every leaf before the first bucket fills)",
 )
-# Inter-host bytes per kind (the sharded plane's 'gather' kind comes with
-# slice 9).
+_M_LAUNCH_LEAD = _REG.histogram(
+    "accum_bucket_launch_lead_seconds",
+    "how early each streamed bucket's wire op launched before the final "
+    "bucket's launch (the barrier point a non-streaming round would have "
+    "fired at): 0 for the last bucket, > 0 for every earlier one while the "
+    "streaming gradient pipeline is hiding comm under the backward tail",
+)
+# Sharded hierarchical reduce: per-kind inter-host bytes (the
+# reduce-scatter contribution vs the owned-shard redistribution), the
+# fraction of the payload this host owns, and the wall time of the
+# share-down (also observed by parallel.redistribute).
 _M_INTERHOST = _REG.counter(
     "accum_interhost_bytes_total",
     "bytes shipped on the inter-host (RPC) plane for gradient rounds: "
-    "kind='grad' is the reduce contribution at send time (post-compression)",
+    "kind='grad' is the reduce contribution at send time (post-compression; "
+    "sharded rounds ship (N-1)/N of the flat payload vs the full tree's "
+    "1/1), kind='gather' is the owned-shard result redistribution",
     ("kind",),
+)
+_M_SHARD_FRACTION = _REG.gauge(
+    "accum_shard_fraction",
+    "fraction of the flat gradient payload this host owns (reduces locally) "
+    "in sharded rounds — ~1/N of the cohort",
+    ("accumulator", "peer"),
+)
+_M_PSUM = _REG.histogram(
+    "accum_psum_seconds",
+    "host wall time in the in-mesh share-down / resharding of reduced "
+    "tensors (parallel.redistribute and the sharded-round share-down)",
 )
 _M_H2D_BYTES = _REG.counter(
     "accum_result_h2d_bytes_total",
@@ -210,8 +238,66 @@ def _tree_add(a, b):
     return nest.tree_map(lambda x, y: x + y, a, b)
 
 
-def _unported(what: str, slice_: int):
-    raise NotImplementedError(f"{what}: not yet ported (slice {slice_})")
+class GradientShardingError(RuntimeError):
+    """The gradient tree's sharding changed between ``reduce_gradients``
+    calls while the sharded reduce plane was active.
+
+    The sharded layout (bucket cuts, per-host ranges) is cohort wire
+    protocol, keyed on the sharding signature at first staging — a silent
+    re-layout (or a silent fall-back to full-tree payloads) would desync the
+    op shapes across hosts mid-epoch.  Fix the step to produce a stable
+    sharding, or consume pending results and restart the plane."""
+
+
+class _ShardedRound:
+    """Book-keeping for one sharded hierarchical round: a scatter phase
+    (one bucketed sub-op per owned range; the owner contributes None and
+    folds its local slice into the wire partial) and a gather phase (the
+    owner redistributes its true sum; everyone else contributes None).
+    Completion is counted on the gather ops — gather g can only resolve
+    after scatter g did (the owner's contribution depends on it), so all
+    scatter work is transitively covered."""
+
+    __slots__ = (
+        "rank", "ranges", "layout", "treedef", "flat", "stats", "meta_group",
+        "wire", "item", "round", "gather", "results", "meta", "err",
+        "remaining",
+    )
+
+    def __init__(self, rank, ranges, layout, treedef, flat, stats,
+                 meta_group, wire, item, remaining):
+        self.rank = rank
+        self.ranges = ranges
+        self.layout = layout
+        self.treedef = treedef
+        self.flat = flat
+        self.stats = stats
+        self.meta_group = meta_group
+        self.wire = wire
+        self.item = item
+        self.round = None
+        self.gather = {}
+        self.results = {}
+        self.meta = None
+        self.err = None
+        self.remaining = remaining
+
+
+def _has_dtensor(leaves) -> bool:
+    """Any ``DTensor`` leaf?  (None can exist before torch's tensor package
+    is imported, so that import is never paid here.)"""
+    import sys
+
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and any(isinstance(l, mod.DTensor) for l in leaves)
+
+
+def _host_array(leaf) -> np.ndarray:
+    """A staged chunk leaf as numpy (a CPU tensor numpy cannot view, bf16,
+    widens to f32 first)."""
+    if isinstance(leaf, torch.Tensor) and isinstance(_leaf_dtype(leaf), torch.dtype):
+        leaf = leaf.float()
+    return buckets.host_view(leaf)
 
 
 def _numel(x) -> int:
@@ -584,6 +670,14 @@ class Accumulator:
         # refcount-guarded buffer pool in moolib_tpu.buckets.
         self._flat_layouts: Dict = {}
         self._bucketed = True  # False = legacy per-leaf dict payloads
+        # Sharded hierarchical reduce: off by default (wire protocol — every
+        # cohort peer must agree).  Layouts are cached per (treedef, shapes,
+        # dtype, bucket size) and guarded by the gradient tree's sharding
+        # signature: a mid-run sharding change raises
+        # a GradientShardingError, never a silent re-layout.
+        self._sharded = False
+        self._sharded_layouts: Dict = {}
+        self._last_launch_leads: List[float] = []
         # Debug checksums (reference src/accumulator.cc:324-370): verify the
         # applied gradient result is bit-identical cohort-wide per round.
         self._debug_checksums = False
@@ -932,10 +1026,22 @@ class Accumulator:
         self._bucketed = bool(enabled)
 
     def set_sharded_allreduce(self, enabled: bool = True) -> None:
-        """The sharded hierarchical reduce (reduce-scatter of owned ranges
-        plus an all-gather) comes with slice 9."""
-        if enabled:
-            _unported("Accumulator.set_sharded_allreduce", 9)
+        """Shard the RPC-plane gradient reduce across the cohort: each of
+        the N hosts owns a disjoint ~1/N range of the flat payload.  A round
+        is a reduce-scatter — every host ships only the N-1 ranges it does
+        NOT own, the owner contributes nothing and folds its local slice
+        into the wire partial — followed by an all-gather of the owned true
+        sums.  Contributed gradient bytes per host drop from 1x to (N-1)/N
+        x the flat payload; ``accum_interhost_bytes_total{kind}`` is the
+        measured artifact.
+
+        Must be set identically on every peer (op names and range boundaries
+        are wire protocol).  Composes with wire compression and virtual
+        batching; the collective plane supersedes it when eligible; the
+        chunked-ring setting is ignored (the scatter already is the ring's
+        reduce-scatter half, minus the hop latency).  Requires the bucketed
+        data plane."""
+        self._sharded = bool(enabled)
 
     @staticmethod
     def _leaf_spec(leaf):
@@ -953,6 +1059,39 @@ class Accumulator:
         if layout is None:
             layout = buckets.BucketLayout(shapes, dtype)
             self._flat_layouts[key] = layout
+        return layout
+
+    def _sharded_flat_layout(self, treedef, shapes, dtype, shardings):
+        """Shard-pinned layout for the sharded reduce plane, cached per
+        (treedef, shapes, dtype, bucket size) and GUARDED by the gradient
+        tree's sharding signature: a later call whose leaves carry a
+        different sharding raises :class:`GradientShardingError` — the
+        layout is cohort wire protocol, so a silent re-layout (or a silent
+        fall-back to full-tree payloads) would desync op shapes across hosts
+        mid-epoch.  ``shardings`` is the flat per-leaf list (``None``
+        entries for plain and replicated leaves): the shardings of a
+        ``DTensor`` tree, or the stream's declared shardings."""
+        key = (treedef, tuple(shapes), np.dtype(dtype).str, buckets.bucket_bytes())
+        sig = tuple(
+            buckets.sharding_signature(s, sh)
+            for s, sh in zip(shapes, shardings)
+        )
+        layout = self._sharded_layouts.get(key)
+        if layout is not None:
+            if layout.shard_sig != sig:
+                raise GradientShardingError(
+                    f"accumulator {self._name}: gradient sharding changed "
+                    f"mid-run — first staged with signature "
+                    f"{layout.shard_sig!r}, now {sig!r}.  The sharded-reduce "
+                    "layout is cohort wire protocol; produce a stable "
+                    "sharding from the train step (or disable "
+                    "set_sharded_allreduce before changing it)"
+                )
+            return layout
+        layout = buckets.BucketLayout.from_shardings(
+            treedef, shapes, list(shardings), dtype,
+        )
+        self._sharded_layouts[key] = layout
         return layout
 
     def _flat_stage_dtype(self, treedef, specs, ring: bool,
@@ -993,7 +1132,8 @@ class Accumulator:
         buckets.release(flat)  # eager offer: the views keep it out of reuse
         return out
 
-    def _stage_flat(self, gradients, ring: bool):
+    def _stage_flat(self, gradients, ring: bool, sharded: bool = False,
+                    shardings=None):
         """Flatten a gradient pytree into a pooled flat host buffer.
 
         Returns ``(flat, layout, treedef)`` or None when the tree is not
@@ -1004,7 +1144,8 @@ class Accumulator:
         waited on before EF-q8 or the wire reads the buffer
         (``BucketLayout.fill``); host leaves copy in exactly once.  EF-q8
         runs here, once, on the flat buffer with one flat residual (see
-        buckets.ef_quantize_flat)."""
+        buckets.ef_quantize_flat).  With ``sharded`` the layout is the
+        shard-pinned one of ``shardings`` (per leaf; None: unsharded)."""
         leaves, treedef = nest.tree_flatten(gradients)
         if not leaves:
             return None
@@ -1019,7 +1160,13 @@ class Accumulator:
         leaves = [l.float() if isinstance(l, torch.Tensor) and not buckets.on_card(l)
                   and isinstance(_leaf_dtype(l), torch.dtype) else l for l in leaves]
         t_fill = time.monotonic()
-        layout = self._flat_layout(treedef, [s for s, _ in specs], stage_dtype)
+        if sharded:
+            layout = self._sharded_flat_layout(
+                treedef, [s for s, _ in specs], stage_dtype,
+                shardings if shardings is not None else [None] * len(leaves),
+            )
+        else:
+            layout = self._flat_layout(treedef, [s for s, _ in specs], stage_dtype)
         flat = buckets.lease(layout.total, stage_dtype, pinned=d2h)
         event = layout.fill(flat, leaves)
         if event is not None:
@@ -1091,10 +1238,7 @@ class Accumulator:
                     template=template, owned=True,
                 )
             else:
-                if self._wire_q8:
-                    wire = "q8"
-                else:
-                    wire = self._wire_dtype
+                wire, _ = self._wire_locked(layout)
                 fut = self._group.all_reduce(
                     f"__accum_grad:{self._name}", flat, op="sum",
                     meta=dict(stats), meta_op=_count_reduce_op,
@@ -1144,6 +1288,542 @@ class Accumulator:
                     time.monotonic() - round_.t0, plane=round_.plane
                 )
             self._drain_rounds_locked()
+
+    # ---------------------------------------------------- streaming reduce
+    def _materialize_stream(self, stream):
+        """Collect every chunk of a GradientStream and rebuild the full
+        gradient tree — the fall-back whenever a stream arrives on a path
+        that needs the whole tree at once (the collective plane, virtual
+        batching, chunked ring, legacy payloads): bit-identical to a barrier
+        contribution, just without the launch lead."""
+        leaves = [None] * stream.n_leaves
+        timeout = getattr(self._group, "_timeout", 60.0)
+        while True:
+            chunk = stream.next_chunk(timeout)
+            if chunk is None:
+                break
+            lo, ls = chunk
+            leaves[lo:lo + len(ls)] = ls
+        return stream.treedef.unflatten(leaves)
+
+    def _streaming_layout(self, stream):
+        """(layout, stage_dtype, treedef) for a streaming round, or None
+        when the stream cannot take the streaming path (mixed dtypes without
+        wire compression; sharded plane without sharding info on a cold
+        layout cache) — the caller then materializes and runs the barrier
+        path, which is bit-identical."""
+        treedef = stream.treedef
+        specs = list(zip(stream.shapes, stream.dtypes))
+        if not specs:
+            return None
+        stage_dtype = self._flat_stage_dtype(treedef, specs, ring=False)
+        if stage_dtype is None:
+            return None
+        shapes = [s for s, _ in specs]
+        if self._sharded:
+            if stream.shardings is not None:
+                layout = self._sharded_flat_layout(
+                    treedef, shapes, stage_dtype, stream.shardings
+                )
+            else:
+                key = (treedef, tuple(shapes), np.dtype(stage_dtype).str,
+                       buckets.bucket_bytes())
+                layout = self._sharded_layouts.get(key)
+                if layout is None:
+                    # No sharding info and no prior round to key the wire
+                    # layout off: establish it via one barrier round first.
+                    return None
+        else:
+            layout = self._flat_layout(treedef, shapes, stage_dtype)
+        return layout, stage_dtype, treedef
+
+    def _wire_locked(self, layout):
+        """(wire name or None, bytes per element on the wire)."""
+        if self._wire_q8:
+            wire = "q8"
+        else:
+            wire = self._wire_dtype
+        item = _ITEMSIZE[wire] if wire else layout.dtype.itemsize
+        return wire, item
+
+    def _plan_streaming_round_locked(self, stats, flat, layout, treedef):
+        """Issue the wire scaffolding of one streaming round under the lock
+        and return the launch plan: ``units`` (element range -> launch
+        closure, in flat order), ``finish`` (after the last launch) and
+        ``abort`` (error the round loudly from the staging side).  Returns
+        None when the contribution is dropped (not connected — elastic
+        semantics, same as the barrier paths)."""
+        if not self.connected():
+            utils.log_verbose(
+                "accumulator %s: dropping gradient contribution (not connected)",
+                self._name,
+            )
+            return None
+        if len(self._inflight) >= self._parallel_gradients:
+            raise RpcError(
+                f"{len(self._inflight)} gradient reductions already in flight "
+                f"(parallel_gradients={self._parallel_gradients})"
+            )
+        if self._has_gradients:
+            raise RpcError("unconsumed gradients; call zero_gradients() first")
+        wire, item = self._wire_locked(layout)
+        members = list(self._group.members())
+        me = self._rpc.get_name()
+        n = len(members)
+        units = []
+        if self._sharded and n > 1 and me in members:
+            # Sharded round, streamed: every non-owned range is its own
+            # bucketed STREAM (its sub-ops launch bucket by bucket as the
+            # range stages); the owner's scatter op is deferred until its
+            # own range is staged (the scatter callback folds the local
+            # slice — issuing early could let the op resolve against a
+            # half-staged slice).  Gathers are issued up front exactly like
+            # the barrier path: they contribute nothing.
+            rank = members.index(me)
+            ranges = buckets.shard_ranges(layout.total, n, layout.bucket_elems)
+            nonempty = [g for g, (gs, ge) in enumerate(ranges) if ge > gs]
+            sr = _ShardedRound(
+                rank, ranges, layout, treedef, flat, dict(stats),
+                meta_group=nonempty[0], wire=wire, item=item,
+                remaining=len(nonempty),
+            )
+            round_ = _Round(None, kind="full")
+            sr.round = round_
+            own = ranges[rank]
+            _M_SHARD_FRACTION.set(
+                (own[1] - own[0]) / layout.total if layout.total else 0.0,
+                accumulator=self._name, peer=me,
+            )
+            _M_BUCKET_ROUNDS.inc(plane="rpc")
+            self._inflight.append(round_)
+            sync0 = self._group.sync_id()
+            handles = []
+            for g in nonempty:
+                gs, ge = ranges[g]
+                if g == rank:
+                    def _launch_owner(sr=sr, gs=gs, ge=ge, sync0=sync0):
+                        with self._lock:
+                            if self._group.sync_id() != sync0:
+                                raise RpcError(
+                                    f"streaming sharded round {self._name}: "
+                                    "group changed with buckets in flight"
+                                )
+                            template = np.broadcast_to(
+                                np.zeros((), sr.layout.dtype), (ge - gs,)
+                            )
+                            fut = self._group.all_reduce(
+                                f"__accum_sg{sr.rank}:{self._name}", None,
+                                op="sum", wire=sr.wire, bucketed=True,
+                                template=template, owned=True,
+                            )
+                            fut.add_done_callback(
+                                lambda f, sr=sr: self._on_shard_scatter_done(sr, f)
+                            )
+                        return fut
+
+                    units.append({"s": gs, "e": ge, "fire": _launch_owner})
+                    continue
+                handle = self._group.bucketed_stream(
+                    f"__accum_sg{g}:{self._name}", flat[gs:ge], wire=wire,
+                )
+                handles.append(handle)
+                nb = (ge - gs) * item
+                self._reduce_bytes["rpc"] += nb
+                _M_REDUCE_BYTES.inc(nb, plane="rpc")
+                _M_BUCKET_BYTES.inc(nb, plane="rpc")
+                _M_INTERHOST.inc(nb, kind="grad")
+                _M_BUCKETS.inc(len(handle.bounds), plane="rpc")
+                for k, (bs, be) in enumerate(handle.bounds):
+                    units.append({
+                        "s": gs + bs, "e": gs + be,
+                        "fire": (lambda h=handle, k=k: h.launch(k)),
+                    })
+            for g in nonempty:
+                if g == rank:
+                    continue
+                gs, ge = ranges[g]
+                template = np.broadcast_to(np.zeros((), layout.dtype), (ge - gs,))
+                kw = dict(op="sum", wire=wire, bucketed=True,
+                          template=template, owned=True)
+                if g == sr.meta_group:
+                    kw.update(meta=dict(stats), meta_op=_count_reduce_op)
+                gfut = self._group.all_reduce(
+                    f"__accum_pg{g}:{self._name}", None, **kw
+                )
+                sr.gather[g] = gfut
+                gfut.add_done_callback(
+                    lambda f, sr=sr, g=g: self._on_shard_gather_done(sr, g, f)
+                )
+
+            def _abort(err, sr=sr, handles=handles):
+                for h in handles:
+                    h.abort(err)
+                with self._lock:
+                    sr.err = sr.err or err
+                    round_ = sr.round
+                    if not round_.done:
+                        buckets.release(sr.flat)
+                        sr.flat = None
+                        round_.done = True
+                        round_.error = err
+                        self._drain_rounds_locked()
+
+            return {"units": units, "finish": (lambda: None), "abort": _abort}
+        # Plain tree round, streamed: ONE bucketed stream over the whole
+        # flat payload — identical wire protocol to the barrier tree path
+        # (same parent seq, same per-bucket sub-op names), only launch times
+        # differ, so streaming and barrier peers interoperate in one round.
+        handle = self._group.bucketed_stream(
+            f"__accum_grad:{self._name}", flat,
+            meta=dict(stats), meta_op=_count_reduce_op, wire=wire,
+        )
+        round_ = _Round(handle.future, kind="full")
+        nb = layout.total * item
+        self._reduce_bytes["rpc"] += nb
+        _M_REDUCE_BYTES.inc(nb, plane="rpc")
+        _M_BUCKET_BYTES.inc(nb, plane="rpc")
+        _M_INTERHOST.inc(nb, kind="grad")
+        _M_BUCKET_ROUNDS.inc(plane="rpc")
+        _M_BUCKETS.inc(len(handle.bounds), plane="rpc")
+        self._inflight.append(round_)
+        handle.future.add_done_callback(
+            lambda f, r=round_, td=treedef, lo=layout:
+                self._on_flat_round_done(r, f, td, lo, None)
+        )
+        for k, (bs, be) in enumerate(handle.bounds):
+            units.append({
+                "s": bs, "e": be,
+                "fire": (lambda h=handle, k=k: h.launch(k)),
+            })
+        return {"units": units, "finish": handle.finish, "abort": handle.abort}
+
+    def _reduce_gradients_streaming(self, stats, stream) -> bool:
+        """Stage a GradientStream bucket by bucket and launch each bucket's
+        wire op the moment its slice is staged: the inter-host reduce
+        overlaps the backward tail instead of waiting for the full-tree
+        barrier.  Bit-exactness contract: fills, EF-q8 (per bucket,
+        independent absmax + residual slices) and fold order are identical
+        to the barrier path, so streaming == barrier to the bit.  The
+        stream's chunks arrive as host arrays (the producer's ``deliver``
+        copied CUDA leaves into pinned memory behind one event per chunk,
+        which ``next_chunk`` waits on).  Returns False when the stream must
+        fall back (caller materializes and takes the barrier path)."""
+        picked = self._streaming_layout(stream)
+        if picked is None:
+            return False
+        layout, stage_dtype, treedef = picked
+        flat = buckets.lease(layout.total, stage_dtype)
+        try:
+            with self._lock:
+                plan = self._plan_streaming_round_locked(
+                    stats, flat, layout, treedef)
+        except Exception:
+            buckets.release(flat)
+            raise
+        if plan is None:
+            buckets.release(flat)
+            return True  # dropped (not connected) — elastic semantics
+        units = plan["units"]
+        timeout = getattr(self._group, "_timeout", 60.0)
+        filled = buckets.Coverage()       # staged element ranges
+        fin = buckets.Coverage()          # staged AND quantized: launchable
+        finalized = [False] * layout.n_buckets
+        launch_order = []                 # unit indices in launch order
+        t0 = time.monotonic()
+        fill_s = 0.0
+        tl = telemetry.timeline
+
+        def _launch(i):
+            u = units[i]
+            mark = tl.comm_mark()
+            cf = u["fire"]()
+            u["t"] = time.monotonic()
+            launch_order.append(i)
+            if cf is not None and mark is not None:
+                # Retroactive per-bucket comm span: launch -> sub-op
+                # completion, for the timeline's overlap attribution.
+                cf.add_done_callback(
+                    lambda f, m=mark: tl.comm_interval("accum.stream_bucket", m)
+                )
+
+        try:
+            while True:
+                chunk = stream.next_chunk(timeout)
+                if chunk is None:
+                    break
+                lo, leaves = chunk
+                tf = time.monotonic()
+                for i, leaf in enumerate(leaves, start=lo):
+                    off, sz = layout.offsets[i], layout.sizes[i]
+                    np.copyto(flat[off:off + sz], _host_array(leaf).reshape(-1),
+                              casting="unsafe")
+                    filled.add(off, off + sz)
+                # Finalize every layout bucket the chunk completed: EF-q8
+                # runs per bucket (independent absmax + residual slice, so
+                # quantizing in readiness order is bit-identical to the
+                # barrier's one-pass quantization), then any wire unit whose
+                # range is fully finalized launches.
+                for k, (bs, be) in enumerate(layout.bounds):
+                    if finalized[k] or not filled.covers(bs, be):
+                        continue
+                    if self._wire_q8:
+                        residual = (
+                            self._q_residual
+                            if isinstance(self._q_residual, np.ndarray)
+                            else None
+                        )
+                        self._q_residual = buckets.ef_quantize_flat(
+                            flat, residual, [(bs, be)]
+                        )
+                    finalized[k] = True
+                    fin.add(bs, be)
+                    if stream.on_bucket is not None:
+                        try:
+                            stream.on_bucket(bs, be)
+                        except Exception:  # noqa: BLE001 — telemetry hook
+                            pass
+                    for i, u in enumerate(units):
+                        if "t" not in u and fin.covers(u["s"], u["e"]):
+                            _launch(i)
+                fill_s += time.monotonic() - tf
+            for i, u in enumerate(units):
+                if "t" not in u:
+                    # Zero-length units (empty ranges) or anything the
+                    # coverage maths left behind launches at the barrier
+                    # point — lead 0, never a wedge.
+                    _launch(i)
+        except BaseException as e:
+            plan["abort"](
+                e if isinstance(e, (RpcError, GradientShardingError))
+                else RpcError(f"streaming gradient round failed: {e!r}")
+            )
+            raise
+        t_final = max((units[i]["t"] for i in launch_order), default=t0)
+        leads = [max(0.0, t_final - u["t"]) for u in units]
+        for lead in leads:
+            _M_LAUNCH_LEAD.observe(lead)
+        self._last_launch_leads = leads
+        plan["finish"]()
+        _M_BUCKET_FILL.observe(fill_s)
+        _M_D2H_OVERLAP.observe(time.monotonic() - t0)
+        return True
+
+    # ------------------------------------------------------- sharded rounds
+    def _start_sharded_round(self, kind: str, stats: Dict[str, int], staged,
+                             fire_stats=None) -> None:
+        """Issue one sharded hierarchical round.
+
+        The flat payload is partitioned into N near-equal ranges on the
+        bucket grid (``buckets.shard_ranges`` — pure function of protocol
+        values, identical on every host).  Phase 1, reduce-scatter: one
+        bucketed sub-op per range; the range's OWNER contributes ``None``
+        (near-zero wire cost, a template gives the shape) while every other
+        host contributes its zero-copy slice view — so each host ships
+        (N-1)/N of the payload instead of all of it.  When the owner's op
+        resolves it folds its own local slice into the wire partial,
+        producing the true cohort sum of the range.  Phase 2, all-gather:
+        the owner redistributes the true sum on a second op (everyone else
+        contributes ``None``).  Round counts ride as allreduce meta on the
+        first non-empty gather op."""
+        flat, layout, treedef = staged
+        with self._lock:
+            if kind == "full":
+                if not self.connected():
+                    utils.log_verbose(
+                        "accumulator %s: dropping gradient contribution (not connected)",
+                        self._name,
+                    )
+                    buckets.release(flat)
+                    return
+                if len(self._inflight) >= self._parallel_gradients:
+                    buckets.release(flat)
+                    raise RpcError(
+                        f"{len(self._inflight)} gradient reductions already in flight "
+                        f"(parallel_gradients={self._parallel_gradients})"
+                    )
+                if self._has_gradients:
+                    buckets.release(flat)
+                    raise RpcError("unconsumed gradients; call zero_gradients() first")
+            members = list(self._group.members())
+            me = self._rpc.get_name()
+            n = len(members)
+            if n <= 1 or me not in members:
+                # Degenerate cohort: nothing to shard.  The flat tree round
+                # costs identical bytes here (zero — single member
+                # short-circuits) and keeps the op protocol trivial.
+                self._start_flat_round(kind, stats, staged, False,
+                                       fire_stats=fire_stats)
+                return
+            rank = members.index(me)
+            ranges = buckets.shard_ranges(layout.total, n, layout.bucket_elems)
+            nonempty = [g for g, (gs, ge) in enumerate(ranges) if ge > gs]
+            wire, item = self._wire_locked(layout)
+            sr = _ShardedRound(
+                rank, ranges, layout, treedef, flat, dict(stats),
+                meta_group=nonempty[0], wire=wire, item=item,
+                remaining=len(nonempty),
+            )
+            round_ = _Round(
+                None, kind=("full" if kind == "full" else "grad"),
+                stats=fire_stats,
+            )
+            sr.round = round_
+            own = ranges[rank]
+            _M_SHARD_FRACTION.set(
+                (own[1] - own[0]) / layout.total if layout.total else 0.0,
+                accumulator=self._name, peer=me,
+            )
+            _M_BUCKET_ROUNDS.inc(plane="rpc")
+            self._inflight.append(round_)
+            # Phase 1 — reduce-scatter contributions.
+            for g in nonempty:
+                gs, ge = ranges[g]
+                owner = g == rank
+                value = None if (owner or flat is None) else flat[gs:ge]
+                template = (
+                    np.broadcast_to(np.zeros((), layout.dtype), (ge - gs,))
+                    if value is None else None
+                )
+                fut = self._group.all_reduce(
+                    f"__accum_sg{g}:{self._name}", value, op="sum",
+                    wire=wire, bucketed=True, template=template, owned=True,
+                )
+                if value is not None:
+                    nb = (ge - gs) * item
+                    self._reduce_bytes["rpc"] += nb
+                    _M_REDUCE_BYTES.inc(nb, plane="rpc")
+                    _M_BUCKET_BYTES.inc(nb, plane="rpc")
+                    _M_INTERHOST.inc(nb, kind="grad")
+                    _M_BUCKETS.inc(-(-(ge - gs) // layout.bucket_elems), plane="rpc")
+                if owner:
+                    fut.add_done_callback(
+                        lambda f, sr=sr: self._on_shard_scatter_done(sr, f)
+                    )
+            # Phase 2 — gather ops for the ranges we do NOT own (contribute
+            # nothing; receive the owner's true sum).  Our own range's
+            # gather is issued by the scatter callback once the wire partial
+            # lands.
+            for g in nonempty:
+                if g == rank:
+                    continue
+                gs, ge = ranges[g]
+                template = np.broadcast_to(np.zeros((), layout.dtype), (ge - gs,))
+                kw = dict(op="sum", wire=wire, bucketed=True,
+                          template=template, owned=True)
+                if g == sr.meta_group:
+                    kw.update(meta=dict(stats), meta_op=_count_reduce_op)
+                gfut = self._group.all_reduce(
+                    f"__accum_pg{g}:{self._name}", None, **kw
+                )
+                sr.gather[g] = gfut
+                gfut.add_done_callback(
+                    lambda f, sr=sr, g=g: self._on_shard_gather_done(sr, g, f)
+                )
+
+    def _on_shard_scatter_done(self, sr, fut):
+        """Own scatter op resolved: fold the local slice into the wire
+        partial — the owner now holds the TRUE cohort sum of its range —
+        and issue the gather op that redistributes it."""
+        err = fut.exception()
+        value = None if err is not None else fut.result(0)
+        with self._lock:
+            sr.err = sr.err or err
+            gs, ge = sr.ranges[sr.rank]
+            local = sr.flat[gs:ge] if sr.flat is not None else None
+            true = None
+            if err is None:
+                if value is not None and local is not None:
+                    # np.add allocates a fresh writable buffer: adopted
+                    # result views may be read-only shared pages.
+                    true = np.add(np.asarray(value), local)
+                elif local is not None:
+                    # owned=True hands the buffer to the op (in-place folds);
+                    # never hand it a live view of the staging flat.
+                    true = local.copy()
+                elif value is not None:
+                    true = np.array(np.asarray(value))
+            template = None
+            if true is None:
+                template = np.broadcast_to(
+                    np.zeros((), sr.layout.dtype), (ge - gs,)
+                )
+            kw = dict(op="sum", wire=sr.wire, bucketed=True,
+                      template=template, owned=True)
+            if sr.meta_group == sr.rank:
+                kw.update(meta=dict(sr.stats), meta_op=_count_reduce_op)
+            gfut = self._group.all_reduce(
+                f"__accum_pg{sr.rank}:{self._name}", true, **kw
+            )
+            if true is not None:
+                _M_INTERHOST.inc((ge - gs) * sr.item, kind="gather")
+            sr.gather[sr.rank] = gfut
+            gfut.add_done_callback(
+                lambda f, sr=sr, g=sr.rank: self._on_shard_gather_done(sr, g, f)
+            )
+
+    def _on_shard_gather_done(self, sr, g, fut):
+        err = fut.exception()
+        res = meta = None
+        if err is None:
+            r = fut.result(0)
+            if g == sr.meta_group:
+                res, meta = r
+            else:
+                res = r
+        with self._lock:
+            sr.err = sr.err or err
+            if meta is not None:
+                sr.meta = meta
+            sr.results[g] = res
+            sr.remaining -= 1
+            if sr.remaining == 0:
+                self._finish_sharded_locked(sr)
+
+    def _finish_sharded_locked(self, sr):
+        """All gather ops resolved: assemble the full result flat from the
+        per-range true sums (the share-down: host copies only, timed into
+        ``accum_psum_seconds``) and hand the round to the shared drain
+        logic."""
+        if sr.round.done:
+            # Streaming abort already errored the round; late gather
+            # callbacks just drain into it.
+            return
+        buckets.release(sr.flat)
+        round_ = sr.round
+        norm = None
+        if sr.err is None:
+            flat = None
+            with _M_PSUM.time():
+                if any(r is not None for r in sr.results.values()):
+                    flat = buckets.lease(sr.layout.total, sr.layout.dtype)
+                    for g, (gs, ge) in enumerate(sr.ranges):
+                        if ge <= gs:
+                            continue
+                        r = sr.results.get(g)
+                        if r is None:
+                            flat[gs:ge] = 0
+                        else:
+                            np.copyto(flat[gs:ge], np.asarray(r), casting="unsafe")
+            grads = None
+            if flat is not None:
+                grads = sr.treedef.unflatten(sr.layout.unflatten(flat))
+                # Eager pool offer (buckets.lease contract): the unflatten
+                # views keep the buffer alive; the refcount probe skips it
+                # until the consumer drops the result tree.
+                buckets.release(flat)
+            norm = {"grads": grads, "wire": None}
+            norm.update(
+                sr.meta
+                or {"num_gradients": 0, "num_skipped": 0, "batch_size": 0}
+            )
+        round_.done = True
+        round_.error = sr.err
+        round_.result = norm
+        if sr.err is None:
+            _M_REDUCE_LATENCY.observe(
+                time.monotonic() - round_.t0, plane=round_.plane
+            )
+        self._drain_rounds_locked()
 
     def set_ici_backend(self, enabled: bool = True) -> None:
         """Reduce gradients with ``torch.distributed.all_reduce`` (the
@@ -1568,6 +2248,20 @@ class Accumulator:
                 int(total_bytes),
             )
 
+    def checkpoint_capture_due(self, steps_done: Optional[int] = None) -> bool:
+        """Will the next :meth:`checkpoint_tick` at ``steps_done`` (default:
+        the model version) capture a shard?  A caller whose state takes work
+        to assemble (a mesh host gathering its sharded optimizer state)
+        asks first and prepares it."""
+        with self._lock:
+            p = self._ckpt_pending
+            if self._ckptr is None or p is None:
+                return False
+            if steps_done is None:
+                steps_done = self._model_version
+            return (p["epoch"] == self._group.sync_id() and int(steps_done) == p["target"]
+                    and self._rpc.get_name() in p["members"])
+
     def checkpoint_tick(self, steps_done: Optional[int] = None,
                         state_fn=None) -> None:
         """Drive the distributed checkpoint protocol; call once per train
@@ -1872,16 +2566,26 @@ class Accumulator:
         (reference two-phase protocol, ``src/accumulator.cc:1005-1078``).
 
         ``gradients`` is a tree of tensors (CPU or CUDA) or numpy arrays.
-        A :class:`buckets.GradientStream` (the streaming pipeline) comes
-        with slice 9.
+        A tree of ``DTensor`` leaves is gathered in full onto this rank
+        first (``parallel.collectives.gather_full``: every rank of their
+        mesh enters the same gather), and the sharded plane keys its
+        layout on their shardings.
+
+        ``gradients`` may also be a :class:`buckets.GradientStream` (the
+        streaming gradient pipeline, produced by
+        ``parallel.make_train_step(overlap_grads=True)``): buckets stage and
+        launch onto the wire as the producer delivers leaf groups,
+        overlapping the inter-host reduce with the backward tail.
+        Streaming is bit-exact with the equivalent barrier contribution and
+        interoperates with barrier peers in the same round; paths that need
+        the whole tree at once (the collective plane, virtual batching,
+        chunked ring) materialize the stream, as in the JAX package.
         """
         if gradients is None:
             raise ValueError(
                 "pass the gradient tree explicitly, "
                 "reduce_gradients(batch_size, gradients)"
             )
-        if isinstance(gradients, buckets.GradientStream):
-            _unported("Accumulator.reduce_gradients(GradientStream)", 9)
         # Root of this round's distributed trace: everything launched while
         # the span is open — staging, and the round's first wave of tree-op
         # RPCs sent synchronously from _start_round — shares its trace_id,
@@ -1894,6 +2598,33 @@ class Accumulator:
     def _reduce_gradients_traced(self, batch_size: int, gradients) -> None:
         self._rec_note_first_reduce()
         stats = {"num_gradients": 1, "num_skipped": 0, "batch_size": int(batch_size)}
+        if isinstance(gradients, buckets.GradientStream):
+            # Streaming gradient pipeline: stage and launch wire buckets as
+            # the producer delivers leaf groups.  Paths that need the whole
+            # tree at once (the collective plane, virtual batching, the
+            # chunked ring, legacy payloads) materialize the stream and fall
+            # through — bit-identical, just barrier-timed.
+            stream = gradients
+            if (
+                self._bucketed
+                and not self._ici_eligible()
+                and self._virtual_batch_size is None
+                and not self._use_ring_locked()
+                and self._reduce_gradients_streaming(stats, stream)
+            ):
+                return
+            gradients = self._materialize_stream(stream)
+        shardings = None
+        leaves = nest.tree_leaves(gradients)
+        if _has_dtensor(leaves):
+            from .parallel import collectives, mesh as mesh_mod
+
+            shardings = [mesh_mod.sharding_of(l) for l in leaves]
+            gradients = collectives.gather_full(gradients, dst=0)
+            if gradients is None:
+                raise RuntimeError(
+                    f"accumulator {self._name}: DTensor gradients gather onto "
+                    "mesh rank 0, the host's Accumulator peer; this rank is another")
         dev = _tree_device(gradients)
         if dev is not None:
             self._grad_device = dev
@@ -1911,6 +2642,18 @@ class Accumulator:
             self._start_round("count", stats, self._host_f32(gradients))
             return
         use_ring = self._use_ring_locked()
+        if self._bucketed and self._sharded:
+            # Sharded hierarchical reduce: stage into a shard-pinned layout
+            # (signature-guarded — a mid-run sharding change raises
+            # GradientShardingError, never a silent fall-back to full-tree
+            # payloads) and run reduce-scatter + all-gather.  The
+            # chunked-ring setting is ignored: the scatter already is the
+            # ring's reduce-scatter half.
+            staged = self._stage_flat(gradients, ring=False, sharded=True,
+                                      shardings=shardings)
+            if staged is not None:
+                self._start_sharded_round("full", stats, staged)
+                return
         if self._bucketed:
             # Flat-bucket data plane (docs/DESIGN.md "Gradient data plane"):
             # one staging pass into a pooled flat buffer (D2H issued async
@@ -1964,6 +2707,15 @@ class Accumulator:
             self._start_round("count", stats, None)
             return
         use_ring = self._use_ring_locked()
+        if self._bucketed and self._sharded:
+            # Skip rounds must issue the same op set as contributing peers
+            # (the per-range ops are the round protocol): a plain layout from
+            # the param tree yields identical ranges — shard_ranges depends
+            # only on (total, N, bucket grid), never on the pinned cuts.
+            staged = self._stage_flat_skip(False)
+            if staged is not None:
+                self._start_sharded_round("full", stats, staged)
+                return
         if self._bucketed:
             staged = self._stage_flat_skip(use_ring)
             if staged is not None:
@@ -2282,17 +3034,25 @@ class Accumulator:
             # the flat buffer (EF-q8 once, on the flat) and ships as
             # per-bucket pipelined ops; counts settled in phase 1 ride as
             # zeros (protocol uniformity, like the legacy paths below).
+            # With the sharded plane on, the one fire allreduce per virtual
+            # batch is itself sharded (reduce-scatter + all-gather).
+            sharded = self._sharded
+            ring = False if sharded else use_ring
             staged = (
-                self._stage_flat(grads, ring=use_ring)
+                self._stage_flat(grads, ring=ring, sharded=sharded)
                 if grads is not None
-                else self._stage_flat_skip(use_ring)
+                else self._stage_flat_skip(ring)
             )
             if staged is not None:
                 zero = {"num_gradients": 0, "num_skipped": 0, "batch_size": 0}
                 fire_stats = dict(self._fire_stats)
                 self._fire_accum = None
                 self._fire_stats = {"num_gradients": 0, "num_skipped": 0, "batch_size": 0}
-                self._start_flat_round("grad", zero, staged, use_ring, fire_stats=fire_stats)
+                if sharded:
+                    self._start_sharded_round("grad", zero, staged, fire_stats=fire_stats)
+                else:
+                    self._start_flat_round("grad", zero, staged, use_ring,
+                                           fire_stats=fire_stats)
                 return
         if use_ring:
             # Phase 2 over the chunked ring: the accumulated f32 sum ships
@@ -2659,6 +3419,12 @@ class Accumulator:
                 # cohort-wide, docs/DESIGN.md "Gradient data plane").
                 "bucketed": self._bucketed,
                 "bucket_bytes": buckets.bucket_bytes(),
+                # Sharded hierarchical reduce: enabled flag + cached
+                # shard-pinned layouts (sharding-signature guarded; see
+                # GradientShardingError).
+                "sharded": self._sharded,
+                "sharded_layouts": len(self._sharded_layouts),
+                "last_launch_leads": list(self._last_launch_leads),
                 # q8 over the chunked ring rides as contributor-side EF
                 # quantization + bf16 hop transport (set_chunked_allreduce).
                 "ring_q8_mode": (

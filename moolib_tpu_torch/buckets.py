@@ -233,9 +233,7 @@ class BucketLayout:
         ``treedef`` is recorded for error messages only (the layout math is a
         function of shapes/dtype/shard counts alone, so every host at the
         same model and mesh computes the same layout — the cohort-wide wire
-        contract).  The port has no sharded leaves yet: any entry other than
-        ``None`` raises ``NotImplementedError`` (see
-        :func:`sharding_signature`).
+        contract).  Entries are what :func:`sharding_signature` takes.
         """
         sig = tuple(
             sharding_signature(s, sh) for s, sh in zip(shapes, shardings)
@@ -326,17 +324,29 @@ class ShardedBucketLayout(BucketLayout):
 
 
 def sharding_signature(shape: Tuple[int, ...], sharding) -> Optional[tuple]:
-    """Process-independent identity of one leaf's device sharding, or None
-    for plain tensors and host arrays.  The JAX package derives
-    ``(spec_str, per_axis_shard_counts)`` from a jax sharding; the port has
-    no sharded leaves until DTensor and model parallelism land (ROADMAP
-    slice 9), so anything but ``None`` raises."""
+    """Process-independent identity of one leaf's sharding, or None for
+    plain tensors, host arrays and replicated leaves: ``(spec_str,
+    per_dim_shard_counts)``, as the JAX package derives it.  ``sharding`` is
+    a ``parallel.NamedSharding``, a ``DTensor`` (its placements name the
+    sharded dims) or None.  Derived from axis sizes and the spec alone (no
+    rank or device ids), so equal meshes and specs give equal signatures
+    cohort-wide: the key the Accumulator's sharded layout cache is guarded
+    by."""
     if sharding is None:
         return None
-    raise NotImplementedError(
-        f"sharded leaves ({type(sharding).__name__}) are not ported yet: "
-        "DTensor and model parallelism come with ROADMAP slice 9"
-    )
+    from .parallel.mesh import NamedSharding, sharding_of
+
+    if not isinstance(sharding, NamedSharding):
+        named = sharding_of(sharding)
+        if named is None:
+            raise TypeError(f"sharding_signature: {type(sharding).__name__} is "
+                            "neither a NamedSharding nor a DTensor")
+        sharding = named
+    ss = sharding.shard_shape(tuple(int(d) for d in shape))
+    counts = tuple(int(d // s) if s else 1 for d, s in zip(shape, ss))
+    if all(c <= 1 for c in counts):
+        return None  # fully replicated: indistinguishable from host data
+    return (str(sharding.spec), counts)
 
 
 def shard_ranges(total: int, n: int, align: int = 1
@@ -478,8 +488,10 @@ class GradientStream:
     """Incrementally delivered gradient pytree — the producer/consumer
     handoff of the streaming gradient pipeline (docs/DESIGN.md §6e).
 
-    The producer (the two-jit overlap train step, or any caller that knows
-    leaf readiness order) constructs the stream with the FULL tree structure
+    The producer (``parallel.make_train_step(overlap_grads=True)``, whose
+    backward hooks deliver contiguous runs of leaves as they complete, or
+    any caller that knows leaf readiness order) constructs the stream with
+    the FULL tree structure
     up front — ``treedef`` (opaque here; the Accumulator unflattens with
     it), per-leaf ``shapes``/``dtypes``, and optionally the flat list of
     per-leaf device ``shardings`` (required for streaming onto the sharded

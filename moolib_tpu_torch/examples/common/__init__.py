@@ -212,6 +212,118 @@ class EnvBatchState:
         self.episode_step[done] = 0
 
 
+MESH_FLAGS_ENV = "MOOLIB_MESH_FLAGS"
+
+
+def mesh_flags_from_env():
+    """The flags of a mesh rank its host's rank 0 spawned (None when this
+    process was not spawned so)."""
+    import json
+
+    spec = os.environ.get(MESH_FLAGS_ENV)
+    return None if spec is None else Config(json.loads(spec))
+
+
+def spawn_mesh_ranks(module: str, flags, world: int):
+    """Start ranks 1..world-1 of this host (the caller is rank 0): each runs
+    ``python -m module`` on the same flags (JSON in ``MOOLIB_MESH_FLAGS``)
+    with the ``torchrun`` variables set.  Returns (coordinator address,
+    child processes)."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+    procs = []
+    for r in range(1, world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world), RANK=str(r),
+                   LOCAL_RANK=str(r), PYTHONPATH=root + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""), **{MESH_FLAGS_ENV: json.dumps(flags.to_dict())})
+        procs.append(subprocess.Popen([sys.executable, "-m", module], env=env))
+    return f"127.0.0.1:{port}", procs
+
+
+def run_mesh_host(train, module: str, flags, on_stats, world: int):
+    """Rank 0 of a self-spawned mesh host: spawn the other ranks, run
+    ``train(flags, on_stats, (coordinator, world, 0))``, then join them
+    (killed if rank 0 failed)."""
+    coordinator, children = spawn_mesh_ranks(module, flags, world)
+    try:
+        out = train(flags, on_stats, (coordinator, world, 0))
+    except BaseException:
+        for c in children:
+            c.kill()
+        raise
+    for c in children:
+        if c.wait(timeout=600) != 0:
+            raise RuntimeError(f"{module}: a mesh rank exited with {c.returncode}")
+    return out
+
+
+class pumping:
+    """Keep ``update()``-pumped objects (a Group's broker pings, a hosted
+    Broker's evictions) running from a helper thread while the train loop
+    blocks in a long mesh collective: a host whose pings stop for the
+    broker's timeout is evicted, and its epoch's rounds die with it."""
+
+    def __init__(self, pumps, interval: float = 0.25):
+        self._pumps = [p for p in pumps if p is not None]
+        self._interval = interval
+        self._stop = threading.Event()
+        self._thread = None
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._interval):
+            for p in self._pumps:
+                p.update()
+
+    def __enter__(self):
+        self._thread = threading.Thread(target=self._run, name="mesh-pump", daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+
+class MeshControl:
+    """Rank 0 of a mesh host tells its other ranks what comes next: one
+    broadcast of ``(command, argument)`` over the ``dp`` group, on the
+    backend's own device (gloo reduces host memory, NCCL the card's)."""
+
+    def __init__(self, mesh, device):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.group = mesh.get_group("dp")
+        self.rank = mesh.get_local_rank("dp")
+        self._root = dist.get_global_rank(self.group, 0)
+        self._device = device if dist.get_backend(self.group) == "nccl" else torch.device("cpu")
+
+    def send(self, cmd: int, arg: int = 0) -> None:
+        t = torch.tensor([cmd, arg], dtype=torch.int64, device=self._device)
+        self._dist.broadcast(t, self._root, group=self.group)
+
+    def receive(self):
+        t = torch.empty(2, dtype=torch.int64, device=self._device)
+        self._dist.broadcast(t, self._root, group=self.group)
+        return int(t[0]), int(t[1])
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's ``obj``, in rank order, on every rank."""
+        out = [None] * self._dist.get_world_size(self.group)
+        self._dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+
 def copy_into(dst, src) -> None:
     """Copy a received tree (``Accumulator.state()``/``parameters()``) into
     live tensors of the same structure, in place: the optimizer and the

@@ -15,12 +15,37 @@ cohort (:func:`_train_elastic`): leader election, the model and AdamW
 state synced to joiners, virtual batches, wire compression.
 
 Run (the JAX defaults are a dp x sp mesh with ring attention, which the
-port does not have yet, so pass a single device and dense or flash):
+port does not have yet, so pass a dp mesh or a single device, and dense or
+flash attention):
     python -m moolib_tpu_torch.examples.lm --mesh "" --attention flash --steps 400
     python -m moolib_tpu_torch.examples.lm --mesh "" --attention dense --device cpu
     python -m moolib_tpu_torch.examples.lm --mesh "" --attention dense --device cpu \
         --address 127.0.0.1:4431 --local_name lm0 --virtual_batch_size 16   # + a
         second process with --connect 127.0.0.1:4431 --local_name lm1
+
+The mesh (``--mesh dp=N``): a port host is N rank processes joined by
+``torch.distributed`` (gloo on the CPU and where ranks share a card, NCCL
+only with a card per rank; ``parallel.initialize_distributed``).  Started
+without ``RANK`` in the environment, this example spawns ranks 1..N-1 of
+its host itself and is rank 0, so the JAX command line works unchanged;
+under ``torchrun`` every rank is started for it.  ``--batch_size`` is the
+host's batch; each rank takes its ``dp`` block.
+
+- Without a cohort, every rank runs the same loop: the train step averages
+  the gradients over ``dp`` and every rank applies the same AdamW update.
+- ``--shard_grads`` in an elastic cohort (``--address``/``--connect``) is
+  the hierarchical plane: the step reduce-scatters the gradients over the
+  mesh (fsdp layout), mesh rank 0 is the host's one Accumulator peer and
+  gathers them in full, and the Accumulator's sharded rounds ship (N-1)/N
+  of the flat payload between hosts.  The apply is ZeRO-style: rank 0
+  scatters the cohort mean, every rank runs AdamW on its shard, and
+  ``parallel.redistribute`` gathers the params.  The other ranks follow
+  rank 0's decisions (learn, apply, send or load state, stop) through one
+  small broadcast each; they open no RPC.  ``--overlap_grads`` streams the
+  gradients from the backward's hooks into the sharded rounds
+  (``parallel.make_train_step``).  With ``--checkpoint_dir`` the cohort
+  writes distributed checkpoints (``checkpoint.DistributedCheckpointer``).
+- ``--shard_grads`` and ``--overlap_grads`` work without a mesh too.
 
 With ``--publish_every N`` on the elastic path the leader publishes its
 weights every N optimizer steps through a ``serving.ModelPublisher`` on the
@@ -45,24 +70,25 @@ Durability and the fleet (docs/RESILIENCE.md):
   telemetry (``autoscaler``); ``--localdir``: the directory whose
   decommission flag drains this peer and leaves the cohort.
 
-Mesh and ring parallelism, MoE, pipeline stages and the sharded gradient
-plane (and with it the distributed checkpoint of ``--checkpoint_dir
---shard_grads``) come with later slices; their flags exit with a message.
+Ring attention, a ``tp``/``sp`` mesh axis, MoE and pipeline stages come
+with ROADMAP slice 9b; their flags exit with a message.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
 import numpy as np
 import torch
 
-from .. import telemetry
+from .. import parallel, telemetry
 from .._device import resolve
 from ..checkpoint import Checkpointer
 from ..models.transformer import REMAT_POLICIES, TransformerLM
+from ..utils import nest
 from ..utils.profiling import StepTimer
 from ..watchdog import Watchdog
 from . import common
@@ -82,8 +108,8 @@ def make_flags(argv=None):
     p.add_argument("--attention", default="ring", choices=["dense", "flash", "ring"],
                    help="ring = sequence-parallel over the sp mesh axis (not yet ported)")
     p.add_argument("--mesh", default="dp=2,sp=4",
-                   help='mesh axes for the train step (not yet ported): pass --mesh "" '
-                   "for the single-device step")
+                   help='mesh axes of the host, e.g. "dp=2" (one rank process each); '
+                   '"" for the single-device step')
     p.add_argument("--pos", default="learned", choices=["learned", "rotary"],
                    help="position encoding: learned table (capped at seq_len) or rotary")
     p.add_argument("--moe_experts", type=int, default=0)
@@ -118,9 +144,14 @@ def make_flags(argv=None):
                    help="elastic: after this peer's first applied step, idle "
                    "while the cohort has fewer members (a peer that seeded the "
                    "model and AdamW state waits for the peers that sync it)")
-    # Flags of the JAX example whose planes are not ported yet.
-    for flag in ("shard_grads", "overlap_grads"):
-        p.add_argument(f"--{flag}", action="store_true", help="not yet ported (slice 9)")
+    p.add_argument("--shard_grads", action="store_true",
+                   help="hierarchical reduce plane: the step reduces the grads over "
+                   "the in-mesh dp axis and returns them fsdp-sharded; the "
+                   "Accumulator then reduce-scatters only (N-1)/N of the flat "
+                   "payload between hosts.  Requires the elastic cohort")
+    p.add_argument("--overlap_grads", action="store_true",
+                   help="stream the gradients from the backward's hooks into the "
+                   "inter-host allreduce bucket by bucket; bit-identical results")
     p.add_argument("--localdir", default=None,
                    help="per-peer scratch dir: the autoscaler's decommission "
                    "flag is polled here (and MOOLIB_TELEMETRY_DIR usually "
@@ -138,7 +169,8 @@ def make_flags(argv=None):
     p.add_argument("--checkpoint_dir", default=None,
                    help="Checkpointer directory (manifest-validated step_<N>/ "
                    "dirs); the run resumes from the newest intact checkpoint "
-                   "on restart")
+                   "on restart.  With --shard_grads in an elastic cohort: the "
+                   "distributed checkpoint plane (two-phase committed)")
     p.add_argument("--checkpoint_interval", type=float, default=30.0,
                    help="seconds between checkpoint saves (leader-only in "
                    "elastic runs)")
@@ -157,18 +189,13 @@ def make_flags(argv=None):
 def _unported(flags) -> list:
     """(flag, slice) for every flag set to a path this slice does not port."""
     found = []
-    if flags.mesh:
-        found.append(("--mesh", 9))
     if flags.attention == "ring":
-        found.append(("--attention ring", 9))
+        found.append(("--attention ring", "9b"))
     if flags.moe_experts:
-        found.append(("--moe_experts", 9))
-    if flags.overlap_grads:
-        found.append(("--overlap_grads", 9))
-    if flags.shard_grads:
-        # With --checkpoint_dir this is the distributed checkpoint plane of
-        # the sharded rounds: slice 9 as well.
-        found.append(("--shard_grads", 9))
+        found.append(("--moe_experts", "9b"))
+    other = [k for k, v in parallel.mesh.parse_axes(flags.mesh).items() if k != "dp" and v != 1]
+    if other:
+        found.append((f"--mesh axes {other}", "9b"))
     return found
 
 
@@ -237,20 +264,74 @@ def copy_task_loss(logits, tokens, half: int):
     return -ll.mean(), acc
 
 
-def train(flags, on_stats=None) -> dict:
+def _mesh_world(flags) -> int:
+    """Ranks of the host's mesh (0: no mesh)."""
+    axes = parallel.mesh.parse_axes(flags.mesh)
+    if not axes:
+        return 0
+    if any(v == -1 for v in axes.values()):
+        if "WORLD_SIZE" not in os.environ:
+            raise ValueError("--mesh with a -1 axis needs the world size: start the "
+                             "ranks with torchrun, or give every axis its size")
+        return int(os.environ["WORLD_SIZE"])
+    return math.prod(axes.values())
+
+
+def _check_flags(flags) -> None:
+    """The JAX example's flag rules, then the planes this port lacks."""
+    elastic = bool(flags.address or flags.connect or flags.broker_addrs)
+    if flags.shard_grads and not elastic:
+        raise ValueError(
+            "--shard_grads is the hierarchical (inter-host) reduce plane; "
+            "it requires the elastic cohort (--address/--connect).  A "
+            "standalone mesh run already reduces over the mesh inside the step."
+        )
+    if elastic:
+        # Elastic DP rides the plain single-device step: drop the PARSER
+        # DEFAULTS that only make sense in-mesh so `--connect HOST` works
+        # as documented; an explicitly-requested mesh is a real conflict —
+        # unless --shard_grads composes the two planes hierarchically.
+        if flags.mesh == "dp=2,sp=4":
+            flags["mesh"] = ""
+        if flags.attention == "ring" and not flags.mesh:
+            flags["attention"] = "dense"
+        if flags.mesh and not flags.shard_grads:
+            raise ValueError(
+                "elastic DP (--address/--connect) composes with the plain "
+                "single-device step; in-mesh parallelism belongs inside a "
+                "static cohort (use the vtrace agent's --mesh for that "
+                "shape, or pass --shard_grads for the hierarchical plane)"
+            )
     unported = _unported(flags)
     if unported:
         raise SystemExit(
             "; ".join(f"{f}: not yet ported (slice {n})" for f, n in unported)
             + ". The JAX example's defaults are --mesh dp=2,sp=4 --attention ring; "
-            'this port trains on one device per process: pass --mesh "" '
-            "--attention flash|dense"
+            'this port trains over a dp mesh or one device: pass --mesh dp=N or --mesh "" '
+            "and --attention flash|dense"
         )
-    if flags.publish_every and not (flags.address or flags.connect or flags.broker_addrs):
+    if flags.publish_every and not elastic:
         raise SystemExit("--publish_every: the leader of an elastic cohort publishes; "
                          "pass --address, --connect or --broker_addrs")
     if flags.seq_len % 2:
         raise ValueError("--seq_len must be even")
+    world = _mesh_world(flags)
+    if world and flags.batch_size % parallel.mesh.parse_axes(flags.mesh).get("dp", world):
+        raise ValueError("the dp axis size must divide --batch_size")
+
+
+def train(flags, on_stats=None, _dist_args=()) -> dict:
+    """Train; returns the run's summary (on a mesh host, rank 0's).  A
+    ``--mesh`` run started without ``RANK`` spawns its other ranks and
+    joins them when it ends (``_dist_args``: this rank's
+    ``(coordinator, world, rank)``, or None off a mesh)."""
+    if _dist_args == ():
+        _check_flags(flags)
+        world = _mesh_world(flags)
+        if world and "RANK" not in os.environ:
+            return common.run_mesh_host(train, "moolib_tpu_torch.examples.lm", flags,
+                                        on_stats, world)
+        _dist_args = (None, world, None) if world else None
     from ..utils import init_compile_cache
 
     # Before the first kernel load: a restart loads the kernels its fleet
@@ -260,12 +341,20 @@ def train(flags, on_stats=None) -> dict:
     telemetry.init_from_env()  # opt-in exporters (docs/TELEMETRY.md)
     # kill -USR2 toggles an on-demand torch.profiler window.
     telemetry.profiling.install_signal_toggle()
+    mesh = None
+    if _dist_args is not None:
+        coordinator, world, rank = _dist_args
+        parallel.initialize_distributed(coordinator, world if coordinator else None, rank,
+                                        device=device)
+        mesh = parallel.parse_mesh_spec(flags.mesh, device_type=device.type)
+        device = resolve(flags.device)  # the card the rank was bound to
 
     model = make_model(flags, device)
     rng = np.random.default_rng(flags.seed)
     tokens0 = torch.from_numpy(make_batch(rng, flags)).to(device)
     opt = make_optimizer(model.parameters(), flags.learning_rate)
     half = flags.seq_len // 2
+    elastic = bool(flags.address or flags.connect or flags.broker_addrs)
 
     def fwd_bwd(tokens):
         opt.zero_grad(set_to_none=True)
@@ -273,11 +362,23 @@ def train(flags, on_stats=None) -> dict:
         loss.backward()
         return loss.detach(), acc
 
-    def step(tokens):
-        with telemetry.devmon.dispatch_span("lm.step"):
-            loss, acc = fwd_bwd(tokens)
-            opt.step()
-        return loss, acc
+    if mesh is not None and not elastic:
+        # A static mesh: every rank runs the same loop; the step averages
+        # the gradients over dp before the (replicated) AdamW update.
+        mstep = parallel.make_train_step(
+            lambda p, b, r: copy_task_loss(model(b), b, half), optimizer=opt, mesh=mesh,
+            batch_spec=parallel.PartitionSpec("dp", None))
+        named_all = dict(model.named_parameters())
+
+        def step(tokens):
+            _, _, loss, acc = mstep(named_all, None, tokens, None)
+            return loss, acc
+    else:
+        def step(tokens):
+            with telemetry.devmon.dispatch_span("lm.step"):
+                loss, acc = fwd_bwd(tokens)
+                opt.step()
+            return loss, acc
 
     # Durable state: manifest-validated checkpoints; resume picks the
     # newest INTACT one (corruption costs one interval).  Not restored: the
@@ -287,17 +388,48 @@ def train(flags, on_stats=None) -> dict:
     start_step = 0
     ckpt_info = {"restored_step": None, "restore_s": None, "saves": 0,
                  "save_s": None, "bytes": None}
-    if flags.checkpoint_dir:
+    dckpt = restored_opt = None
+    rank0 = mesh is None or mesh.get_local_rank("dp") == 0
+    if flags.checkpoint_dir and elastic and flags.shard_grads:
+        # Sharded cohorts checkpoint as a DISTRIBUTED artifact: every host
+        # writes its shard of the state blob, the leader two-phase-commits
+        # the cohort manifest, and restore re-cuts onto whatever cohort
+        # size shows up.  Every rank of a mesh host restores the same
+        # committed blob (the files are shared).
+        from ..checkpoint import DistributedCheckpointer
+        from .common import copy_into
+
+        dckpt = DistributedCheckpointer(flags.checkpoint_dir)
+
+    def restore() -> int:
+        if dckpt is None:
+            return resume(ckpt, model, opt, device)
+        r = dckpt.restore(map_location=device)
+        if r is None:
+            return 0
+        nonlocal restored_opt
+        committed, (params, _buffers, st) = r
+        with torch.no_grad():
+            copy_into(dict(model.named_parameters()), params)
+        restored_opt = st["opt_state"]
+        if mesh is None:
+            _load_adamw_state(opt, restored_opt)
+        return committed
+
+    if flags.checkpoint_dir and dckpt is None:
         ckpt = Checkpointer(flags.checkpoint_dir)
+    if flags.checkpoint_dir:
         t0 = time.perf_counter()
-        start_step = resume(ckpt, model, opt, device)
+        start_step = restore()
         if start_step:
             ckpt_info["restored_step"] = start_step
             ckpt_info["restore_s"] = time.perf_counter() - t0
-            if not flags.quiet:
+            if not flags.quiet and rank0:
                 print(f"resumed from checkpoint step {start_step}", flush=True)
 
     def save_checkpoint(steps):
+        if not rank0:
+            return  # one copy of a static mesh's replicated state
         t0 = time.perf_counter()
         path = ckpt.save(steps, checkpoint_state(model, opt, steps))
         ckpt_info["save_s"] = time.perf_counter() - t0
@@ -315,11 +447,20 @@ def train(flags, on_stats=None) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
-    if flags.address or flags.connect or flags.broker_addrs:
+    if elastic:
+        host = None
+        if mesh is not None:
+            host = _MeshHost(flags, mesh, model, rng, device)
+            if restored_opt is not None:
+                host.load_opt_local(restored_opt)
+            if host.rank != 0:
+                return host.follow()
+        # A failing rank 0 leaves its other ranks waiting on a command: the
+        # host that spawned them kills them (torchrun tears its group down).
         return _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
                               on_stats=on_stats, start_step=start_step,
                               save_checkpoint=save_checkpoint if ckpt else None,
-                              ckpt_info=ckpt_info)
+                              ckpt_info=ckpt_info, host=host, dckpt=dckpt)
 
     start = time.time()
     last_ckpt = start
@@ -341,7 +482,7 @@ def train(flags, on_stats=None) -> dict:
                 step_s = timer.summary().get("train_step")
                 if step_cost is not None and step_s:
                     mfu_info = telemetry.devmon.publish_step("lm.step", step_cost, step_s)
-                if not flags.quiet:
+                if not flags.quiet and rank0:
                     mfu_s = (f" mfu={mfu_info['mfu']:.3%} bound={mfu_info['bound']}"
                              if mfu_info is not None else "")
                     # Overlap attribution from the last timeline window,
@@ -384,7 +525,20 @@ def train(flags, on_stats=None) -> dict:
         "tokens_per_s": (steps_done - start_step) * flags.batch_size * flags.seq_len
         / max(elapsed, 1e-6),
         "checkpoint": ckpt_info,
+        "rank": 0 if mesh is None else mesh.get_local_rank("dp"),
+        "params_sha256": params_sha256(dict(model.named_parameters())),
     }
+
+
+def params_sha256(named) -> str:
+    """sha256 of the f32 parameters in name order (the cohort-equality
+    check)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(named):
+        h.update(named[k].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _load_adamw_state(opt, state) -> None:
@@ -397,14 +551,198 @@ def _load_adamw_state(opt, state) -> None:
     opt.load_state_dict(state)
 
 
+class _MeshHost:
+    """The ranks of one mesh host in an elastic cohort.  Rank 0 holds the
+    host's Accumulator peer and decides; before each piece of work it
+    broadcasts one command (and an argument) over the mesh, and the other
+    ranks, in :meth:`follow`, run the same method.  Every method below is
+    entered by every rank in the same order (its collectives are matched).
+
+    Parameters stay whole on every rank (the forward needs them whole).
+    The gradients and the AdamW moments are sharded over ``dp`` in the
+    fsdp layout (``parallel.param_shardings(..., "fsdp")``): the optimizer
+    runs over this rank's blocks (views into the parameters), ZeRO-style,
+    and ``parallel.redistribute`` gathers the updated blocks."""
+
+    LEARN, APPLY, OPT_OUT, STATE_IN, STOP = range(1, 6)
+
+    def __init__(self, flags, mesh, model, rng, device):
+        self.flags, self.mesh, self.model, self.rng, self.device = flags, mesh, model, rng, device
+        self.control = common.MeshControl(mesh, device)
+        self.rank = self.control.rank
+        self.named = dict(model.named_parameters())  # model order: AdamW's indices
+        self.shardings = parallel.param_shardings(self.named, mesh, "fsdp")
+        self._flat_sh = nest.tree_leaves(self.shardings)
+        with torch.no_grad():
+            self.blocks = {k: parallel.shard_of(p.detach(), self.shardings[k])
+                           for k, p in self.named.items()}
+        self.opt = make_optimizer(self.blocks.values(), flags.learning_rate)
+        half = flags.seq_len // 2
+        self.step = parallel.make_train_step(
+            lambda p, b, r: copy_task_loss(model(b), b, half), mesh=mesh,
+            params_sharding="fsdp", grad_spec="params",
+            batch_spec=parallel.PartitionSpec("dp", None), overlap_grads=flags.overlap_grads)
+
+    def command(self, cmd: int, arg: int = 0) -> None:
+        """Rank 0: tell the other ranks what comes next."""
+        self.control.send(cmd, arg)
+
+    # -------------------------------------------------------------- work
+    def learn(self):
+        """One forward/backward on this rank's block of the host batch (every
+        rank draws the same host batch from the same seeded stream).
+        Returns (loss, acc, grads): ``grads`` is a tree of DTensors, or the
+        GradientStream on rank 0 under ``--overlap_grads`` (None on the
+        others, whose part ended inside the backward's hooks)."""
+        tokens = torch.from_numpy(make_batch(self.rng, self.flags)).to(self.device)
+        return self.step(self.named, tokens, None)
+
+    def apply(self, grads) -> None:
+        """ZeRO-style apply of the cohort mean ``grads`` (full, on rank 0;
+        None elsewhere): rank 0 scatters each rank its blocks, every rank
+        runs AdamW on them, and the updated blocks are gathered back into
+        the whole parameters."""
+        blocks = parallel.scatter_shards(grads, self.named, self._flat_sh, self.mesh)
+        for k, g in zip(sorted(self.named), blocks):
+            self.blocks[k].grad = g
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
+        sharded = {k: parallel.collectives._dtensor(self.blocks[k], sh, tuple(self.named[k].shape))
+                   for k, sh in self.shardings.items() if any(s is not None for s in sh.spec)}
+        full = parallel.redistribute(sharded, parallel.replicated(self.mesh))
+        with torch.no_grad():
+            for k, t in full.items():
+                self.named[k].copy_(t.to_local())
+
+    def _dtensor_moments(self):
+        """This rank's AdamW moments as DTensors, per param index."""
+        names = list(self.named)
+        out = {}
+        for i, st in self.opt.state_dict()["state"].items():
+            k = names[i]
+            out[i] = {m: parallel.collectives._dtensor(st[m], self.shardings[k],
+                                                       tuple(self.named[k].shape))
+                      for m in ("exp_avg", "exp_avg_sq")}
+        return out
+
+    def opt_full(self):
+        """The host's AdamW state as one whole-parameter ``state_dict`` on
+        rank 0 (None elsewhere): the shape a one-device peer sends."""
+        sd = self.opt.state_dict()
+        moments = parallel.gather_full(self._dtensor_moments(), dst=0)
+        if moments is None:
+            return None
+        for i, m in moments.items():
+            sd["state"][i] = dict(sd["state"][i], **m)
+        return sd
+
+    def load_opt_local(self, sd) -> None:
+        """Load a whole-parameter AdamW ``state_dict`` that every rank holds
+        (a restored checkpoint): each rank keeps its blocks."""
+        names = list(self.named)
+        local = {"param_groups": sd["param_groups"], "state": {}}
+        for i, st in sd["state"].items():
+            k = names[int(i)]
+            local["state"][int(i)] = {
+                m: (parallel.shard_of(v.to(self.device), self.shardings[k])
+                    if m in ("exp_avg", "exp_avg_sq") else v) for m, v in st.items()}
+        _load_adamw_state(self.opt, local)
+
+    def load_state(self, params, sd, n_state: int) -> None:
+        """Rank 0 received the leader's model and AdamW state (``params``,
+        ``sd``; None elsewhere): every rank takes the whole parameters and
+        its blocks of the moments."""
+        whole = parallel.scatter_shards(params, self.named, [None] * len(self.named), self.mesh)
+        with torch.no_grad():
+            for k, t in zip(sorted(self.named), whole):
+                self.named[k].copy_(t)
+        names = list(self.named)
+        state = {}
+        for i in range(n_state):
+            k = names[i]
+            src = sd["state"][i] if sd is not None else None
+            got = parallel.scatter_shards(
+                None if src is None else {"a": src["exp_avg"], "b": src["exp_avg_sq"]},
+                {"a": self.named[k], "b": self.named[k]}, [self.shardings[k]] * 2, self.mesh)
+            steps = parallel.scatter_shards(
+                None if src is None else {"s": torch.as_tensor(src["step"], dtype=torch.float32)
+                                          .reshape(1).to(self.named[k].device)},
+                {"s": torch.zeros(1, device=self.named[k].device)}, [None], self.mesh)[0]
+            state[i] = {"step": steps.reshape(()).cpu(), "exp_avg": got[0],
+                        "exp_avg_sq": got[1]}
+        groups = self.opt.state_dict()["param_groups"]
+        _load_adamw_state(self.opt, {"param_groups": groups, "state": state})
+
+    # ----------------------------------------------------------- control
+    def follow(self) -> dict:
+        """The loop of ranks other than 0: run what rank 0 commands until it
+        says stop.  Returns this rank's summary."""
+        while True:
+            cmd, arg = self.control.receive()
+            if cmd == self.LEARN:
+                _, _, grads = self.learn()
+                if not self.flags.overlap_grads:
+                    parallel.gather_full(grads, dst=0)
+            elif cmd == self.APPLY:
+                self.apply(None)
+            elif cmd == self.OPT_OUT:
+                self.opt_full()
+            elif cmd == self.STATE_IN:
+                self.load_state(None, None, arg)
+            elif cmd == self.STOP:
+                break
+            else:
+                raise RuntimeError(f"lm mesh rank {self.rank}: unknown command {cmd}")
+        return self.stop(summary=self.summary())
+
+    def summary(self) -> dict:
+        from ..ops import flash_attention as fa
+
+        reg = telemetry.get_registry()
+        return {
+            "rank": self.rank,
+            "launches": {"flash_fwd": fa.flash_fwd_launches(),
+                         "flash_bwd_dq": fa.flash_bwd_dq_launches(),
+                         "flash_bwd_dkv": fa.flash_bwd_dkv_launches()},
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(self.device)
+                                     if self.device.type == "cuda" else 0),
+            "host_staged_bytes": _counter(reg, "collectives_host_staged_bytes_total"),
+            "psum_seconds": _hist_sum(reg, "accum_psum_seconds"),
+            "params_sha256": params_sha256(self.named),
+        }
+
+    def stop(self, summary=None):
+        """Rank 0: release the other ranks and gather every rank's summary
+        (returned on rank 0).  The others: send theirs."""
+        if self.rank == 0:
+            self.command(self.STOP)
+        out = self.control.gather_objects(summary if summary is not None else self.summary())
+        return out if self.rank == 0 else out[self.rank]
+
+
+def _counter(reg, name: str) -> float:
+    fam = reg.snapshot().get(name) or {}
+    return float(sum(s.get("value", 0.0) for s in fam.get("series", ())))
+
+
+def _hist_sum(reg, name: str) -> float:
+    fam = reg.snapshot().get(name) or {}
+    return float(sum(s["value"].get("sum", 0.0) for s in fam.get("series", ())
+                     if isinstance(s.get("value"), dict)))
+
+
 def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
                    on_stats=None, start_step=0, save_checkpoint=None,
-                   ckpt_info=None) -> dict:
+                   ckpt_info=None, host=None, dckpt=None) -> dict:
     """Elastic data-parallel LM training over the Accumulator cohort: the
     wants/has gradient protocol the RL agents ride (leader election, model
     sync, virtual batches, wire compression), applied unchanged to
     TransformerLM.  Peers join/leave freely; a joiner adopts the leader's
-    model and AdamW state (JAX package ``examples/lm.py:500-865``)."""
+    model and AdamW state (JAX package ``examples/lm.py:500-865``).
+
+    With a mesh ``host`` (rank 0 of a ``--mesh dp=N --shard_grads`` host)
+    every learn, apply and state transfer is a ``_MeshHost`` step the other
+    ranks take with it; ``dckpt`` is the distributed checkpoint plane."""
     import os as _os
 
     from .. import Accumulator, Broker
@@ -466,6 +804,10 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
         # Leader election prefers the restored peer.
         acc.set_model_version(start_step)
     acc.listen()
+    if flags.shard_grads:
+        # Wire protocol: every cohort peer must enable the sharded plane
+        # (the per-range ops replace the single full-tree op).
+        acc.set_sharded_allreduce(True)
     if flags.virtual_batch_size:
         acc.set_virtual_batch_size(flags.virtual_batch_size)
     if flags.wire_dtype == "bf16":
@@ -484,9 +826,18 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
         publisher = ModelPublisher(acc.rpc, name=flags.publish_channel)
         acc.add_model_version_callback(lambda v: announced_version.__setitem__(0, v))
 
+    ostep = None
+    if flags.overlap_grads and host is None:
+        # One backward whose hooks stream the gradients into the round.
+        half = flags.seq_len // 2
+        ostep = parallel.make_train_step(
+            lambda p, b, r: copy_task_loss(model(b), b, half), overlap_grads=True)
+
     steps_done = start_step
     applied = 0
     loss_v = acc_v = None
+    exposed = []  # per round: step returned -> result ready (s)
+    t_grads = None
     start = time.time()
     last_ckpt = start
     full_applies = []  # apply times while the cohort had --min_cohort members
@@ -500,25 +851,64 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
     # *progress* stalls (wedged reduce, lost cohort) fires even though no
     # single section is stuck.
     progress_token = wd.arm("step_progress")
+    if dckpt is not None:
+        # Distributed snapshots ride the accumulator's step lockstep: the
+        # leader broadcasts a future boundary and every member captures its
+        # shard asynchronously (checkpoint_tick below).
+        acc.enable_distributed_checkpoint(dckpt, interval=flags.checkpoint_interval,
+                                          aux_fn=lambda: {"steps": steps_done})
+    opt_snapshot = {}
+
+    def mesh_op():
+        """A mesh host's rank 0 keeps pinging the broker while it waits in
+        the mesh's collectives (seconds each at full width)."""
+        import contextlib
+
+        if host is None:
+            return contextlib.nullcontext()
+        return common.pumping([acc._group, broker])
+
+    def opt_state_dict():
+        if host is None:
+            return opt.state_dict()
+        with mesh_op():
+            host.command(host.OPT_OUT)
+            return host.opt_full()
+
+    def ckpt_state_fn():
+        # A mesh host gathers its sharded AdamW state before the tick that
+        # may capture (below); the tick itself runs no collective.
+        return {"opt_state": opt_snapshot.pop("v") if host is not None else opt.state_dict()}
+
     try:
         while steps_done < flags.steps:
             if broker is not None:
                 broker.update()
             acc.update()
+            if dckpt is not None:
+                if host is not None and acc.checkpoint_capture_due():
+                    opt_snapshot["v"] = opt_state_dict()
+                acc.checkpoint_tick(state_fn=ckpt_state_fn)
             if scaler is not None:
                 scaler.step()  # self-rate-limited supervision tick
             if decommission_requested(flags.localdir):
                 decommissioning = True
                 break  # drain + graceful __broker_leave in finally
             if acc.wants_state():
-                acc.set_state({"opt_state": opt.state_dict(), "steps": steps_done})
+                acc.set_state({"opt_state": opt_state_dict(), "steps": steps_done})
             if acc.has_new_state():
                 st = acc.state()
                 if st is not None:
                     from .common import copy_into
 
-                    copy_into(named, acc.parameters())
-                    _load_adamw_state(opt, st["opt_state"])
+                    if host is not None:
+                        n_state = len(st["opt_state"]["state"])
+                        with mesh_op():
+                            host.command(host.STATE_IN, n_state)
+                            host.load_state(acc.parameters(), st["opt_state"], n_state)
+                    else:
+                        copy_into(named, acc.parameters())
+                        _load_adamw_state(opt, st["opt_state"])
                     acc.set_parameters(named)
                     steps_done = max(steps_done, int(st["steps"]))
             if not acc.connected() or (applied and acc.cohort_size() < flags.min_cohort):
@@ -532,11 +922,20 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
                     if stats["batch_size"] < flags.virtual_batch_size:
                         print(f"vbatch_violation: {stats} "
                               f"target={flags.virtual_batch_size}", flush=True)
+                if t_grads is not None:
+                    # mtlint: allow-bare-timer(the end of the exposed-comm interval opened at the learn)
+                    exposed.append(time.perf_counter() - t_grads)
+                    t_grads = None
                 with timer.section("apply"), wd.section("apply"):
                     grads = acc.gradients()
-                    for k, p in named.items():
-                        p.grad = grads[k]
-                    opt.step()
+                    if host is not None:
+                        with mesh_op():
+                            host.command(host.APPLY)
+                            host.apply(grads)
+                    else:
+                        for k, p in named.items():
+                            p.grad = grads[k]
+                        opt.step()
                     acc.set_parameters(named)
                     acc.zero_gradients()
                 steps_done += 1
@@ -570,12 +969,21 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
                     save_checkpoint(steps_done)
             elif acc.wants_gradients():
                 with timer.section("learn"), wd.section("learn"), \
-                        telemetry.devmon.dispatch_span("lm.step"):
-                    tokens = torch.from_numpy(make_batch(rng, flags)).to(device)
-                    loss, a = fwd_bwd(tokens)
+                        telemetry.devmon.dispatch_span("lm.step"), mesh_op():
+                    if host is not None:
+                        host.command(host.LEARN)
+                        loss, a, grads = host.learn()
+                    else:
+                        tokens = torch.from_numpy(make_batch(rng, flags)).to(device)
+                        if ostep is not None:
+                            loss, a, grads = ostep(named, tokens, None)
+                        else:
+                            loss, a = fwd_bwd(tokens)
+                            grads = {k: p.grad for k, p in named.items()}
+                    # mtlint: allow-bare-timer(exposed comm spans loop iterations; the summary lists each round)
+                    t_grads = time.perf_counter()
+                    acc.reduce_gradients(flags.batch_size, grads)
                     loss_v, acc_v = float(loss), float(a)
-                    acc.reduce_gradients(flags.batch_size,
-                                         {k: p.grad for k, p in named.items()})
             else:
                 time.sleep(0.002)
         # Leave together: a peer that applied the last result first (and may
@@ -585,15 +993,14 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
 
         if not decommissioning:
             finish_together(acc._group, [b for b in (broker,) if b] + [acc])
-        import hashlib
-
-        h = hashlib.sha256()
-        for k in sorted(named):
-            h.update(named[k].detach().float().cpu().numpy().tobytes())
-        cohort_end = {"params_sha256": h.hexdigest(), "model_version": acc.model_version(),
+        cohort_end = {"params_sha256": params_sha256(named), "model_version": acc.model_version(),
+                      "n_params": sum(p.numel() for p in named.values()),
                       "is_leader": acc.is_leader(), "recovery": acc.recovery_info()}
+        ranks = host.stop() if host is not None else None
     finally:
         wd.close()
+        if dckpt is not None:
+            dckpt.close()
         if save_checkpoint is not None and steps_done > start_step and acc.is_leader():
             try:
                 save_checkpoint(steps_done)
@@ -633,11 +1040,18 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
         "decommissioned": decommissioning,
         "checkpoint": ckpt_info,
         "accumulator": info,
+        "exposed_comm_s": exposed,
+        "ranks": ranks,
+        "checkpoint_stats": dckpt.stats() if dckpt is not None else None,
         **cohort_end,
     }
 
 
 def main(argv=None):
+    flags = common.mesh_flags_from_env()
+    if flags is not None:  # a mesh rank spawned by its host's rank 0
+        train(flags)
+        return
     out = train(make_flags(argv))
     print(out)
 

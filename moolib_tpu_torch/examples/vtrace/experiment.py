@@ -56,6 +56,7 @@ from ...models.actor_critic import ActorCriticNet
 from ...models.impala import ImpalaNet
 from ...ops import vtrace
 from ...ops.returns import entropy_loss, softmax_cross_entropy
+from ...utils import nest
 from ...utils.profiling import StepTimer
 from ...watchdog import Watchdog
 from .. import common
@@ -144,8 +145,9 @@ def make_flags(argv=None):
                    "Checkpointer directory; a start resumes from it")
     p.add_argument("--checkpoint_interval", type=float, default=600.0)
     p.add_argument("--checkpoint_dir", default=None,
-                   help="distributed checkpoint plane for --shard_grads cohorts "
-                   "(not yet ported: slice 9)")
+                   help="distributed checkpoint plane for --shard_grads cohorts: "
+                   "each peer writes its shard, the leader two-phase-commits, "
+                   "a start restores the newest committed checkpoint")
     p.add_argument("--trace_dir", default=None,
                    help="torch.profiler window over the first 30 s of training")
     p.add_argument("--compile_cache_dir", default=None,
@@ -160,11 +162,17 @@ def make_flags(argv=None):
                    help="maximum supervised workers under --autoscale")
     p.add_argument("--autoscale_interval", type=float, default=2.0,
                    help="supervision poll cadence seconds under --autoscale")
-    # Flags of the JAX example whose planes the port has not yet, with the
-    # JAX defaults; unported() names the ones set and their slice.
-    p.add_argument("--mesh", default=None, help="not yet ported")
-    for flag in ("shard_grads", "overlap_grads"):
-        p.add_argument(f"--{flag}", action="store_true", help="not yet ported")
+    p.add_argument("--shard_grads", action="store_true",
+                   help="sharded inter-host rounds: each peer ships (N-1)/N of the "
+                   "flat gradient payload (wire protocol: set on every peer)")
+    p.add_argument("--overlap_grads", action="store_true",
+                   help="stream the gradients from the backward's hooks into the "
+                   "allreduce bucket by bucket; bit-identical results")
+    p.add_argument("--mesh", default=None,
+                   help='learner mesh axes, e.g. "dp=2": one rank process each '
+                   "(spawned by this process, or started by torchrun)")
+    # A flag of the JAX example whose plane the port has not yet;
+    # unported() names it and its slice.
     p.add_argument("--actor_mesh", type=int, default=0, help="not yet ported")
     p.add_argument("--env_backend", default="envpool", choices=["envpool", "jax"],
                    help="envpool: host envs in worker processes; jax: batched "
@@ -312,11 +320,135 @@ def unported(flags) -> list:
     """(flag, slice) for every flag set to a plane the port does not have
     yet."""
     out = []
-    for flag, slice_ in (("mesh", 9), ("actor_mesh", 9), ("shard_grads", 9),
-                         ("overlap_grads", 9)):
-        if flags.get(flag):
-            out.append((f"--{flag}", slice_))
+    if flags.get("actor_mesh"):
+        out.append(("--actor_mesh", "9c"))
+    from ... import parallel
+
+    other = [k for k, v in parallel.mesh.parse_axes(flags.get("mesh") or "").items()
+             if k != "dp" and v != 1]
+    if other:
+        out.append((f"--mesh axes {other}", "9b"))
     return out
+
+
+class _MeshLearner:
+    """The rank processes of a ``--mesh dp=N`` learner.  Rank 0 runs the
+    whole loop (actors, Batcher, Accumulator); before each learn, apply or
+    model sync it broadcasts one command, and the other ranks, in
+    :meth:`follow`, take the same step with it.  A learn broadcasts the
+    learner batch and every rank takes its ``dp`` block; the step reduces
+    the gradients over the mesh into the ``auto_shardings`` layout
+    (fsdp over ``dp`` for big leaves) as ``DTensor``s, which the
+    Accumulator gathers onto rank 0.  The apply broadcasts the cohort
+    mean and every rank runs the same optimizer update (the optimizer's
+    global-norm clip needs the whole gradient)."""
+
+    LEARN, APPLY, STATE_IN, STOP = range(1, 5)
+
+    def __init__(self, flags, mesh, model, opt, named, device):
+        from ... import parallel
+
+        self.flags, self.mesh, self.model, self.opt = flags, mesh, model, opt
+        self.named, self.device = named, device
+        self.control = common.MeshControl(mesh, device)
+        self.rank = self.control.rank
+        self._n = parallel.mesh.axis_sizes(mesh)["dp"]
+        self.step = parallel.make_train_step(
+            lambda p, b, r: compute_loss(b[0], b[1], model, flags), mesh=mesh,
+            grad_spec=parallel.auto_shardings(named, mesh),
+            batch_spec=parallel.PartitionSpec())
+
+    def command(self, cmd: int) -> None:
+        self.control.send(cmd)
+
+    def _block(self, x, dim: int):
+        return x.chunk(self._n, dim=dim)[self.rank].contiguous()
+
+    def learn(self, batch=None, initial_core=None):
+        """Returns (loss, aux, grads): this rank's loss on its block and the
+        DTensor gradients.  ``batch`` is [T+1, B, ...] (B over dp), the
+        core state [B, ...]."""
+        from ...parallel import broadcast_tree
+
+        batch, initial_core = broadcast_tree(
+            (batch, initial_core) if self.rank == 0 else None, self.mesh, self.device)
+        local = (nest.tree_map(lambda x: self._block(x, 1), batch),
+                 nest.tree_map(lambda x: self._block(x, 0), initial_core))
+        return self.step(self.named, local, None)
+
+    def apply(self, grads=None) -> None:
+        from ...parallel import broadcast_tree
+
+        grads = broadcast_tree(grads if self.rank == 0 else None, self.mesh, self.device)
+        for k, p in self.named.items():
+            p.grad = grads[k]
+        self.opt.step()
+
+    def load_state(self) -> None:
+        """Every rank takes rank 0's parameters and optimizer state."""
+        from ...parallel import broadcast_tree
+
+        got = broadcast_tree((self.named, self.opt.state) if self.rank == 0 else None,
+                             self.mesh, self.device)
+        if self.rank != 0:
+            common.copy_into(self.named, got[0])
+            common.copy_into(self.opt.state, got[1])
+
+    def follow(self) -> dict:
+        from ...parallel import gather_full
+
+        while True:
+            cmd, _ = self.control.receive()
+            if cmd == self.LEARN:
+                gather_full(self.learn()[2], dst=0)
+            elif cmd == self.APPLY:
+                self.apply()
+            elif cmd == self.STATE_IN:
+                self.load_state()
+            elif cmd == self.STOP:
+                break
+            else:
+                raise RuntimeError(f"vtrace mesh rank {self.rank}: unknown command {cmd}")
+        return self._summaries()[self.rank]
+
+    def _summaries(self) -> list:
+        import hashlib
+
+        h = hashlib.sha256()
+        for k in sorted(self.named):
+            h.update(self.named[k].detach().float().cpu().numpy().tobytes())
+        return self.control.gather_objects({"rank": self.rank, "params_sha256": h.hexdigest()})
+
+    def stop(self) -> list:
+        """Rank 0: release the other ranks; returns every rank's summary."""
+        self.command(self.STOP)
+        return self._summaries()
+
+
+def _mesh_world(flags) -> int:
+    """Ranks of the learner's ``--mesh`` (0: no mesh), after the JAX
+    example's flag rules."""
+    from ... import parallel
+
+    axes = parallel.mesh.parse_axes(flags.mesh or "")
+    if not axes:
+        return 0
+    if flags.overlap_grads:
+        raise ValueError(
+            "--overlap_grads is the unmeshed learner's overlap plane; with "
+            "--mesh the step already reduces gradients over the mesh inside "
+            "the step (drop one of the two flags)")
+    if flags.coordinator:
+        raise ValueError("--mesh and --coordinator both join a torch.distributed "
+                         "process group; pass one")
+    if flags.batch_size % axes.get("dp", 1):
+        raise ValueError("the dp mesh axis size must divide --batch_size")
+    if any(v == -1 for v in axes.values()):
+        if "WORLD_SIZE" not in os.environ:
+            raise ValueError("--mesh with a -1 axis needs the world size: start the "
+                             "ranks with torchrun, or give every axis its size")
+        return int(os.environ["WORLD_SIZE"])
+    return math.prod(axes.values())
 
 
 def _use_checkpointer(path: str) -> bool:
@@ -356,23 +488,35 @@ def load_checkpoint(path, device):
     return torch.load(path, map_location=device)
 
 
-def train(flags, on_stats=None) -> dict:
+def train(flags, on_stats=None, _dist_args=()) -> dict:
     """The JAX package's IMPALA loop, step for step (``experiment.py:401``):
     EnvPool actors, the device rollout (or the host batcher), the learn
     Batcher, the Accumulator cohort (leader election, model sync, virtual
     batches, wire compression), V-trace on the card, the optax-form
     optimizer, the cohort stats reduce, the watchdog and the TSV log.
     Returns the run's summary (steps, episodes, sgd_steps, the mean episode
-    return, sps, mfu)."""
+    return, sps, mfu).
+
+    ``--mesh dp=N``: the learner is N rank processes (``_MeshLearner``);
+    started without ``RANK`` this process is rank 0 and spawns the others
+    (``_dist_args``: this rank's ``(coordinator, world, rank)``)."""
     missing = unported(flags)
     if missing:
         raise SystemExit("; ".join(f"{f}: not yet ported (slice {n})" for f, n in missing))
-    if flags.checkpoint_dir:
+    if flags.checkpoint_dir and not flags.shard_grads:
         raise ValueError(
             "--checkpoint_dir is the distributed checkpoint plane and "
             "requires --shard_grads (use --checkpoint for single-host "
             "snapshots)"
         )
+    if _dist_args == ():
+        world = _mesh_world(flags)
+        if world and "RANK" not in os.environ:
+            return common.run_mesh_host(train, "moolib_tpu_torch.examples.vtrace.experiment",
+                                        flags, on_stats, world)
+        _dist_args = (None, world, None) if world else None
+    follower = _dist_args is not None and int(
+        _dist_args[2] if _dist_args[2] is not None else os.environ["RANK"]) != 0
     # Before the first kernel load (--compile_cache_dir /
     # MOOLIB_COMPILE_CACHE; no-op when neither is set).
     utils.init_compile_cache(flags.compile_cache_dir)
@@ -387,7 +531,18 @@ def train(flags, on_stats=None) -> dict:
     _faults.install_from_env()  # opt-in chaos (MOOLIB_FAULTS; no-op unset)
 
     jax_env = None
-    if flags.env_backend == "jax":
+    if follower:
+        # A mesh rank other than 0 runs no actors: rank 0 sends its batches.
+        if flags.env_backend == "jax":
+            from ...envs import make_jax_env
+
+            jax_env = make_jax_env(flags.env)
+            num_actions, obs_shape = jax_env.num_actions, tuple(jax_env.obs_spec[0])
+            jax_env = None
+        else:
+            _, num_actions, obs_shape = make_env_factory(flags)
+        envs = []
+    elif flags.env_backend == "jax":
         # Anakin: the env lives on the device; no worker processes at all.
         from ...envs import make_jax_env
 
@@ -420,10 +575,25 @@ def train(flags, on_stats=None) -> dict:
             rank=flags.process_id,
         )
 
+    mesh = host = None
+    if _dist_args is not None:
+        # After the pools forked: a CUDA rank binds its card here.
+        from ... import parallel
+
+        coordinator, world, rank = _dist_args
+        parallel.initialize_distributed(coordinator, world if coordinator else None, rank,
+                                        device=device)
+        mesh = parallel.parse_mesh_spec(flags.mesh, device_type=device.type)
+        device = resolve(flags.device)
+
     gen = torch.Generator().manual_seed(flags.seed)
     model = make_model(flags, num_actions, obs_shape, device=device, generator=gen)
     opt = make_optimizer(model.parameters(), flags)
     named = dict(model.named_parameters())
+    if mesh is not None:
+        host = _MeshLearner(flags, mesh, model, opt, named, device)
+        if follower:
+            return host.follow()
     B = flags.actor_batch_size
     T = flags.unroll_length
 
@@ -434,6 +604,18 @@ def train(flags, on_stats=None) -> dict:
         loss, aux = compute_loss(batch, initial_core, model, flags)
         loss.backward()
         return loss.detach(), aux, {k: p.grad for k, p in named.items()}
+
+    if flags.overlap_grads:
+        # One backward whose hooks stream the gradients into the round
+        # (bit-identical to learn_step's tree).
+        from ... import parallel
+
+        _ostep = parallel.make_train_step(
+            lambda p, b, r: compute_loss(b[0], b[1], model, flags), overlap_grads=True)
+
+        def learn_step(batch, initial_core):  # noqa: F811 — the streaming form
+            loss, aux, stream = _ostep(named, (batch, initial_core), None)
+            return loss.detach(), aux, stream
 
     steps_done = 0
     model_version = 0
@@ -446,6 +628,19 @@ def train(flags, on_stats=None) -> dict:
             if not flags.quiet:
                 print(f"resumed from checkpoint steps={steps_done} "
                       f"model_version={model_version}", flush=True)
+    dckpt = None
+    if flags.checkpoint_dir:
+        from ...checkpoint import DistributedCheckpointer
+
+        dckpt = DistributedCheckpointer(flags.checkpoint_dir)
+        r = dckpt.restore(map_location=device)
+        if r is not None:
+            # The committed step IS the model version the cohort agreed on
+            # at capture; election then prefers this restored peer.
+            model_version, (params, _buffers, st) = r
+            common.copy_into(named, params)
+            common.copy_into(opt.state, st["opt_state"])
+            print(f"resumed from checkpoint step {model_version}", flush=True)
 
     # --- cohort wiring ---------------------------------------------------
     broker: Optional[Broker] = None
@@ -513,6 +708,10 @@ def train(flags, on_stats=None) -> dict:
         rpc_group.set_brokers(connect_addrs)
     accumulator = Accumulator("model", named, buffers=None, group=rpc_group)
     accumulator.set_virtual_batch_size(flags.virtual_batch_size)
+    if flags.shard_grads:
+        # Sharded inter-host rounds.  Wire protocol: identical on every
+        # cohort peer.
+        accumulator.set_sharded_allreduce(True)
     accumulator.set_model_version(model_version)
     if flags.ici:
         accumulator.set_ici_backend(True)
@@ -553,6 +752,15 @@ def train(flags, on_stats=None) -> dict:
     # per geometry), combined with the StepTimer "learn" EMA into step_mfu.
     devmon_cost: dict = {}
     wd = Watchdog(timeout=flags.watchdog, name="impala")
+    if dckpt is not None:
+        # Distributed snapshots ride the accumulator's model-version
+        # lockstep; a hung shard write fires the watchdog.  The env-step
+        # total is host-local, so it rides the leader-broadcast aux dict;
+        # state_fn returns only lockstep-replicated values.
+        dckpt.set_watchdog(wd)
+        accumulator.enable_distributed_checkpoint(
+            dckpt, interval=flags.checkpoint_interval,
+            aux_fn=lambda: {"steps": int(stats["steps_done"].value)})
 
     tsv = None
     if flags.localdir:
@@ -683,6 +891,8 @@ def train(flags, on_stats=None) -> dict:
                 broker.update()
             rpc_group.update()
             accumulator.update()
+            if dckpt is not None:
+                accumulator.checkpoint_tick(state_fn=lambda: {"opt_state": opt.state})
             if scaler is not None:
                 scaler.step()  # self-rate-limited supervision tick
             if not decommissioning and decommission_requested(flags.localdir):
@@ -702,6 +912,9 @@ def train(flags, on_stats=None) -> dict:
                     # tensors (the accumulator keeps the live tree).
                     common.copy_into(named, accumulator.parameters())
                     common.copy_into(opt.state, st["opt_state"])
+                    if host is not None:
+                        host.command(host.STATE_IN)
+                        host.load_state()
                     accumulator.set_parameters(named)
 
             if not accumulator.connected() or (
@@ -733,9 +946,13 @@ def train(flags, on_stats=None) -> dict:
                 with timer.section("apply"), wd.section("apply"), \
                         telemetry.devmon.dispatch_span("vtrace.opt_apply"):
                     grads = accumulator.gradients()
-                    for k, p in named.items():
-                        p.grad = grads[k]
-                    opt.step()
+                    if host is not None:
+                        host.command(host.APPLY)
+                        host.apply(grads)
+                    else:
+                        for k, p in named.items():
+                            p.grad = grads[k]
+                        opt.step()
                     accumulator.set_parameters(named)
                     accumulator.zero_gradients()
                 stats["sgd_steps"] += 1
@@ -749,7 +966,11 @@ def train(flags, on_stats=None) -> dict:
                         if core_batcher is not None else ()
                     )
                     with telemetry.devmon.dispatch_span("vtrace.grad"):
-                        loss, aux, grads = learn_step(batch, initial_core)
+                        if host is not None:
+                            host.command(host.LEARN)
+                            loss, aux, grads = host.learn(batch, initial_core)
+                        else:
+                            loss, aux, grads = learn_step(batch, initial_core)
                     pending_learn_stats.append(
                         (loss, aux["pg_loss"].detach(), aux["entropy_loss"].detach())
                     )
@@ -897,6 +1118,7 @@ def train(flags, on_stats=None) -> dict:
         for k in sorted(named):
             h.update(named[k].detach().float().cpu().numpy().tobytes())
         cohort_end = {
+            "ranks": host.stop() if host is not None else None,
             "model_version": accumulator.model_version(),
             "is_leader": accumulator.is_leader(),
             "params_sha256": h.hexdigest(),
@@ -906,6 +1128,8 @@ def train(flags, on_stats=None) -> dict:
         }
     finally:
         wd.close()
+        if dckpt is not None:
+            dckpt.close()
         if trace_stop_at is not None:
             telemetry.profiling.stop_device_trace()
         if prev_sigterm is not None:
@@ -1021,7 +1245,8 @@ def _act_host(st, obs, model, generator, device, env, learn_batcher, core_batche
 
 
 def main(argv=None):
-    train(make_flags(argv))
+    flags = common.mesh_flags_from_env()  # a mesh rank spawned by rank 0
+    train(flags if flags is not None else make_flags(argv))
 
 
 if __name__ == "__main__":

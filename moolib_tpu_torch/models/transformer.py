@@ -302,11 +302,11 @@ class TransformerLM(nn.Module):
     ):
         super().__init__()
         if attention == "ring":
-            raise NotImplementedError("attention='ring': ring attention is not yet ported (slice 9)")
+            raise NotImplementedError("attention='ring': ring attention is not yet ported (slice 9b)")
         if attention not in ("dense", "flash"):
             raise ValueError(f"unknown attention {attention!r}")
         if moe_num_experts:
-            raise NotImplementedError("MoE blocks are not yet ported (slice 9)")
+            raise NotImplementedError("MoE blocks are not yet ported (slice 9b)")
         # Validated even when remat is off, as the flax model does: bench
         # rows are keyed by this string, so a typo must never run silently.
         if remat_policy not in REMAT_POLICIES:
@@ -509,8 +509,8 @@ def generate(
 
 
 def sharded_generator(*args, **kwargs):
-    raise NotImplementedError("tensor-parallel generation is not yet ported (slice 9)")
+    raise NotImplementedError("tensor-parallel generation is not yet ported (slice 9b)")
 
 
 def pipeline_lm_apply(*args, **kwargs):
-    raise NotImplementedError("pipeline-parallel apply is not yet ported (slice 9)")
+    raise NotImplementedError("pipeline-parallel apply is not yet ported (slice 9b)")

@@ -1,0 +1,376 @@
+"""Train-step construction on a ``dp`` mesh of ranks, with the in-mesh
+gradient reduction and the hook-streamed backward.
+
+The JAX package states the data-parallel step as a sharding annotation and
+lets XLA insert the gradient all-reduce or reduce-scatter.  Here each rank
+is a process: the step slices its ``dp`` block of the batch, runs forward
+and backward on it, and reduces the gradients over the ``dp`` group
+itself (``all_reduce`` for replicated leaves, ``reduce_scatter`` along the
+sharded dim for ``"fsdp"``/``"params"``), returning them as ``DTensor``s.
+
+``params`` is a tree (e.g. ``dict(model.named_parameters())``) of leaf
+tensors with ``requires_grad``; ``loss_fn(params, batch, rng) -> (loss,
+aux)`` computes from those tensors and returns this rank's *local mean*
+loss (its blocks are equal, so the mean of the ranks' gradients is the
+global-batch gradient).
+
+``overlap_grads=True`` streams the gradients in PyTorch's idiom: one
+backward, with ``Tensor.register_post_accumulate_grad_hook`` on every
+leaf.  The leaves (in flatten order) are cut into contiguous runs at the
+flat-bucket grid (``buckets.bucket_bytes``); when the last leaf of a run
+has its gradient, the hook reduces the run over the mesh and hands it to
+``buckets.GradientStream.deliver``, whose non-blocking D2H records the CUDA
+event the consumer waits on.  So ``Accumulator.reduce_gradients`` launches
+each bucket's wire op while the rest of the backward is still queued.  The
+values are the barrier step's, bit for bit.  JAX cuts its step into two
+jits at ``overlap_cut``; the hooks need no cut, so ``overlap_cut`` is
+accepted and has no effect.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from .. import buckets, telemetry
+from ..telemetry import devmon
+from ..utils import nest
+from .collectives import (_all_reduce, _dtensor, _groups, _pack, _shard_dim, _unpack_block,
+                          gather_full, reduce_scatter_axis)
+from .mesh import NamedSharding, PartitionSpec as P, axis_sizes, replicated
+
+_REG = telemetry.get_registry()
+_M_STEPS = _REG.counter("train_steps_total", "train-step invocations")
+_M_DISPATCH = _REG.histogram(
+    "train_step_dispatch_seconds",
+    "host time in the train step call (dispatch, not device time)",
+)
+
+# Each built step gets its own devmon name: two different train steps in
+# one process (tests, A/B runs) must not read as each other.
+_STEP_SEQ = itertools.count()
+
+
+def _instrument_step(fn, name: Optional[str] = None):
+    if name is None:
+        n = next(_STEP_SEQ)
+        name = "parallel.train_step" + (f"#{n}" if n else "")
+
+    def timed_step(*args, **kwargs):
+        # dispatch_span feeds the timeline capture windows (the step
+        # anchors for overlap/exposure attribution); free when none open.
+        with _M_DISPATCH.time(), devmon.dispatch_span(name):
+            out = fn(*args, **kwargs)
+        _M_STEPS.inc()
+        return out
+
+    timed_step.inner = fn
+    return timed_step
+
+
+def _model_parallel_axes(mesh) -> List[str]:
+    return [k for k, v in axis_sizes(mesh).items() if k != "dp" and v > 1]
+
+
+def fsdp_spec(x, axis: str = "dp", min_size: int = 2**16) -> P:
+    """ZeRO-3-style spec: shard the largest divisible axis of big params."""
+    shape = tuple(x.shape)
+    if not shape or int(np.prod(shape)) < min_size:
+        return P()
+    best = max(range(len(shape)), key=lambda i: shape[i])
+    spec = [None] * len(shape)
+    spec[best] = axis
+    return P(*spec)
+
+
+def param_shardings(params, mesh, mode: str = "replicated", axis: str = "dp"):
+    """Tree of :class:`NamedSharding` for the params: "replicated" (pure DP)
+    or "fsdp" (largest-axis sharding for big leaves)."""
+    if mode == "replicated":
+        return nest.tree_map(lambda _: replicated(mesh), params)
+    if mode == "fsdp":
+        sizes = axis_sizes(mesh)
+
+        def spec_of(x):
+            s = fsdp_spec(x, axis)
+            # Only keep the sharding if the axis divides evenly.
+            for dim, name in zip(x.shape, s):
+                if name is not None and dim % sizes[name]:
+                    return replicated(mesh)
+            return NamedSharding(mesh, s)
+
+        return nest.tree_map(spec_of, params)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def auto_shardings(params, mesh, tp_axis: str = "tp", dp_axis: str = "dp",
+                   tp_min: int = 16, fsdp_min: int = 2**12):
+    """The ``dp`` half of the JAX package's TP+FSDP composition: FSDP over
+    ``dp`` on the largest divisible axis of leaves of ``fsdp_min`` elements
+    or more.  A ``tp`` axis comes with the model-parallel slice."""
+    sizes = axis_sizes(mesh)
+    if sizes.get(tp_axis, 1) > 1:
+        raise NotImplementedError("auto_shardings over a tp axis: not yet ported (slice 9b)")
+    has_dp = sizes.get(dp_axis, 1) > 1
+
+    def spec_of(x):
+        shape = tuple(x.shape)
+        spec = [None] * len(shape)
+        if has_dp and int(np.prod(shape)) >= fsdp_min:
+            cand = max(range(len(shape)), key=lambda d: shape[d], default=None)
+            if cand is not None and shape[cand] % sizes[dp_axis] == 0:
+                spec[cand] = dp_axis
+        return NamedSharding(mesh, P(*spec))
+
+    return nest.tree_map(spec_of, params)
+
+
+def _slice_batch(batch, mesh, spec: P):
+    """This rank's block of every batch leaf along the dims ``spec`` shards."""
+    sizes = axis_sizes(mesh)
+
+    def take(x):
+        for d, name in enumerate(spec):
+            if name is not None and d < x.ndim:
+                x = x.chunk(sizes[name], dim=d)[mesh.get_local_rank(name)]
+        return x.contiguous()
+
+    return nest.tree_map(take, batch)
+
+
+def _reduce_leaves(grads: List[torch.Tensor], shardings: List[NamedSharding], n: int) -> list:
+    """The dp-mean of gradient leaves, each in its sharding's layout, as
+    DTensors: one reduce-scatter of the sharded leaves' blocks packed
+    rank-major (each rank keeps its block of every leaf), one all-reduce
+    of the replicated leaves, per dtype."""
+    mesh = shardings[0].mesh
+    hits = [_shard_dim(sh) for sh in shardings]
+    out: list = [None] * len(grads)
+    for (sharded, _), idx in _groups(range(len(grads)),
+                                     lambda i: (hits[i] is not None, grads[i].dtype)):
+        if sharded:
+            dims = [hits[i][1] for i in idx]
+            flat = reduce_scatter_axis(_pack([grads[i] for i in idx], dims, n), "dp", mesh)
+            locals_ = _unpack_block(flat.div_(n), [grads[i] for i in idx], dims, n)
+        else:
+            flat = _all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
+                               mesh.get_group("dp")).div_(n)
+            locals_, off = [], 0
+            for i in idx:
+                locals_.append(flat[off:off + grads[i].numel()].view(grads[i].shape))
+                off += grads[i].numel()
+        for i, local in zip(idx, locals_):
+            out[i] = _dtensor(local, shardings[i], tuple(grads[i].shape))
+    return out
+
+
+def _leaf_runs(sizes: List[int], itemsize: int):
+    """Cut leaves (flatten order) into contiguous runs that end at the first
+    leaf boundary on or past each flat-bucket grid boundary."""
+    grid = max(1, buckets.bucket_bytes() // itemsize)
+    runs, start, off, next_cut = [], 0, 0, grid
+    for i, n in enumerate(sizes):
+        off += n
+        if off >= next_cut or i == len(sizes) - 1:
+            runs.append((start, i + 1))
+            start = i + 1
+            next_cut = (off // grid + 1) * grid
+    return runs
+
+
+def make_train_step(
+    loss_fn: Callable,
+    optimizer: Optional[torch.optim.Optimizer] = None,
+    mesh=None,
+    params_sharding=None,
+    batch_spec: Optional[P] = None,
+    grad_spec=None,
+    overlap_grads: bool = False,
+    overlap_cut: Optional[int] = None,
+):
+    """Build the train step.
+
+    - With ``optimizer=``: ``step(params, opt_state, batch, rng) ->
+      (params, opt_state, loss, aux)``.  The torch optimizer (over the same
+      leaves) holds its own state and updates ``params`` in place;
+      ``opt_state`` passes through.  On a mesh the gradients are averaged
+      over ``dp`` first and every rank applies the same update.
+    - With ``grad_spec=`` (needs ``mesh=``): ``step(params, batch, rng) ->
+      (loss, aux, grads)``, the hierarchical learner's in-mesh half.
+      ``grad_spec`` is "replicated", "fsdp", "params" (mirror
+      ``params_sharding``) or a tree of :class:`NamedSharding`; ``grads``
+      is a tree of ``DTensor``s in that layout.
+    - With ``overlap_grads=True``: ``step(params, batch, rng) -> (loss,
+      aux, stream)``, ``stream`` a ``buckets.GradientStream`` fed from the
+      backward's hooks (see the module docstring).  On a mesh the stream
+      carries the gradients' shardings and lives on mesh rank 0, the
+      host's Accumulator peer, which receives each run in full; the other
+      ranks take part in the reductions and get ``None``.
+
+    ``params_sharding`` ("replicated", "fsdp" or a tree) names the params'
+    layout; parameters stay whole on every rank (the forward needs them
+    whole), so it decides the layout of ``grad_spec="params"``.
+    ``batch_spec`` (default ``P(None, "dp")``) names the batch dims each
+    rank takes its block of.
+    """
+    if grad_spec is not None and mesh is None:
+        raise ValueError("grad_spec= requires mesh=")
+    if overlap_grads and optimizer is not None:
+        raise ValueError(
+            "overlap_grads=True streams raw gradients to the caller; it does "
+            "not compose with optimizer= (apply updates after the reduce)"
+        )
+    if overlap_grads and mesh is not None and grad_spec is None:
+        raise ValueError("overlap_grads=True with mesh= requires grad_spec=")
+    if grad_spec is None and optimizer is None and not overlap_grads:
+        raise ValueError("make_train_step needs an optimizer unless grad_spec= is given")
+    if mesh is not None and _model_parallel_axes(mesh):
+        raise NotImplementedError(
+            f"mesh axes {_model_parallel_axes(mesh)}: not yet ported (slice 9b)")
+    if isinstance(grad_spec, str) and grad_spec not in ("replicated", "fsdp", "params"):
+        raise ValueError(
+            f"unknown grad_spec {grad_spec!r} (expected 'replicated', 'fsdp', "
+            "'params', or a sharding pytree)"
+        )
+
+    n_dp = axis_sizes(mesh).get("dp", 1) if mesh is not None else 1
+    bspec = batch_spec if batch_spec is not None else P(None, "dp")
+    resolved: dict = {}
+
+    def grad_shardings(params) -> list:
+        if "gs" not in resolved:
+            ps = params_sharding if params_sharding is not None else "replicated"
+            gs = grad_spec
+            if gs == "params":
+                gs = ps
+            if isinstance(gs, str):
+                gs = param_shardings(params, mesh, gs)
+            resolved["gs"] = nest.tree_leaves(gs)
+        return resolved["gs"]
+
+    def local_batch(batch):
+        return _slice_batch(batch, mesh, bspec) if mesh is not None else batch
+
+    def forward_backward(leaves, batch, rng, params):
+        for p in leaves:
+            p.grad = None
+        loss, aux = loss_fn(params, local_batch(batch), rng)
+        loss.backward()
+        return loss.detach(), aux
+
+    def zero_missing(leaves):
+        return [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+
+    if optimizer is not None:
+        def step(params, opt_state, batch, rng):
+            leaves = nest.tree_leaves(params)
+            loss, aux = forward_backward(leaves, batch, rng, params)
+            if mesh is not None:
+                group = mesh.get_group("dp")
+                for p, g in zip(leaves, zero_missing(leaves)):
+                    p.grad = _all_reduce(g, group).div_(n_dp)
+            optimizer.step()
+            return params, opt_state, loss, aux
+
+        return _instrument_step(step)
+
+    if not overlap_grads:
+        def sharded_grad_step(params, batch, rng):
+            leaves, treedef = nest.tree_flatten(params)
+            loss, aux = forward_backward(leaves, batch, rng, params)
+            grads = _reduce_leaves(zero_missing(leaves), grad_shardings(params), n_dp)
+            return loss, aux, treedef.unflatten(grads)
+
+        return _instrument_step(sharded_grad_step)
+
+    return _instrument_step(_OverlapStep(forward_backward, mesh, n_dp, grad_shardings))
+
+
+class _OverlapStep:
+    """The hook-streamed backward.  Hooks are registered once per params
+    tree (on its leaves) and act only while this step's backward runs.
+    ``log`` records each delivery of the last call: ``(lo, hi, in_backward,
+    t_ns)``."""
+
+    def __init__(self, forward_backward, mesh, n_dp, grad_shardings):
+        self._fb = forward_backward
+        self._mesh = mesh
+        self._n = n_dp
+        self._grad_shardings = grad_shardings
+        self._lock = threading.Lock()
+        self._leaves: Optional[list] = None
+        self._handles: list = []
+        self._call: Optional[dict] = None
+        self.log: list = []
+
+    def _install(self, leaves) -> None:
+        for h in self._handles:
+            h.remove()
+        self._leaves = list(leaves)
+        self._runs = _leaf_runs([p.numel() for p in leaves], leaves[0].element_size())
+        self._run_of = {}
+        for r, (lo, hi) in enumerate(self._runs):
+            for i in range(lo, hi):
+                self._run_of[i] = r
+        self._handles = [p.register_post_accumulate_grad_hook(
+            lambda p, i=i: self._on_grad(i)) for i, p in enumerate(leaves)]
+
+    def _on_grad(self, i: int) -> None:
+        call = self._call
+        if call is None:
+            return  # a backward outside this step
+        r = self._run_of[i]
+        with self._lock:
+            call["left"][r] -= 1
+            ready = call["left"][r] == 0
+        if ready:
+            self._fire(call, r, in_backward=True)
+
+    def _fire(self, call, r: int, in_backward: bool) -> None:
+        lo, hi = self._runs[r]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self._leaves[lo:hi]]
+        if self._mesh is not None:
+            shs = call["shardings"][lo:hi]
+            grads = gather_full(_reduce_leaves(grads, shs, self._n))
+        call["fired"][r] = True
+        # mtlint: allow-bare-timer(a delivery timestamp for the hook-order log, not a timed block)
+        self.log.append((lo, hi, in_backward, time.perf_counter_ns()))
+        if call["stream"] is not None:
+            call["stream"].deliver(lo, grads)
+
+    def __call__(self, params, batch, rng):
+        leaves, treedef = nest.tree_flatten(params)
+        if self._leaves is None or len(leaves) != len(self._leaves) or any(
+                a is not b for a, b in zip(leaves, self._leaves)):
+            self._install(leaves)
+        shardings = self._grad_shardings(params) if self._mesh is not None else None
+        on_root = self._mesh is None or self._mesh.get_local_rank("dp") == 0
+        stream = None
+        if on_root:
+            stream = buckets.GradientStream(
+                treedef, [tuple(p.shape) for p in leaves], [p.dtype for p in leaves],
+                shardings=shardings)
+        call = {"left": [hi - lo for lo, hi in self._runs], "fired": [False] * len(self._runs),
+                "stream": stream, "shardings": shardings}
+        self.log = []
+        self._call = call
+        try:
+            loss, aux = self._fb(leaves, batch, rng, params)
+        except BaseException as e:
+            if stream is not None:
+                stream.fail(e)
+            raise
+        finally:
+            self._call = None
+        # Leaves the backward never reached (unused params) have zero
+        # gradients; their runs go out now.
+        for r, fired in enumerate(call["fired"]):
+            if not fired:
+                self._fire(call, r, in_backward=False)
+        return loss, aux, stream

@@ -40,8 +40,9 @@ capture window at a time:
 Exported metrics (the JAX package's names): ``step_time_fraction{bucket,fn}``,
 ``exposed_comm_seconds`` / ``overlapped_comm_seconds``,
 ``pipeline_bubble_fraction{stage}`` (per device track),
-``timeline_comm_vs_psum_ratio`` (set only where an ``accum_psum_seconds``
-histogram exists; the port has none yet), plus ``timeline_windows_total``
+``timeline_comm_vs_psum_ratio`` (set whenever a window holds growth of
+``accum_psum_seconds``, which ``parallel.redistribute`` and the
+Accumulator's sharded share-down observe), plus ``timeline_windows_total``
 / ``timeline_ingest_errors_total``.
 
 Periodic windows are off by default: ``MOOLIB_TIMELINE_INTERVAL=N`` opens

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from moolib_tpu_torch import Accumulator, Broker
+from moolib_tpu_torch.utils import nest
 
 torch.set_num_threads(1)
 
@@ -463,25 +464,28 @@ def test_canonical_tree_and_sync_blob_match_the_jax_package():
 
 
 def test_out_of_slice_planes_say_so(tmp_path):
-    """The sharded and streaming rounds still raise (slice 9); the
-    distributed-checkpoint plane is ported: it attaches a checkpointer,
+    """Every plane of the Accumulator is ported (the sharded and streaming
+    rounds since ROADMAP slice 9a): the sharded plane switches on, a stream
+    to a peer outside any cohort is dropped as a barrier contribution would
+    be, and the distributed-checkpoint plane attaches a checkpointer,
     registers a restored blob as the warm-rejoin slice, and ticks as a
     no-op on a peer outside any cohort."""
     from moolib_tpu_torch import buckets, checkpoint
 
     acc = Accumulator("t", {"w": torch.zeros(2)})
     try:
-        with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9\)"):
-            acc.set_sharded_allreduce(True)
+        acc.set_sharded_allreduce(True)
+        assert acc.debug_info()["sharded"] is True
         ck = checkpoint.DistributedCheckpointer(str(tmp_path))
         ck.last_restored = (4, "ab" * 8, b"blob")
         acc.enable_distributed_checkpoint(ck, interval=0.0, lead_steps=1)
         assert acc._ckptr is ck and acc._sync_slice == (4, "ab" * 8, 0, b"blob", 4)
         acc.checkpoint_tick(state_fn=lambda: {})
         assert acc._ckpt_open is None and ck.committed_steps() == []
-        stream = buckets.GradientStream(None, [(2,)], [np.float32])
-        with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9\)"):
-            acc.reduce_gradients(1, stream)
+        stream = buckets.GradientStream(nest.tree_flatten({"w": 0})[1], [(2,)], [np.float32])
+        stream.deliver(0, [torch.ones(2)])
+        acc.reduce_gradients(1, stream)
+        assert not acc._inflight and not acc.has_gradients()
     finally:
         acc.close()
     assert checkpoint.Checkpointer(str(tmp_path / "single")).latest_step() is None

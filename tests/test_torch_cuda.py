@@ -770,3 +770,147 @@ def test_anakin_rollout_on_card(card):
     assert snap["episodes"] == 32 * (21 // 9) and snap["len_sum"] == 9 * snap["episodes"]
     assert (counters()["actor_stats_d2h_bytes_total"]
             - after.get("actor_stats_d2h_bytes_total", 0.0)) == 8 * (2 * 32 + 3)
+
+
+# ------------------------------------------------------ sharded learner
+def _lm_grads_barrier(model, tokens):
+    for p in model.parameters():
+        p.grad = None
+    from moolib_tpu_torch.examples.lm import copy_task_loss
+
+    copy_task_loss(model(tokens), tokens, tokens.shape[1] // 2)[0].backward()
+    return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+
+def test_hook_streamed_lm_backward_equals_barrier_bitwise(card):
+    """make_train_step(overlap_grads=True) on the card: the runs the hooks
+    hand out during the flash backward are the plain backward's gradients
+    bit for bit (each run's D2H waits on its own event)."""
+    from moolib_tpu_torch import buckets, parallel
+    from moolib_tpu_torch.examples.lm import copy_task_loss
+
+    model = TransformerLM(vocab_size=512, d_model=256, num_heads=2, num_layers=2, max_len=256,
+                          attention="flash", device=card,
+                          generator=torch.Generator().manual_seed(0))
+    tokens = torch.randint(2, 512, (2, 256), device=card)
+    want = _lm_grads_barrier(model, tokens)
+    buckets.set_bucket_bytes(1 << 18)
+    try:
+        step = parallel.make_train_step(
+            lambda p, b, r: copy_task_loss(model(b), b, b.shape[1] // 2), overlap_grads=True)
+        named = dict(model.named_parameters())
+        _, _, stream = step(named, tokens, None)
+        log = step.inner.log
+        got = {}
+        while True:
+            c = stream.next_chunk(30)
+            if c is None:
+                break
+            lo, leaves = c
+            for i, leaf in enumerate(leaves, start=lo):
+                got[sorted(named)[i]] = np.asarray(leaf)
+    finally:
+        buckets.set_bucket_bytes(buckets._DEFAULT_BUCKET_BYTES)
+    assert len(log) >= 2 and all(in_bwd for _, _, in_bwd, _ in log)
+    assert set(got) == set(want)
+    for k, g in want.items():
+        assert got[k].tobytes() == g.cpu().numpy().tobytes(), k
+
+
+def test_flash_autograd_under_post_accumulate_hooks(card):
+    """The flash autograd function's gradients do not change when a
+    post-accumulate-grad hook on q, k and v fires during its backward."""
+    g = torch.Generator(device=card).manual_seed(3)
+    base = [torch.randn(2, 256, 4, 128, generator=g, device=card).to(torch.bfloat16)
+            for _ in range(3)]
+    dout = torch.randn(2, 256, 4, 128, generator=g, device=card).to(torch.bfloat16)
+
+    def grads(hooked):
+        leaves = [t.clone().requires_grad_() for t in base]
+        fired = []
+        if hooked:
+            for i, t in enumerate(leaves):
+                t.register_post_accumulate_grad_hook(
+                    lambda p, i=i: fired.append((i, p.grad.float().sum().item())))
+        (fa.flash_attention(*leaves) * dout).sum().backward()
+        return [t.grad.clone() for t in leaves], fired
+
+    plain, _ = grads(False)
+    hooked, fired = grads(True)
+    assert sorted(i for i, _ in fired) == [0, 1, 2]
+    for a, b in zip(plain, hooked):
+        assert torch.equal(a, b)
+
+
+_COLLECTIVES_CHILD = r"""
+import json, sys
+import torch
+from moolib_tpu_torch import parallel as par
+from moolib_tpu_torch.parallel.mesh import NamedSharding, PartitionSpec as P
+
+rank, port, device = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+backend = par.initialize_distributed(f"127.0.0.1:{port}", 2, rank, device=device)
+mesh = par.make_mesh({"dp": 2}, device_type=torch.device(device).type)
+dev = torch.device(device)
+x = (torch.arange(24.0).reshape(4, 6) + 100 * rank).to(dev)
+full = torch.arange(48.0).reshape(8, 6).to(dev)
+sh = NamedSharding(mesh, P("dp", None))
+dt = par.redistribute({"a": full}, sh)["a"]
+out = {
+    "backend": backend,
+    "psum": par.tree_psum({"x": x}, "dp", mesh)["x"],
+    "pmean": par.tree_pmean({"x": x}, "dp", mesh)["x"],
+    "gather1": par.all_gather_axis(x, "dp", mesh, axis=1),
+    "rs0": par.reduce_scatter_axis(x, "dp", mesh, axis=0),
+    "ring": par.ring_permute(x, "dp", mesh),
+    "redist": dt.to_local(),
+    "back": par.redistribute({"a": dt}, par.replicated(mesh))["a"].to_local(),
+    "scatter": par.scatter_shards({"a": full * 2} if rank == 0 else None, {"a": full}, [sh],
+                                  mesh)[0],
+    "bcast": par.broadcast_tree({"b": full + 1} if rank == 0 else None, mesh, dev)["b"],
+}
+g = par.gather_full({"a": dt}, dst=0)
+if g is not None:
+    out["gather_full"] = g["a"]
+res = {k: (v if isinstance(v, str) else [str(v.device.type), v.cpu().tolist()])
+       for k, v in out.items()}
+print("RESULT " + json.dumps(res), flush=True)
+"""
+
+
+def test_collectives_on_cuda_tensors_over_two_gloo_ranks_match_cpu(card):
+    """Two ranks on the one card pick gloo (NCCL refuses two ranks on one
+    device) and stage CUDA tensors through pinned host memory; every
+    collective's result is on the card and equals the CPU run's."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+    def run(device):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs = [subprocess.Popen([sys.executable, "-c", _COLLECTIVES_CHILD, str(r), str(port),
+                                   device], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = []
+        for p in procs:
+            o, _ = p.communicate(timeout=120)
+            assert p.returncode == 0, o[-3000:]
+            outs.append(json.loads([ln for ln in o.splitlines()
+                                    if ln.startswith("RESULT ")][-1][7:]))
+        return outs
+
+    cuda, cpu = run("cuda"), run("cpu")
+    for r in range(2):
+        assert cuda[r]["backend"] == "gloo" or torch.cuda.device_count() >= 2
+        for k, v in cpu[r].items():
+            if k == "backend":
+                continue
+            assert cuda[r][k][0] == "cuda", k
+            assert cuda[r][k][1] == v[1], k

@@ -90,20 +90,46 @@ def test_lm_trains_with_remat_on_cpu():
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    ([], 9),  # the JAX defaults: --mesh dp=2,sp=4 --attention ring
-    (["--mesh", "", "--attention", "ring"], 9),
-    (["--mesh", "", "--attention", "dense", "--moe_experts", "4"], 9),
-    (["--mesh", "", "--attention", "dense", "--shard_grads"], 9),
-    (["--mesh", "", "--attention", "dense", "--overlap_grads"], 9),
-    # The fleet flags work now; with a slice-9 plane they still exit.
-    (["--mesh", "", "--attention", "dense", "--autoscale", "--overlap_grads"], 9),
-    (["--mesh", "", "--attention", "dense", "--checkpoint_dir", "x", "--shard_grads"], 9),
+    ([], "9b"),  # the JAX defaults: --mesh dp=2,sp=4 --attention ring
+    (["--mesh", "", "--attention", "ring"], "9b"),
+    (["--mesh", "", "--attention", "dense", "--moe_experts", "4"], "9b"),
+    # The dp mesh and the sharded/streamed planes are ported; tp and sp
+    # axes are not.
+    (["--mesh", "dp=2,tp=2", "--attention", "dense"], "9b"),
+    (["--mesh", "sp=2", "--attention", "dense", "--overlap_grads"], "9b"),
+    # The fleet flags work; with a slice-9b plane they still exit.
+    (["--mesh", "", "--attention", "dense", "--autoscale", "--moe_experts", "2"], "9b"),
+    (["--mesh", "dp=2,tp=2", "--attention", "dense", "--checkpoint_dir", "x",
+      "--shard_grads", "--connect", "127.0.0.1:1"], "9b"),
     (["--mesh", "", "--attention", "dense", "--compile_cache_dir", "x", "--attention",
-      "ring"], 9),
+      "ring"], "9b"),
 ])
 def test_unported_flags_exit_with_a_message(argv, slice_):
     with pytest.raises(SystemExit, match=rf"not yet ported \(slice {slice_}\)"):
         lm.train(lm.make_flags(argv + ["--device", "cpu"]))
+
+
+def test_flag_rules_follow_the_jax_example():
+    """--shard_grads needs the elastic cohort; an elastic run drops the JAX
+    mesh and ring defaults, and refuses an explicit mesh without
+    --shard_grads (the JAX example's messages)."""
+    with pytest.raises(ValueError, match="requires the elastic cohort"):
+        lm.train(lm.make_flags(["--mesh", "dp=2", "--shard_grads", "--device", "cpu"]))
+    with pytest.raises(ValueError, match="pass --shard_grads for the hierarchical plane"):
+        lm.train(lm.make_flags(["--mesh", "dp=2", "--connect", "127.0.0.1:1",
+                                "--device", "cpu"]))
+    with pytest.raises(ValueError, match="the dp axis size must divide --batch_size"):
+        lm.train(lm.make_flags(["--mesh", "dp=3", "--attention", "dense", "--device", "cpu"]))
+
+
+def test_static_dp_mesh_spawns_its_ranks_and_trains():
+    """``--mesh dp=2`` without a cohort: this process is rank 0 and spawns
+    rank 1; both run the same loop (the gradients averaged over dp) and
+    learn the copy task."""
+    out = lm.train(lm.make_flags([
+        "--mesh", "dp=2", "--attention", "dense", "--seq_len", "32", "--batch_size", "16",
+        "--steps", "60", "--quiet", "--device", "cpu", "--learning_rate", "3e-3"]))
+    assert out["steps"] == 60 and out["rank"] == 0 and out["acc"] > 0.9, out
 
 
 def test_publish_every_feeds_a_jax_model_subscriber(free_port):

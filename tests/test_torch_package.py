@@ -148,17 +148,17 @@ def test_unported_paths_say_so():
     from moolib_tpu_torch.examples import lm_serve
     from moolib_tpu_torch.models import transformer
 
-    for flags, slice_ in ((["--listen", "x", "--localdir", "x", "--mesh", "tp=2"], 9),
-                          (["--listen", "x", "--engine", "--prefill_devices", "1"], 9),
-                          (["--listen", "x", "--mesh", "tp=2"], 9)):
+    for flags, slice_ in ((["--listen", "x", "--localdir", "x", "--mesh", "tp=2"], "9b"),
+                          (["--listen", "x", "--engine", "--prefill_devices", "1"], "9b"),
+                          (["--listen", "x", "--mesh", "tp=2"], "9b")):
         with pytest.raises(SystemExit, match=rf"not yet ported \(slice {slice_}\)"):
             lm_serve.main(flags)
     for kw in (dict(attention="ring"), dict(moe_num_experts=4)):
-        with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9\)"):
+        with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9b\)"):
             transformer.TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=1,
                                       device="cpu", **kw)
     for fn in (transformer.sharded_generator, transformer.pipeline_lm_apply):
-        with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9\)"):
+        with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9b\)"):
             fn()
     # The paged cache's geometry sizes the engine's pools, and a paged model
     # has no dense decode.
@@ -176,13 +176,18 @@ def test_unported_paths_say_so():
         transformer.generate(model, torch.zeros((1, 2), dtype=torch.int64), 2)
 
 
+MESH_9B = "--mesh axes ['tp']: not yet ported (slice 9b)"
+
+
 @pytest.mark.parametrize("argv,named", [
-    (["--mesh", "dp=2"], "--mesh: not yet ported (slice 9)"),
-    (["--actor_mesh", "1"], "--actor_mesh: not yet ported (slice 9)"),
-    (["--overlap_grads"], "--overlap_grads: not yet ported (slice 9)"),
-    (["--shard_grads"], "--shard_grads: not yet ported (slice 9)"),
+    (["--mesh", "dp=2,tp=2"], MESH_9B),
+    (["--actor_mesh", "1"], "--actor_mesh: not yet ported (slice 9c)"),
+    # --mesh dp=N, --shard_grads and --overlap_grads are ported; tp and the
+    # Sebulba split are not.
+    (["--mesh", "tp=2", "--overlap_grads"], MESH_9B),
+    (["--actor_mesh", "1", "--shard_grads"], "--actor_mesh: not yet ported (slice 9c)"),
     # --checkpoint_dir is the distributed plane of --shard_grads cohorts.
-    (["--checkpoint_dir", "d", "--shard_grads"], "--shard_grads: not yet ported (slice 9)"),
+    (["--checkpoint_dir", "d", "--shard_grads", "--mesh", "dp=2,tp=2"], MESH_9B),
 ])
 def test_unported_rl_paths_say_so(argv, named):
     from moolib_tpu_torch.examples.vtrace import experiment
@@ -207,7 +212,7 @@ def test_env_backend_jax_runs_and_actor_mesh_still_says_so(free_port):
         "--batch_size", "4", "--virtual_batch_size", "4", "--address", f"127.0.0.1:{free_port}"])
     out = experiment.train(flags)
     assert out["steps"] >= 2000 and out["sgd_steps"] > 0 and out["episodes"] > 0
-    with pytest.raises(SystemExit, match=re.escape("--actor_mesh: not yet ported (slice 9)")):
+    with pytest.raises(SystemExit, match=re.escape("--actor_mesh: not yet ported (slice 9c)")):
         experiment.train(experiment.make_flags(["--env_backend", "jax", "--actor_mesh", "1"]))
 
 
@@ -260,3 +265,17 @@ def test_lazy_cohort_exports():
     assert moolib_tpu_torch.engine is engine and moolib_tpu_torch.serving is serving
     with pytest.raises(AttributeError):
         moolib_tpu_torch.AnakinRollout  # noqa: B018 - rollout.AnakinRollout, as in JAX
+
+
+def test_experiment_mesh_flag_rules_follow_the_jax_example():
+    """--overlap_grads is the unmeshed learner's plane, and the dp axis must
+    divide the batch (the JAX example's messages); --mesh and the --ici
+    plane's --coordinator would both join a process group."""
+    from moolib_tpu_torch.examples.vtrace import experiment
+
+    for argv, msg in ((["--mesh", "dp=2", "--overlap_grads"], "unmeshed learner's overlap"),
+                      (["--mesh", "dp=3", "--batch_size", "4"], "must divide --batch_size"),
+                      (["--mesh", "dp=2", "--coordinator", "tcp://127.0.0.1:1"],
+                       "both join a torch.distributed")):
+        with pytest.raises(ValueError, match=msg):
+            experiment.train(experiment.make_flags(argv + ["--device", "cpu"]))
