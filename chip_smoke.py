@@ -223,15 +223,31 @@ exits non-zero, and no result line is printed):
 22. sharded_lm — the hierarchical learner: two elastic hosts through
    examples.lm.train() --mesh dp=2 --shard_grads, each host 2 rank
    processes (it spawns its second itself) sharing the card over gloo, the
-   d=1024/L=12 LM (B 4 x T 1024 a rank), host 0 one step alone, then 2
+   d=1024 LM cut to 4 blocks (B 4 x T 1024 a rank), host 0 one step alone, then 2
    cohort steps; arm (a) --overlap_grads (the hook-streamed backward),
    arm (b) the barrier step.  Checks: both hosts and every rank end with
    the same params sha, and both arms; the joiner host ships (N-1)/N of
    the flat payload a round (within half a bucket); every rank launches
-   each flash kernel at least 12 x its learn steps.  Prints each arm's
+   each flash kernel at least 4 x its learn steps.  Prints each arm's
    step seconds, exposed comm (step returned -> result ready) per round,
    accum_psum_seconds and host-staged collective bytes and peak memory
    per rank, and the phase's wall_s.
+23. mp_lm — model parallelism (slice 9b's training half): three arms of
+   examples.lm.train() at LM_WIDTHS (learned positions, bf16 compute, f32
+   parameters, AdamW 1e-4), a warm-up step plus 2 steps, 4 rank processes
+   (started once for the three arms) sharing the card over gloo: ring_lm (--mesh sp=4 --attention ring, B 1
+   x T 4096), moe_lm (--mesh dp=2,ep=2, 8 experts on every second block,
+   B 8 x T 1024), pipeline_lm (--mesh pp=4, 12 blocks as 3 laps of 4
+   stages, 4 microbatches, B 4 x T 1024).  Checks: the warm-up step's
+   global loss and every reduced gradient (experts gathered) against one
+   process on the card with flash attention and every expert (the loss
+   within MP_LOSS_TOL relative, each gradient leaf within MP_GRAD_TOL by
+   its own relative norm); every rank ends with the same replicated parameters (experts
+   per ep block); each flash kernel's launches per rank are exactly the
+   path's count (ring: 12 x (sp rank + 1) a learn step, 12 x 10 over the
+   group; moe: 12; pipeline: 3 blocks x 4 microbatches).  Prints step
+   seconds, peak memory, host-staged bytes and ring hop seconds per rank,
+   and the tokens over capacity in the last MoE step.
 
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
@@ -2117,8 +2133,11 @@ def phase_accumulator_lm(seed: int, device="cuda", args=None, steps: int = ACC_L
 # -------------------------------------------------------------- sharded_lm
 # The hierarchical learner (ROADMAP slice 9a): two elastic hosts, each a
 # dp=2 mesh of rank processes sharing the one card over gloo, the LM at
-# accumulator_lm's widths and per-rank batch (B 4 x T 1024 a rank, 8 a host).
-SHARDED_LM_ARGS = ["--vocab", "32768", "--d_model", "1024", "--layers", "12", "--heads", "8",
+# accumulator_lm's widths and per-rank batch (B 4 x T 1024 a rank, 8 a host);
+# depth cut to 4 blocks (from 12) to keep the script inside its time limit.
+SHARDED_LM_LAYERS = 4
+SHARDED_LM_ARGS = ["--vocab", "32768", "--d_model", "1024", "--layers",
+                   str(SHARDED_LM_LAYERS), "--heads", "8",
                    "--seq_len", "1024", "--batch_size", "8", "--attention", "flash",
                    "--mesh", "dp=2", "--shard_grads", "--learning_rate", "1e-4"]
 SHARDED_LM_STEPS = 3  # one step of host 0 alone, then 2 of the cohort
@@ -2137,7 +2156,7 @@ def _sharded_arm(seed: int, device: str, args: list, steps: int, overlap: bool,
 
 
 def phase_sharded_lm(seed: int, device="cuda", args=None, steps: int = SHARDED_LM_STEPS,
-                     layers: int = 12, timeout: float = 400) -> dict:
+                     layers: int = SHARDED_LM_LAYERS, timeout: float = 400) -> dict:
     """Two hosts x dp=2 ranks through examples.lm.train() (each host spawns
     its second rank), arm (a) --overlap_grads, arm (b) the barrier step,
     from the same seed.  Checks: both hosts and every rank end with equal
@@ -2172,7 +2191,7 @@ def phase_sharded_lm(seed: int, device="cuda", args=None, steps: int = SHARDED_L
     payload = 4 * arms["barrier"][0]["n_params"]  # the f32 flat payload
     half_bucket = buckets.bucket_bytes() / 2
     out = {"phase": "sharded_lm", "hosts": 2, "dp": 2, "steps": steps,
-           "model": "TransformerLM vocab=32768 d=1024 L=12 H=8x128 max_len 1024, learned "
+           "model": f"TransformerLM vocab=32768 d=1024 L={layers} H=8x128 max_len 1024, learned "
            "positions, bf16 compute, f32 parameters, flash attention" if args is SHARDED_LM_ARGS
            else f"TransformerLM {args}",
            "batch_per_rank": [4, 1024] if args is SHARDED_LM_ARGS else None,
@@ -2218,6 +2237,255 @@ def phase_sharded_lm(seed: int, device="cuda", args=None, steps: int = SHARDED_L
     out["wall_s"] = time.perf_counter() - t_phase
     log(out)
     return out
+
+
+# ------------------------------------------------------------------ mp_lm
+# The model-parallel training half of slice 9b: examples.lm.train() on one
+# card whose rank processes share it over gloo.  Each arm: the repo's LM at
+# full width (LM_WIDTHS), learning rate 1e-4, a warm-up step plus
+# MP_LM_STEPS steps: each arm's mesh, attention and batch flags.
+MP_LM_ARMS = {
+    "ring_lm": ["--mesh", "sp=4", "--attention", "ring", "--batch_size", "1",
+                "--seq_len", "4096"],
+    "moe_lm": ["--mesh", "dp=2,ep=2", "--attention", "flash", "--moe_experts", "8",
+               "--batch_size", "8", "--seq_len", "1024"],
+    "pipeline_lm": ["--mesh", "pp=4", "--attention", "flash", "--pp_repeats", "3",
+                    "--microbatches", "4", "--batch_size", "4", "--seq_len", "1024"],
+}
+MP_LM_STEPS = 2
+MP_LM_RANKS = 4  # every arm's mesh has 4 ranks; one set of rank processes runs them all
+# bf16 parity of the mesh's warm-up step against one process on the card:
+# the loss within MP_LOSS_TOL of the reference's (relative), and every
+# gradient leaf within MP_GRAD_TOL of it by its own relative norm,
+# ||g_mesh - g_ref|| / ||g_ref||.  Set from the H100's readings at full
+# width: a loss off by at most 1.4e-5, the worst leaf of an arm by 0.0024 to
+# 0.0149 (PERF.md, PR 13).
+MP_LOSS_TOL, MP_GRAD_TOL = 1e-4, 5e-2
+
+
+def _mp_rank(rank: int, world: int, tasks, out) -> None:
+    """One rank process of every mp_lm arm.  For each task ``(argv, port)``
+    it joins that arm's process group as ``rank`` (torchrun's environment,
+    so examples.lm.train() spawns nothing), counts the kernels' launches
+    from 0, trains, leaves the group and reports its summary (rank 0's
+    carries every rank's) with its counters' readings from before the arm.
+    ``None`` ends it."""
+    import gc
+
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1")
+    reg = telemetry.get_registry()
+    while (task := tasks.get()) is not None:
+        argv, port = task
+        os.environ["MASTER_PORT"] = str(port)
+        try:
+            before = {"host_staged_bytes": lm._counter(reg, "collectives_host_staged_bytes_total"),
+                      "ring_hop_seconds": lm._hist_sum(reg, "ring_hop_seconds")}
+            if torch.cuda.is_initialized():
+                torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            t0 = time.time()
+            summary = lm.train(lm.make_flags(argv))
+            summary["wall_s"] = time.time() - t0
+            out.put({"rank": rank, "summary": summary, "before": before})
+        except BaseException as e:  # reported to the parent, which fails, then re-raised
+            import traceback
+
+            out.put({"rank": rank, "error": f"{e!r}\n{traceback.format_exc()}"})
+            raise
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            gc.collect()
+            if torch.cuda.is_initialized():
+                torch.cuda.empty_cache()
+
+
+class _MpRanks:
+    """MP_LM_RANKS rank processes, started once for every mp_lm arm
+    (a process takes seconds to reach the card)."""
+
+    def __init__(self, world: int = MP_LM_RANKS):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.out = ctx.Queue()
+        self.tasks = [ctx.Queue() for _ in range(world)]
+        self.procs = [ctx.Process(target=_mp_rank, args=(r, world, self.tasks[r], self.out))
+                      for r in range(world)]
+        for proc in self.procs:
+            proc.start()
+
+    def run(self, argv: list, timeout: float) -> list:
+        """Every rank's report of one arm, in rank order."""
+        port = free_port()
+        for q in self.tasks:
+            q.put((argv, port))
+        reps, deadline = {}, time.time() + timeout
+        while len(reps) < len(self.procs):
+            try:
+                rep = self.out.get(timeout=5)
+            except queue.Empty:
+                dead = [p.exitcode for p in self.procs if p.exitcode is not None]
+                if time.time() > deadline or dead:
+                    raise AssertionError(f"mp_lm: {len(reps)} of {len(self.procs)} ranks "
+                                         f"reported (exit codes {dead})")
+                continue
+            if "error" in rep:
+                raise AssertionError(f"mp_lm: rank {rep['rank']}: {rep['error']}")
+            reps[rep["rank"]] = rep
+        return [reps[r] for r in sorted(reps)]
+
+    def close(self, failed: bool) -> None:
+        """Stop the ranks: after a failure at once (the others may wait in
+        a collective), else once they have left their loops."""
+        for q in self.tasks:
+            q.put(None)
+        for proc in self.procs:
+            proc.join(timeout=0 if failed else 60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+
+
+def _mp_reference(flags, device) -> tuple:
+    """The warm-up step's loss and gradients in one process on the card:
+    the same weights (the seed's) and tokens (the seed's first batch), the
+    mesh-free model (flash attention over the whole sequence, every
+    expert), the JAX example's loss."""
+    ref = lm.make_flags(["--vocab", str(flags.vocab), "--d_model", str(flags.d_model),
+                         "--layers", str(flags.layers), "--heads", str(flags.heads),
+                         "--mesh", "", "--attention", "flash",
+                         "--moe_experts", str(flags.moe_experts), "--batch_size",
+                         str(flags.batch_size), "--seq_len", str(flags.seq_len),
+                         "--seed", str(flags.seed), "--device", device])
+    model = lm.make_model(ref, torch.device(device))
+    tokens = torch.from_numpy(lm.make_batch(np.random.default_rng(flags.seed), ref)).to(device)
+    loss, _ = lm.copy_task_loss(model(tokens), tokens, flags.seq_len // 2)
+    if model.aux_losses:
+        loss = loss + flags.moe_aux_weight * sum(model.aux_losses)
+    loss.backward()
+    grads = {k: p.grad.detach() for k, p in model.named_parameters()}
+    return float(loss.detach()), grads
+
+
+def _mp_expected_launches(name: str, flags, learn_steps: int, ranks: list) -> dict:
+    """The flash launches each kernel must show, per rank, for
+    ``learn_steps`` forward + backward passes (the warm-up included)."""
+    L = flags.layers
+    if name == "ring_lm":  # rank r runs r + 1 chunks a layer: n(n+1)/2 over sp
+        return {r["rank"]: L * (r["coords"]["sp"] + 1) * learn_steps for r in ranks}
+    if name == "pipeline_lm":  # bubble ticks skipped: each block once per microbatch
+        mb = flags.microbatches
+        S = len(ranks)
+        return {r["rank"]: (L // S) * mb * learn_steps for r in ranks}
+    return {r["rank"]: L * learn_steps for r in ranks}  # moe_lm: every layer, every rank
+
+
+def _mp_grad_errors(got: dict, ref: dict) -> dict:
+    """Each leaf's ||g_mesh - g_ref|| / ||g_ref|| (0 where both are 0)."""
+    errs = {}
+    for k, g in ref.items():
+        g = g.double()
+        diff = float((got[k].to(g.device).double() - g).norm())
+        norm = float(g.norm())
+        errs[k] = diff / norm if norm > 0 else (0.0 if diff == 0 else float("inf"))
+    return errs
+
+
+def phase_mp_lm(seed: int, device="cuda", arms=None, steps: int = MP_LM_STEPS,
+                widths=None, timeout: float = 600,
+                tols: tuple = (MP_LOSS_TOL, MP_GRAD_TOL)) -> dict:
+    """Three arms of examples.lm.train() over model-parallel meshes on the
+    one card (rank processes, gloo, every collective through pinned host
+    memory), one set of rank processes for them all.  Checks per arm: the
+    warm-up step's global loss and every reduced gradient leaf (experts
+    gathered) against one process on the card within ``tols`` (the loss's
+    relative error, each leaf's relative norm); every rank ends with the same replicated parameters
+    (experts: per ep block); each flash kernel's launches are exactly the
+    count the path implies (_mp_expected_launches)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    arms = MP_LM_ARMS if arms is None else arms
+    widths = LM_WIDTHS if widths is None else widths
+    res = {"phase": "mp_lm", "steps": steps, "arms": {}}
+    launches_by_path = {}
+    ranks_procs = _MpRanks()
+    failed = True
+    try:
+        for name, arm in arms.items():
+            probe = tempfile.mkdtemp(prefix=f"mp_lm_{name}_")
+            try:
+                argv = [*widths, *arm, "--device", device, "--seed", str(seed), "--steps",
+                        str(steps), "--quiet", "--learning_rate", "1e-4", "--probe_dir", probe]
+                flags = lm.make_flags(argv)
+                t_arm = time.perf_counter()
+                reps = ranks_procs.run(argv, timeout)
+                arm_s = time.perf_counter() - t_arm
+                got = torch.load(os.path.join(probe, "step0.pt"))
+            finally:
+                shutil.rmtree(probe, ignore_errors=True)
+            rep = reps[0]["summary"]
+            ranks = rep["ranks"]
+            for r in ranks:  # this arm's share of each rank's counters
+                for k, v in reps[r["rank"]]["before"].items():
+                    r[k] -= v
+            if len({r["params_sha256"] for r in ranks}) != 1:
+                raise AssertionError(f"mp_lm {name}: replicated parameters differ across ranks")
+            if flags.moe_experts and any("ep" in r["coords"] for r in ranks):
+                for e in {r["coords"]["ep"] for r in ranks}:
+                    if len({r["experts_sha256"] for r in ranks if r["coords"]["ep"] == e}) != 1:
+                        raise AssertionError(f"mp_lm {name}: experts of ep block {e} differ")
+            want = _mp_expected_launches(name, flags, steps + 1, ranks)
+            for r in ranks:
+                for k, v in r["launches"].items():
+                    if device != "cpu" and v != want[r["rank"]]:
+                        raise AssertionError(f"mp_lm {name}: rank {r['rank']} launched {k} {v} "
+                                             f"times, want {want[r['rank']]}")
+            launches_by_path[name] = {k: sum(r["launches"][k] for r in ranks)
+                                      for k in ranks[0]["launches"]}
+            # One-process reference on the card (the ranks hold no model now).
+            torch.cuda.empty_cache() if device == "cuda" else None
+            t_ref = time.perf_counter()
+            ref_loss, ref_grads = _mp_reference(flags, device)
+            if set(got["grads"]) != set(ref_grads):
+                raise AssertionError(f"mp_lm {name}: gradient leaves differ: "
+                                     f"{sorted(set(got['grads']) ^ set(ref_grads))[:4]}")
+            errs = _mp_grad_errors(got["grads"], ref_grads)
+            del ref_grads
+            worst_leaf = max(errs, key=errs.get)
+            loss_err = abs(got["loss"] - ref_loss) / abs(ref_loss)
+            if loss_err > tols[0] or errs[worst_leaf] > tols[1]:
+                raise AssertionError(f"mp_lm {name}: loss {got['loss']} vs {ref_loss} "
+                                     f"(rel {loss_err}), gradient leaf {worst_leaf} off by "
+                                     f"{errs[worst_leaf]} of its norm")
+            res["arms"][name] = {
+                "flags": arm, "ranks": len(ranks), "loss_step0": got["loss"],
+                "loss_step0_reference": ref_loss, "loss_rel_err": loss_err,
+                "grad_rel_err_max": errs[worst_leaf], "grad_worst_leaf": worst_leaf,
+                "grad_rel_err_median": float(np.median(list(errs.values()))),
+                "step_s": rep["step_s"], "loss": rep["loss"], "acc": rep["acc"],
+                "mfu": rep["mfu"],
+                "launches_per_rank": {r["rank"]: r["launches"]["flash_fwd"] for r in ranks},
+                "launches_want_per_rank": want, "launches": launches_by_path[name],
+                "max_memory_allocated": {r["rank"]: r["max_memory_allocated"] for r in ranks},
+                "host_staged_bytes": {r["rank"]: r["host_staged_bytes"] for r in ranks},
+                "ring_hop_seconds": {r["rank"]: r["ring_hop_seconds"] for r in ranks},
+                "moe_dropped_last_step": ranks[0]["moe_dropped_last_step"],
+                "arm_wall_s": arm_s, "reference_s": time.perf_counter() - t_ref}
+            log({"phase": "mp_lm", "arm": name, **res["arms"][name]})
+            torch.cuda.empty_cache() if device == "cuda" else None
+        failed = False
+    finally:
+        ranks_procs.close(failed)
+    res["launches"] = launches_by_path
+    res["wall_s"] = time.perf_counter() - t_phase
+    log({k: v for k, v in res.items() if k != "arms"})
+    return res
 
 
 # -------------------------------------------------------------------- r2d2
@@ -3458,7 +3726,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     pool = make_pool()
     try:
-        kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded = _phases(
+        kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded, mp_lm = _phases(
             pool, args.seed)
     finally:
         pool.close()
@@ -3488,7 +3756,8 @@ def main(argv=None) -> None:
                              "r2d2": r2[name],
                              **{path: fleet[path]["launches"][name] for path in fleet},
                              "anakin": anakin[name],
-                             "sharded_lm": sharded[name]},
+                             "sharded_lm": sharded[name],
+                             **{path: mp_lm[path][name] for path in mp_lm}},
         "max_abs_err": kern["worst"][name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
@@ -3505,52 +3774,68 @@ def main(argv=None) -> None:
                                 "count": torch.cuda.device_count()}})
 
 
+PHASE_SECONDS: dict = {}  # each phase's wall seconds, in order (printed before the summary)
+
+
+def timed(name: str, fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+
+
 def _phases(pool: EnvPool, seed: int) -> tuple:
-    phase_device()
-    sass = phase_build()
+    timed("device", phase_device)
+    sass = timed("build", phase_build)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    kern = phase_kernels(gen)
-    phase_model(gen)
-    train = phase_train(seed)
-    phase_lm_bench(seed)
-    sl = phase_slice(seed)
+    kern = timed("kernels", phase_kernels, gen)
+    timed("model", phase_model, gen)
+    train = timed("train", phase_train, seed)
+    timed("lm_bench", phase_lm_bench, seed)
+    sl = timed("slice", phase_slice, seed)
     torch.cuda.empty_cache()
-    en = phase_engine(seed)
+    en = timed("engine", phase_engine, seed)
     torch.cuda.empty_cache()
-    phase_impala_parity(seed)
-    rl = phase_impala_learner(pool, seed)
-    phase_cohort_impala(seed)
+    timed("impala_parity", phase_impala_parity, seed)
+    rl = timed("impala_learner", phase_impala_learner, pool, seed)
+    timed("cohort_impala", phase_cohort_impala, seed)
     torch.cuda.empty_cache()  # the learner processes share the card
-    cl = phase_cohort_lm(seed)
+    cl = timed("cohort_lm", phase_cohort_lm, seed)
     torch.cuda.empty_cache()
-    phase_accumulator_impala(seed)
+    timed("accumulator_impala", phase_accumulator_impala, seed)
     torch.cuda.empty_cache()
-    acl = phase_accumulator_lm(seed)
+    acl = timed("accumulator_lm", phase_accumulator_lm, seed)
     torch.cuda.empty_cache()
     # The r2d2 path: counts start at 0 here and are read right after.
     fa.reset_launches()
-    phase_r2d2_parity(seed)
-    phase_r2d2_learner(seed)
+    timed("r2d2_parity", phase_r2d2_parity, seed)
+    timed("r2d2_learner", phase_r2d2_learner, seed)
     torch.cuda.empty_cache()
-    phase_r2d2_replay(seed)
+    timed("r2d2_replay", phase_r2d2_replay, seed)
     r2 = _counts()
     torch.cuda.empty_cache()
-    fleet = {"durable_lm": phase_durable_lm(seed)}
+    fleet = {"durable_lm": timed("durable_lm", phase_durable_lm, seed)}
     torch.cuda.empty_cache()
-    fleet["dckpt_lm"] = phase_dckpt_lm(seed)
+    fleet["dckpt_lm"] = timed("dckpt_lm", phase_dckpt_lm, seed)
     torch.cuda.empty_cache()
-    fleet["timeline_lm"] = phase_timeline_lm(seed)
-    phase_compile_cache()
+    fleet["timeline_lm"] = timed("timeline_lm", phase_timeline_lm, seed)
+    timed("compile_cache", phase_compile_cache)
     torch.cuda.empty_cache()
     # The anakin path: counts start at 0 here and are read right after.
     fa.reset_launches()
-    phase_anakin(seed)
+    timed("anakin", phase_anakin, seed)
     anakin = _counts()
     torch.cuda.empty_cache()
     # The sharded_lm path: every rank process counts from 0 (each host's
     # rank 0 resets in _cohort_child, its other rank starts fresh).
-    sharded = phase_sharded_lm(seed)["launches"]
-    return kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded
+    sharded = timed("sharded_lm", phase_sharded_lm, seed)["launches"]
+    torch.cuda.empty_cache()
+    # The mp_lm paths: every rank process counts from 0 before each arm
+    # (_mp_rank).
+    mp_lm = timed("mp_lm", phase_mp_lm, seed)["launches"]
+    log({"phase_seconds": PHASE_SECONDS, "total_s": round(sum(PHASE_SECONDS.values()), 1)})
+    return kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded, mp_lm
 
 
 if __name__ == "__main__":

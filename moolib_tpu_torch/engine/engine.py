@@ -102,7 +102,7 @@ class ContinuousBatchingEngine:
         if mesh is not None or prefill_devices:
             raise NotImplementedError(
                 "ContinuousBatchingEngine(mesh=, prefill_devices=): tensor-parallel "
-                "serving and disaggregated prefill are not yet ported (slice 9b)"
+                "serving and disaggregated prefill are not yet ported (slice 9d)"
             )
         self.model = model
         self.slots = int(slots)

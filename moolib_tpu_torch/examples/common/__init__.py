@@ -252,7 +252,10 @@ def spawn_mesh_ranks(module: str, flags, world: int):
 def run_mesh_host(train, module: str, flags, on_stats, world: int):
     """Rank 0 of a self-spawned mesh host: spawn the other ranks, run
     ``train(flags, on_stats, (coordinator, world, 0))``, then join them
-    (killed if rank 0 failed)."""
+    (killed if rank 0 failed).  The process group ``train`` joined is torn
+    down before returning, so the calling process can host another mesh."""
+    import torch.distributed as dist
+
     coordinator, children = spawn_mesh_ranks(module, flags, world)
     try:
         out = train(flags, on_stats, (coordinator, world, 0))
@@ -260,6 +263,9 @@ def run_mesh_host(train, module: str, flags, on_stats, world: int):
         for c in children:
             c.kill()
         raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     for c in children:
         if c.wait(timeout=600) != 0:
             raise RuntimeError(f"{module}: a mesh rank exited with {c.returncode}")

@@ -1,5 +1,6 @@
 """LM training: the port of the JAX package's ``examples/lm.py`` — the
-single-device path and the elastic data-parallel path.
+single-device path, the static mesh (data, sequence, expert and pipeline
+parallel) and the elastic data-parallel path.
 
 The task makes long-range attention load-bearing: each sequence is a random
 prefix followed by its own repetition; the loss counts only the repeated
@@ -14,9 +15,9 @@ With ``--address`` (host the broker) or ``--connect`` / ``--broker_addrs``
 cohort (:func:`_train_elastic`): leader election, the model and AdamW
 state synced to joiners, virtual batches, wire compression.
 
-Run (the JAX defaults are a dp x sp mesh with ring attention, which the
-port does not have yet, so pass a dp mesh or a single device, and dense or
-flash attention):
+Run (the JAX defaults: a dp=2 x sp=4 mesh of 8 rank processes, ring
+attention):
+    python -m moolib_tpu_torch.examples.lm --device cpu
     python -m moolib_tpu_torch.examples.lm --mesh "" --attention flash --steps 400
     python -m moolib_tpu_torch.examples.lm --mesh "" --attention dense --device cpu
     python -m moolib_tpu_torch.examples.lm --mesh "" --attention dense --device cpu \
@@ -31,8 +32,9 @@ its host itself and is rank 0, so the JAX command line works unchanged;
 under ``torchrun`` every rank is started for it.  ``--batch_size`` is the
 host's batch; each rank takes its ``dp`` block.
 
-- Without a cohort, every rank runs the same loop: the train step averages
-  the gradients over ``dp`` and every rank applies the same AdamW update.
+- Without a cohort, every rank runs the same loop (:class:`_StaticMesh`):
+  the train step reduces the gradients over the mesh and every rank
+  applies the same AdamW update.
 - ``--shard_grads`` in an elastic cohort (``--address``/``--connect``) is
   the hierarchical plane: the step reduce-scatters the gradients over the
   mesh (fsdp layout), mesh rank 0 is the host's one Accumulator peer and
@@ -46,6 +48,23 @@ host's batch; each rank takes its ``dp`` block.
   (``parallel.make_train_step``).  With ``--checkpoint_dir`` the cohort
   writes distributed checkpoints (``checkpoint.DistributedCheckpointer``).
 - ``--shard_grads`` and ``--overlap_grads`` work without a mesh too.
+
+Model parallelism on the static mesh (each rank holds ``[B/dp, T/sp]``
+tokens):
+
+- ``--attention ring`` with an ``sp`` axis: ring attention over ``sp``
+  (``parallel.ring_attention``), positions offset by the rank's chunk;
+- ``--moe_experts E``: every second block is a Switch MoE; with an ``ep``
+  axis each rank holds ``E/ep`` experts (``parallel.moe``) and the tokens
+  are replicated over ``ep``;
+- ``--mesh ...,pp=S`` with ``--microbatches``/``--pp_repeats``: the blocks
+  run through the GPipe/circular pipeline (``pipeline_lm_apply``).
+
+Every rank runs the same loop; the step (``parallel.make_train_step``)
+reports the global loss and accuracy.  Mesh rank 0 logs and, with
+``--checkpoint_dir``, writes the whole state: ``ep``-sharded experts (and
+their AdamW moments) are gathered (``parallel.gather_full``) and saved in
+the single-device layout, so the checkpoint loads into the plain model.
 
 With ``--publish_every N`` on the elastic path the leader publishes its
 weights every N optimizer steps through a ``serving.ModelPublisher`` on the
@@ -70,8 +89,8 @@ Durability and the fleet (docs/RESILIENCE.md):
   telemetry (``autoscaler``); ``--localdir``: the directory whose
   decommission flag drains this peer and leaves the cohort.
 
-Ring attention, a ``tp``/``sp`` mesh axis, MoE and pipeline stages come
-with ROADMAP slice 9b; their flags exit with a message.
+A ``tp`` mesh axis, and model parallelism inside the elastic cohort, come
+with ROADMAP slice 9d; their flags exit with a message.
 """
 
 from __future__ import annotations
@@ -93,7 +112,6 @@ from ..utils.profiling import StepTimer
 from ..watchdog import Watchdog
 from . import common
 
-
 def make_flags(argv=None):
     p = argparse.ArgumentParser(description="moolib_tpu_torch LM example")
     p.add_argument("--vocab", type=int, default=64)
@@ -106,16 +124,21 @@ def make_flags(argv=None):
                    help="grouped-query attention: KV heads shared by groups of "
                    "heads/kv_heads query heads (0 = heads, plain MHA)")
     p.add_argument("--attention", default="ring", choices=["dense", "flash", "ring"],
-                   help="ring = sequence-parallel over the sp mesh axis (not yet ported)")
+                   help="ring = sequence-parallel over the sp mesh axis")
     p.add_argument("--mesh", default="dp=2,sp=4",
                    help='mesh axes of the host, e.g. "dp=2" (one rank process each); '
                    '"" for the single-device step')
     p.add_argument("--pos", default="learned", choices=["learned", "rotary"],
                    help="position encoding: learned table (capped at seq_len) or rotary")
-    p.add_argument("--moe_experts", type=int, default=0)
+    p.add_argument("--moe_experts", type=int, default=0,
+                   help="if >0, every other block uses a SwitchMoE FFN with this many "
+                   "experts; add an ep axis to --mesh to shard them (expert parallelism)")
     p.add_argument("--moe_aux_weight", type=float, default=0.01)
-    p.add_argument("--microbatches", type=int, default=0)
-    p.add_argument("--pp_repeats", type=int, default=1)
+    p.add_argument("--microbatches", type=int, default=0,
+                   help="pipeline microbatches when --mesh has a pp axis (0 = 2*pp)")
+    p.add_argument("--pp_repeats", type=int, default=1,
+                   help="circular-schedule virtual stages per pp rank "
+                   "(--layers must equal pp_repeats * pp)")
     p.add_argument("--remat", action="store_true",
                    help="checkpoint each transformer block (recompute activations "
                    "in the backward)")
@@ -183,19 +206,23 @@ def make_flags(argv=None):
                    "subscribed to this peer hot-swap (serving.ModelPublisher)")
     p.add_argument("--publish_channel", default="model",
                    help="publisher endpoint prefix under --publish_every")
+    p.add_argument("--probe_dir", default=None,
+                   help="model-parallel mesh: mesh rank 0 writes the warm-up step's "
+                   "global loss and reduced gradients (single-device layout) to "
+                   "DIR/step0.pt, to hold against a one-process run")
     return common.finalize_flags(p, argv)
 
 
 def _unported(flags) -> list:
     """(flag, slice) for every flag set to a path this slice does not port."""
     found = []
-    if flags.attention == "ring":
-        found.append(("--attention ring", "9b"))
-    if flags.moe_experts:
-        found.append(("--moe_experts", "9b"))
-    other = [k for k, v in parallel.mesh.parse_axes(flags.mesh).items() if k != "dp" and v != 1]
-    if other:
-        found.append((f"--mesh axes {other}", "9b"))
+    axes = parallel.mesh.parse_axes(flags.mesh)
+    if axes.get("tp", 1) != 1:
+        found.append(("--mesh axes ['tp']", "9d"))
+    other = [k for k, v in axes.items() if k not in ("dp", "tp") and v != 1]
+    if other and flags.shard_grads:
+        found.append((f"--mesh axes {other} with --shard_grads (model parallelism "
+                       "inside the elastic cohort)", "9d"))
     return found
 
 
@@ -225,6 +252,7 @@ def make_model(flags, device) -> TransformerLM:
         num_heads=flags.heads,
         max_len=flags.seq_len,
         attention=flags.attention,
+        moe_num_experts=flags.moe_experts,
         pos_embedding=flags.pos,
         remat=flags.remat,
         remat_policy=flags.remat_policy,
@@ -306,18 +334,50 @@ def _check_flags(flags) -> None:
     if unported:
         raise SystemExit(
             "; ".join(f"{f}: not yet ported (slice {n})" for f, n in unported)
-            + ". The JAX example's defaults are --mesh dp=2,sp=4 --attention ring; "
-            'this port trains over a dp mesh or one device: pass --mesh dp=N or --mesh "" '
-            "and --attention flash|dense"
-        )
+            + ". This port trains over dp, sp, ep and pp mesh axes, and over "
+            "dp alone in an elastic cohort")
+    _check_model_parallel_flags(flags)
     if flags.publish_every and not elastic:
         raise SystemExit("--publish_every: the leader of an elastic cohort publishes; "
                          "pass --address, --connect or --broker_addrs")
     if flags.seq_len % 2:
         raise ValueError("--seq_len must be even")
     world = _mesh_world(flags)
-    if world and flags.batch_size % parallel.mesh.parse_axes(flags.mesh).get("dp", world):
+    if world and flags.batch_size % parallel.mesh.parse_axes(flags.mesh).get("dp", 1):
         raise ValueError("the dp axis size must divide --batch_size")
+
+
+def _check_model_parallel_flags(flags) -> None:
+    """The JAX example's rules for ring, MoE and the pipeline, word for word."""
+    axes = parallel.mesh.parse_axes(flags.mesh)
+    if axes:
+        if flags.attention == "ring":
+            if "sp" not in axes:
+                raise ValueError("attention='ring' needs an sp axis in --mesh")
+            if axes["sp"] > 0 and flags.seq_len % axes["sp"]:
+                raise ValueError("the sp axis size must divide --seq_len")
+    elif flags.attention == "ring":
+        raise ValueError("attention='ring' needs --mesh with an sp axis")
+    if flags.moe_experts and flags.layers < 2:
+        # MoE lands on every 2nd block; with a single layer no expert would
+        # ever be created.
+        raise ValueError("--moe_experts needs --layers >= 2")
+    pp = axes.get("pp", 1)
+    if pp > 1:
+        if flags.attention == "ring":
+            raise ValueError("pipeline (pp) composes with dense/flash, not ring")
+        if flags.moe_experts:
+            raise ValueError("pipeline (pp) needs identical blocks (no --moe_experts)")
+        if flags.layers != flags.pp_repeats * pp:
+            raise ValueError(f"--layers must be pp_repeats*pp = {flags.pp_repeats * pp}")
+        microbatches = flags.microbatches or 2 * pp
+        if flags.batch_size % microbatches:
+            raise ValueError("--batch_size must be divisible by --microbatches")
+        if (flags.batch_size // microbatches) % axes.get("dp", 1):
+            raise ValueError(
+                "the per-microbatch batch (batch_size/microbatches) must be "
+                "divisible by the dp axis size"
+            )
 
 
 def train(flags, on_stats=None, _dist_args=()) -> dict:
@@ -350,11 +410,14 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
         device = resolve(flags.device)  # the card the rank was bound to
 
     model = make_model(flags, device)
+    elastic = bool(flags.address or flags.connect or flags.broker_addrs)
+    # A static mesh (dp, sp, ep, pp axes); the elastic cohort's mesh host
+    # is _MeshHost.
+    mp = _StaticMesh(flags, mesh, model) if mesh is not None and not elastic else None
     rng = np.random.default_rng(flags.seed)
     tokens0 = torch.from_numpy(make_batch(rng, flags)).to(device)
     opt = make_optimizer(model.parameters(), flags.learning_rate)
     half = flags.seq_len // 2
-    elastic = bool(flags.address or flags.connect or flags.broker_addrs)
 
     def fwd_bwd(tokens):
         opt.zero_grad(set_to_none=True)
@@ -362,17 +425,8 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
         loss.backward()
         return loss.detach(), acc
 
-    if mesh is not None and not elastic:
-        # A static mesh: every rank runs the same loop; the step averages
-        # the gradients over dp before the (replicated) AdamW update.
-        mstep = parallel.make_train_step(
-            lambda p, b, r: copy_task_loss(model(b), b, half), optimizer=opt, mesh=mesh,
-            batch_spec=parallel.PartitionSpec("dp", None))
-        named_all = dict(model.named_parameters())
-
-        def step(tokens):
-            _, _, loss, acc = mstep(named_all, None, tokens, None)
-            return loss, acc
+    if mp is not None:
+        step = mp.make_step(opt)
     else:
         def step(tokens):
             with telemetry.devmon.dispatch_span("lm.step"):
@@ -389,7 +443,7 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
     ckpt_info = {"restored_step": None, "restore_s": None, "saves": 0,
                  "save_s": None, "bytes": None}
     dckpt = restored_opt = None
-    rank0 = mesh is None or mesh.get_local_rank("dp") == 0
+    rank0 = mesh is None or int(mesh.mesh.flatten()[0]) == torch.distributed.get_rank()
     if flags.checkpoint_dir and elastic and flags.shard_grads:
         # Sharded cohorts checkpoint as a DISTRIBUTED artifact: every host
         # writes its shard of the state blob, the leader two-phase-commits
@@ -402,6 +456,8 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
         dckpt = DistributedCheckpointer(flags.checkpoint_dir)
 
     def restore() -> int:
+        if mp is not None:
+            return mp.restore(ckpt, opt, device)
         if dckpt is None:
             return resume(ckpt, model, opt, device)
         r = dckpt.restore(map_location=device)
@@ -428,10 +484,14 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
                 print(f"resumed from checkpoint step {start_step}", flush=True)
 
     def save_checkpoint(steps):
-        if not rank0:
-            return  # one copy of a static mesh's replicated state
         t0 = time.perf_counter()
-        path = ckpt.save(steps, checkpoint_state(model, opt, steps))
+        # A model-parallel mesh gathers its ep-sharded experts first (every
+        # rank takes part); rank 0 writes one copy of the whole state.
+        state = (mp.checkpoint_state(opt, steps) if mp is not None
+                 else checkpoint_state(model, opt, steps) if rank0 else None)
+        if not rank0:
+            return
+        path = ckpt.save(steps, state)
         ckpt_info["save_s"] = time.perf_counter() - t0
         ckpt_info["saves"] += 1
         ckpt_info["bytes"] = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
@@ -441,8 +501,14 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
     # optimizer never sees them (the JAX example's discarded compile step).
     # It runs under devmon's FLOP counter: the step cost for the MFU (the
     # flash kernels are not aten ops, so attention is not counted on the
-    # card — comparable to the 6·N·tokens count).
-    step_cost = telemetry.devmon.step_cost("lm.step", fwd_bwd, tokens0)
+    # card — comparable to the 6·N·tokens count).  A mesh with a pp axis
+    # reports no MFU (_StaticMesh.warmup).
+    if mp is not None:
+        step_cost = mp.warmup(tokens0)
+        if flags.probe_dir:
+            mp.probe(flags.probe_dir, rank0)
+    else:
+        step_cost = telemetry.devmon.step_cost("lm.step", fwd_bwd, tokens0)
     opt.zero_grad(set_to_none=True)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -468,12 +534,14 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
     steps_done = start_step
     timer = StepTimer()  # registry-backed section breakdown (docs/TELEMETRY.md)
     wd = Watchdog(timeout=flags.watchdog, name="lm")
+    step_seconds = []  # host time of each step (a mesh step ends in its loss's collective)
     try:
         for i in range(start_step, flags.steps):
             with timer.section("make_batch"), wd.section("make_batch"):
                 tokens = torch.from_numpy(make_batch(rng, flags)).to(device)
             with timer.section("train_step"), wd.section("train_step"):
                 loss, acc = step(tokens)
+            step_seconds.append(timer.last["train_step"])
             steps_done = i + 1
             if steps_done % flags.log_interval == 0:
                 loss_v, acc_v = float(loss), float(acc)
@@ -496,7 +564,10 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
                           flush=True)
                 if on_stats is not None:
                     on_stats({"step": steps_done, "loss": loss_v, "acc": acc_v})
-            if ckpt is not None and time.time() - last_ckpt > flags.checkpoint_interval:
+            due = ckpt is not None and time.time() - last_ckpt > flags.checkpoint_interval
+            if mp is not None and ckpt is not None:
+                due = mp.agree(due)  # rank 0's clock decides for the whole mesh
+            if due:
                 last_ckpt = time.time()
                 save_checkpoint(steps_done)
     finally:
@@ -525,9 +596,223 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
         "tokens_per_s": (steps_done - start_step) * flags.batch_size * flags.seq_len
         / max(elapsed, 1e-6),
         "checkpoint": ckpt_info,
-        "rank": 0 if mesh is None else mesh.get_local_rank("dp"),
+        "rank": 0 if mesh is None else torch.distributed.get_rank(),
         "params_sha256": params_sha256(dict(model.named_parameters())),
+        "step_s": step_seconds,
+        **({} if mp is None else {"ranks": mp.rank_summaries()}),
     }
+
+
+class _StaticMesh:
+    """The static mesh: ``dp``, and the model axes ``sp``, ``ep`` and ``pp``
+    (the JAX example's ``jit`` over its mesh, per rank).  The tokens shard
+    over ``dp``, and over ``sp`` under ring attention; ``ep`` and ``pp``
+    ranks hold replicas of them.  Built on every rank, right after the
+    model: it cuts the model's experts to this rank's ``ep`` block.  Its
+    methods with collectives are entered by every rank in the same order."""
+
+    def __init__(self, flags, mesh, model: TransformerLM):
+        sizes = parallel.mesh.axis_sizes(mesh)
+        self.flags, self.mesh, self.model = flags, mesh, model
+        self.dp, self.sp, self.ep, self.pp = (sizes.get(a, 1) for a in ("dp", "sp", "ep", "pp"))
+        self.ring = flags.attention == "ring"
+        self.n_tok = self.dp * (self.sp if self.ring else 1)
+        self.half = flags.seq_len // 2
+        self.n_scored = flags.batch_size * (flags.seq_len - self.half)
+        self.microbatches = flags.microbatches or 2 * self.pp
+        self.shardings = None
+        self.experts: list = []
+        if flags.moe_experts and self.ep > 1:
+            from ..parallel.moe import shard_experts
+
+            self.shardings = parallel.moe_shardings(dict(model.named_parameters()), mesh, "ep")
+            self.experts = [k for k, sh in self.shardings.items() if "ep" in tuple(sh.spec)]
+            self.full_shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+            shard_experts(model, mesh)
+        self.named = dict(model.named_parameters())
+        self.warm = None
+
+    def batch(self, tokens) -> dict:
+        """The step's batch: tokens, next-token targets and the scored
+        positions' weights, all [B, T] (the step cuts each rank's block)."""
+        weight = torch.zeros(tokens.shape, dtype=torch.float32, device=tokens.device)
+        weight[:, self.half - 1: -1] = 1.0
+        return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1), "weight": weight}
+
+    def loss_fn(self, params, b, rng):
+        """This rank's local loss and accuracy: its scored positions' sum
+        over the global count, times the token shards (their mean is the
+        global value; the JAX example's mean over the repeated half), plus
+        the MoE aux losses."""
+        flags = self.flags
+        aux = 0.0
+        if self.pp > 1:
+            from ..models.transformer import pipeline_lm_apply
+
+            logits = pipeline_lm_apply(
+                self.model, b["tokens"], self.mesh, num_microbatches=self.microbatches,
+                data_axis="dp" if self.dp > 1 else None, circular_repeats=flags.pp_repeats,
+                remat=flags.remat, remat_policy=flags.remat_policy)
+        else:
+            logits = self.model(b["tokens"], mesh=self.mesh)
+            if self.model.aux_losses:
+                aux = sum(self.model.aux_losses)
+        tgt, w = b["targets"].long(), b["weight"]
+        scale = self.n_tok / self.n_scored
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        ll = logp.gather(-1, tgt[..., None])[..., 0]
+        acc = ((logits.argmax(-1) == tgt).to(torch.float32) * w).sum() * scale
+        return -(ll * w).sum() * scale + flags.moe_aux_weight * aux, acc
+
+    def make_step(self, opt):
+        spec = parallel.PartitionSpec("dp", "sp" if self.ring else None)
+        self.mstep = parallel.make_train_step(self.loss_fn, optimizer=opt, mesh=self.mesh,
+                                              params_sharding=self.shardings, batch_spec=spec)
+
+        def step(tokens):
+            _, _, loss, acc = self.mstep(self.named, None, self.batch(tokens), None)
+            return loss, acc
+
+        return step
+
+    def warmup(self, tokens):
+        """Forward, backward and the in-mesh reduction without the update:
+        the reduced gradients stay in ``.grad`` (the probe reads them).
+        Without a ``pp`` axis it runs under devmon's FLOP counter and
+        returns this rank's step cost (the MFU's); the counter's module
+        hooks break the pipeline's per-tick ``autograd.grad``.  The counter
+        swallows errors, so a failure is raised here: a rank that went on
+        would leave its collectives out of step with the others'."""
+        if self.pp > 1:
+            self.warm = self.mstep.grads(self.named, self.batch(tokens), None)
+            return None
+        failed = []
+
+        def run(t):
+            try:
+                self.warm = self.mstep.grads(self.named, self.batch(t), None)
+            except BaseException as e:
+                failed.append(e)
+                raise
+
+        cost = telemetry.devmon.step_cost("lm.step", run, tokens)
+        if failed:
+            raise failed[0]
+        if self.warm is None:  # the count was cached: the warm-up still runs
+            self.warm = self.mstep.grads(self.named, self.batch(tokens), None)
+        return cost
+
+    def _full(self, tree: dict) -> dict:
+        """Every rank's ``{name: tensor}`` with the expert leaves gathered
+        to their ``ep`` group's rank 0 (None on the others)."""
+        from ..parallel.collectives import _dtensor
+
+        ex = {k: _dtensor(v, self.shardings[k.split("/", 1)[1]],
+                          self.full_shapes[k.split("/", 1)[1]])
+              for k, v in tree.items() if k.split("/", 1)[1] in self.experts}
+        got = parallel.gather_full(ex) if ex else {}
+        if got is None:
+            return None
+        return {**tree, **got}
+
+    def probe(self, directory: str, rank0: bool) -> None:
+        """Rank 0 writes the warm-up's global loss and accuracy and every
+        reduced gradient in the single-device layout to
+        ``directory/step0.pt``."""
+        grads = {f"g/{k}": (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in self.named.items()}
+        full = self._full(grads)
+        if not rank0:
+            return
+        os.makedirs(directory, exist_ok=True)
+        torch.save({"loss": float(self.warm[0]), "acc": float(self.warm[1]),
+                    "grads": {k[2:]: v.detach().cpu() for k, v in full.items()}},
+                   os.path.join(directory, "step0.pt"))
+
+    def checkpoint_state(self, opt, steps: int):
+        """The whole state in the single-device layout on mesh rank 0
+        (None elsewhere): the experts and their AdamW moments gathered."""
+        sd = self.model.state_dict()
+        osd = opt.state_dict()
+        if not self.experts:
+            return {"params": sd, "opt_state": osd, "steps": int(steps)}
+        order = list(self.named)
+        tree = {f"p/{k}": sd[k] for k in self.experts}
+        for k in self.experts:
+            for m in ("exp_avg", "exp_avg_sq"):
+                st = osd["state"].get(order.index(k))
+                if st is not None:
+                    tree[f"{m}/{k}"] = st[m]
+        full = self._full(tree)
+        if full is None:
+            return None
+        for key, v in full.items():
+            kind, name = key.split("/", 1)
+            if kind == "p":
+                sd[name] = v
+            else:
+                osd["state"][order.index(name)] = {**osd["state"][order.index(name)], kind: v}
+        return {"params": sd, "opt_state": osd, "steps": int(steps)}
+
+    def restore(self, ckpt, opt, device) -> int:
+        """Restore a whole-state checkpoint (either layout's writer), cutting
+        the experts and their moments to this rank's block."""
+        from ..parallel.collectives import shard_of
+
+        st = ckpt.restore(map_location=device)
+        if st is None:
+            return 0
+        cut = (lambda k, t: shard_of(t, self.shardings[k]).clone()
+               if k in self.experts else t)
+        with torch.no_grad():
+            for k, p in self.named.items():
+                p.copy_(cut(k, st["params"][k]))
+        order = list(self.named)
+        osd = st["opt_state"]
+        for i, s in osd["state"].items():
+            for m in ("exp_avg", "exp_avg_sq"):
+                if m in s:
+                    s[m] = cut(order[int(i)], s[m])
+        _load_adamw_state(opt, osd)
+        return int(st["steps"])
+
+    def agree(self, flag: bool) -> bool:
+        """Rank 0's ``flag`` on every rank (a decision with collectives in it)."""
+        t = torch.tensor([int(flag)])
+        torch.distributed.broadcast(t, int(self.mesh.mesh.flatten()[0]))
+        return bool(t.item())
+
+    def rank_summaries(self) -> list:
+        """Every rank's summary (an all-gather): replicated-leaf and expert
+        sha256, peak memory, host-staged bytes, the ring's exposed hop
+        seconds, the flash launches, and the MoE tokens over capacity in
+        the last step."""
+        from ..ops import flash_attention as fa
+        from ..parallel.moe import SwitchMoE
+
+        reg = telemetry.get_registry()
+        dev = self.model.device
+        dropped = [m.last_dropped for m in self.model.modules()
+                   if isinstance(m, SwitchMoE) and hasattr(m, "last_dropped")]
+        info = {
+            "rank": torch.distributed.get_rank(),
+            "coords": {a: self.mesh.get_local_rank(a) for a in self.mesh.mesh_dim_names},
+            "params_sha256": params_sha256({k: v for k, v in self.named.items()
+                                            if k not in self.experts}),
+            "experts_sha256": params_sha256({k: self.named[k] for k in self.experts})
+            if self.experts else None,
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                     if dev.type == "cuda" else None),
+            "host_staged_bytes": _counter(reg, "collectives_host_staged_bytes_total"),
+            "ring_hop_seconds": _hist_sum(reg, "ring_hop_seconds"),
+            "launches": {"flash_fwd": fa.flash_fwd_launches(),
+                         "flash_bwd_dq": fa.flash_bwd_dq_launches(),
+                         "flash_bwd_dkv": fa.flash_bwd_dkv_launches()},
+            "moe_dropped_last_step": int(sum(int(d) for d in dropped)) if dropped else None,
+        }
+        out = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(out, info)
+        return out
 
 
 def params_sha256(named) -> str:

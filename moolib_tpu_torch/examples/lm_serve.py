@@ -37,7 +37,7 @@ share a length (the queue stacks them); pad client-side for mixed lengths.
 
 Servers run on CUDA unless ``--device`` names another device.
 ``--mesh`` and ``--prefill_devices`` (tensor-parallel serving) exit "not
-yet ported (slice 9b)".  With ``--localdir`` a serving replica watches the
+yet ported (slice 9d)".  With ``--localdir`` a serving replica watches the
 autoscaler's decommission flag there and leaves when it appears.
 """
 
@@ -211,9 +211,9 @@ def _unported(flags) -> list:
     """(flag, slice) for every flag set to a path this slice does not port."""
     found = []
     if flags.mesh:
-        found.append(("--mesh", "9b"))
+        found.append(("--mesh", "9d"))
     if flags.prefill_devices:
-        found.append(("--prefill_devices", "9b"))
+        found.append(("--prefill_devices", "9d"))
     return found
 
 

@@ -327,7 +327,7 @@ def unported(flags) -> list:
     other = [k for k, v in parallel.mesh.parse_axes(flags.get("mesh") or "").items()
              if k != "dp" and v != 1]
     if other:
-        out.append((f"--mesh axes {other}", "9b"))
+        out.append((f"--mesh axes {other}", "9d"))
     return out
 
 

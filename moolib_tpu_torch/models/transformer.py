@@ -1,4 +1,4 @@
-"""Causal Transformer LM with pluggable attention: dense or flash.
+"""Causal Transformer LM with pluggable attention: dense, flash or ring.
 
 The port of the JAX package's ``models/transformer.py``: pre-LN blocks,
 learned or rotary positions, grouped-query attention, a training forward
@@ -11,10 +11,20 @@ positions against a shared KV block pool, ``ops.paged_attention``).
 - ``attention="dense"`` — plain torch dense attention;
 - ``attention="flash"`` — :func:`..ops.flash_attention.flash_attention`,
   the hand-written CUDA kernels on the card (forward, and the dq and dk/dv
-  passes in the backward; their plain versions on the CPU).
+  passes in the backward; their plain versions on the CPU);
+- ``attention="ring"`` — :func:`..parallel.ring_attention.ring_attention_sharded`
+  over the ``sp`` axis of a mesh passed at call time (``model(tokens,
+  mesh=mesh)`` on this rank's ``[B/dp, T/sp]`` token block): each hop runs
+  the same flash kernels on a chunk.  Positions (the learned table and
+  rotary alike) start at ``sp_rank * T/sp``.
 
-Ring attention and MoE blocks come with a later slice; asking for them
-raises ``NotImplementedError``.
+Sparse capacity via ``moe_num_experts > 0``: every ``moe_every``-th block
+swaps its dense FFN for a :class:`..parallel.moe.SwitchMoE` (``ffn_dim``
+4·d, no residual inside), whose experts shard over an ``ep`` mesh axis
+(``parallel.moe.shard_experts``).  The router's load-balancing aux losses of
+the last forward are ``model.aux_losses`` (flax sows them into ``losses``).
+:func:`pipeline_lm_apply` runs the blocks through
+``parallel.pipeline.pipeline_apply`` over a ``pp`` axis.
 
 Numerics follow the flax model exactly: every parameter is stored in f32
 (flax's ``param_dtype``), and the Dense layers and embeddings cast their
@@ -170,10 +180,12 @@ def cast_weights_once(model: nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block: attention, then a tanh-GELU MLP."""
+    """Pre-LN transformer block: attention, then a tanh-GELU MLP (or, with
+    ``moe_num_experts``, a Switch MoE FFN)."""
 
     def __init__(self, d_model: int, num_heads: int, attention: str, dtype: torch.dtype,
-                 rotary: bool = False, num_kv_heads: Optional[int] = None, device=None):
+                 rotary: bool = False, num_kv_heads: Optional[int] = None, device=None,
+                 moe_num_experts: int = 0, moe_capacity_factor: float = 1.25):
         super().__init__()
         self.d_model, self.num_heads, self.attention = d_model, num_heads, attention
         self.dtype, self.rotary = dtype, rotary
@@ -187,8 +199,16 @@ class Block(nn.Module):
         self.qkv = Dense(d_model, (num_heads + 2 * self.num_kv_heads) * hd, dtype, device)
         self.proj = Dense(d_model, d_model, dtype, device)
         self.LayerNorm_1 = LayerNorm(d_model, device)
-        self.Dense_0 = Dense(d_model, 4 * d_model, dtype, device)
-        self.Dense_1 = Dense(4 * d_model, d_model, dtype, device)
+        if moe_num_experts:
+            from ..parallel.moe import SwitchMoE
+
+            self.moe = SwitchMoE(d_model, moe_num_experts, 4 * d_model,
+                                 capacity_factor=moe_capacity_factor, dtype=dtype,
+                                 residual=False, device=device)
+        else:
+            self.moe = None
+            self.Dense_0 = Dense(d_model, 4 * d_model, dtype, device)
+            self.Dense_1 = Dense(4 * d_model, d_model, dtype, device)
 
     def _qkv(self, x):
         B, T, D = x.shape
@@ -197,14 +217,19 @@ class Block(nn.Module):
         # Head-major columns: [H q heads, Hk k heads, Hk v heads].
         return qkv[:, :, :H], qkv[:, :, H : H + Hk], qkv[:, :, H + Hk :]
 
-    def _finish(self, x, att):
+    def _finish(self, x, att, mesh=None):
+        """The projection and the FFN: ``(x, moe aux loss or None)``."""
         B, T, D = x.shape
         x = x + self.proj(att.reshape(B, T, D))
-        y = self.Dense_0(self.LayerNorm_1(x))
+        y = self.LayerNorm_1(x)
+        if self.moe is not None:
+            y, aux = self.moe(y, mesh)
+            return x + y, aux
+        y = self.Dense_0(y)
         y = self.Dense_1(gelu(y))
-        return x + y
+        return x + y, None
 
-    def _attend(self, x, q, k, v):
+    def _attend(self, x, q, k, v, mesh=None, prefill: bool = False):
         group = self.num_heads // self.num_kv_heads
         if group > 1:
             # The attention paths take equal head counts: repeat each KV
@@ -212,7 +237,15 @@ class Block(nn.Module):
             # Autograd sums the repeated heads' gradients back.
             k = torch.repeat_interleave(k, group, dim=2)
             v = torch.repeat_interleave(v, group, dim=2)
-        if self.attention == "flash":
+        if self.attention == "ring" and not prefill:
+            from ..parallel.ring_attention import ring_attention_sharded
+
+            if mesh is None:
+                raise ValueError("attention='ring' needs mesh= at call time")
+            att = ring_attention_sharded(q, k, v, mesh, axis_name="sp", causal=True)
+        elif self.attention in ("flash", "ring"):
+            # A ring model prefills one sequence on one device: its
+            # single-device equivalent is flash (the JAX package's rule).
             from ..ops.flash_attention import flash_attention
 
             att = flash_attention(q, k, v, causal=True)
@@ -220,23 +253,29 @@ class Block(nn.Module):
             from ..parallel.ring_attention import full_attention
 
             att = full_attention(q, k, v, causal=True)
-        return self._finish(x, att)
+        return self._finish(x, att, mesh)
 
-    def _qkv_positions(self, x):
+    def _qkv_positions(self, x, offset=0):
         q, k, v = self._qkv(x)
         if self.rotary:
-            q, k = apply_rotary(q), apply_rotary(k)
+            q, k = apply_rotary(q, offset=offset), apply_rotary(k, offset=offset)
         return q, k, v
 
-    def forward(self, x):
+    def forward_aux(self, x, mesh=None, offset: int = 0):
+        """Full-sequence (training) pass: ``(output, MoE aux loss or
+        None)``.  ``offset`` is the position of the first token (a ring
+        rank's sequence chunk starts at ``sp_rank * T/sp``)."""
+        return self._attend(x, *self._qkv_positions(x, offset), mesh=mesh)
+
+    def forward(self, x, mesh=None, offset: int = 0):
         """Full-sequence (training) pass: the block's output only."""
-        return self._attend(x, *self._qkv_positions(x))
+        return self.forward_aux(x, mesh, offset)[0]
 
     def prefill(self, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Full-sequence pass that also returns ``(x, k, v)`` with the
         block's K/V in ``dtype`` at Hk heads — what seeds the decode cache."""
         q, k, v = self._qkv_positions(x)
-        return self._attend(x, q, k, v), k.to(self.dtype), v.to(self.dtype)
+        return self._attend(x, q, k, v, prefill=True)[0], k.to(self.dtype), v.to(self.dtype)
 
     def decode(self, x, cache_k, cache_v, t: int):
         """One-token step against the dense KV cache: writes this position's
@@ -252,7 +291,7 @@ class Block(nn.Module):
         cache_k[:, t] = k[:, 0].to(cache_k.dtype)
         cache_v[:, t] = v[:, 0].to(cache_v.dtype)
         att = gathered_decode_attention(q, cache_k, cache_v, t).to(x.dtype)
-        return self._finish(x, att)
+        return self._finish(x, att)[0]
 
     def decode_paged(self, x, pool_k, pool_v, paged):
         """One-token step of every slot against the shared KV block pool:
@@ -272,7 +311,7 @@ class Block(nn.Module):
         paged_kv_write(pool_k, k[:, 0], paged.block_tables, t, paged.active)
         paged_kv_write(pool_v, v[:, 0], paged.block_tables, t, paged.active)
         att = paged_attention(q, pool_k, pool_v, paged.block_tables, t).to(x.dtype)
-        return self._finish(x, att)
+        return self._finish(x, att)[0]
 
 
 class TransformerLM(nn.Module):
@@ -292,6 +331,8 @@ class TransformerLM(nn.Module):
         attention: str = "flash",
         dtype: torch.dtype = torch.bfloat16,
         moe_num_experts: int = 0,
+        moe_every: int = 2,
+        moe_capacity_factor: float = 1.25,
         pos_embedding: str = "learned",
         kv_num_blocks: int = 0,
         kv_block_size: int = 16,
@@ -301,12 +342,8 @@ class TransformerLM(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if attention == "ring":
-            raise NotImplementedError("attention='ring': ring attention is not yet ported (slice 9b)")
-        if attention not in ("dense", "flash"):
+        if attention not in ("dense", "flash", "ring"):
             raise ValueError(f"unknown attention {attention!r}")
-        if moe_num_experts:
-            raise NotImplementedError("MoE blocks are not yet ported (slice 9b)")
         # Validated even when remat is off, as the flax model does: bench
         # rows are keyed by this string, so a typo must never run silently.
         if remat_policy not in REMAT_POLICIES:
@@ -321,6 +358,9 @@ class TransformerLM(nn.Module):
         self.num_layers, self.max_len, self.attention = num_layers, max_len, attention
         self.dtype, self.pos_embedding = dtype, pos_embedding
         self.remat, self.remat_policy = remat, remat_policy
+        self.moe_num_experts, self.moe_every = moe_num_experts, moe_every
+        self.moe_capacity_factor = moe_capacity_factor
+        self.aux_losses: List[torch.Tensor] = []  # the MoE blocks' of the last forward
         # The paged cache's geometry (the flax model's fields).  With
         # kv_num_blocks > 0 the model decodes only through decode_step_paged;
         # the pools belong to the serving engine, which sizes them from these
@@ -330,12 +370,18 @@ class TransformerLM(nn.Module):
         self.pos = Embed(max_len, d_model, dtype, dev) if pos_embedding == "learned" else None
         self.blocks = nn.ModuleList(
             Block(d_model, num_heads, attention, dtype, rotary=pos_embedding == "rotary",
-                  num_kv_heads=num_kv_heads, device=dev)
-            for _ in range(num_layers)
+                  num_kv_heads=num_kv_heads, device=dev,
+                  moe_num_experts=moe_num_experts if self._is_moe(i) else 0,
+                  moe_capacity_factor=moe_capacity_factor)
+            for i in range(num_layers)
         )
         self.ln_f = LayerNorm(d_model, dev)
         self.lm_head = Dense(d_model, vocab_size, torch.float32, dev)
         self.reset_parameters(generator)
+
+    def _is_moe(self, i: int) -> bool:
+        """Blocks i with i % moe_every == moe_every - 1 use MoE (flax's rule)."""
+        return bool(self.moe_num_experts) and i % self.moe_every == self.moe_every - 1
 
     @property
     def device(self) -> torch.device:
@@ -364,6 +410,14 @@ class TransformerLM(nn.Module):
             elif isinstance(mod, LayerNorm):
                 mod.scale.fill_(1.0)
                 mod.bias.zero_()
+            elif hasattr(mod, "w_in") and hasattr(mod, "w_out"):  # SwitchMoE
+                for w in (mod.w_in, mod.w_out):
+                    # lecun_normal over [E, in, out]: flax counts the expert
+                    # axis as receptive field, fan_in = E * in.
+                    std = 1.0 / math.sqrt(w.shape[0] * w.shape[1]) / 0.87962566103423978
+                    t = torch.empty(w.shape)
+                    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+                    w.copy_(t)
 
     def _embed(self, tokens, start=0):
         """Token (and learned position) embeddings; ``start`` is the first
@@ -382,27 +436,32 @@ class TransformerLM(nn.Module):
     def _head(self, x):
         return self.lm_head(self.ln_f(x))
 
-    def _block(self, block: Block, x):
+    def _block(self, block: Block, x, mesh=None, offset: int = 0):
         """One block of the training forward, rematerialised in the
-        backward when ``remat`` is on and gradients are being recorded."""
-        if not (self.remat and torch.is_grad_enabled()):
-            return block(x)
-        if self.remat_policy == "full":
-            return checkpoint(block, x, use_reentrant=False)
-        # Selective: the matmul outputs the policy names are saved, the
-        # rest (norms, activations, and the flash node, which is no matmul)
-        # is recomputed in the backward.
-        ops = _SAVED_OPS[self.remat_policy]
-        return checkpoint(block, x, use_reentrant=False,
-                          context_fn=lambda: create_selective_checkpoint_contexts(ops))
+        backward when ``remat`` is on and gradients are being recorded:
+        ``(output, MoE aux loss or None)``."""
+        return remat_call(block.forward_aux, (x, mesh, offset),
+                          self.remat and torch.is_grad_enabled(), self.remat_policy)
 
-    def forward(self, tokens, return_features: bool = False):
+    def forward(self, tokens, return_features: bool = False, mesh=None):
         """Logits [B, T, V] f32 — or, with ``return_features=True``, the f32
         ``ln_f`` output [B, T, D] that ``ops.xent.lm_head_xent`` feeds its
-        chunked head.  Builds no K/V cache."""
-        x = self._embed(tokens)
+        chunked head.  Builds no K/V cache.  ``mesh``: the mesh a ring
+        model's ``sp`` axis and an MoE model's ``ep`` axis live on;
+        ``tokens`` is then this rank's block.  The MoE blocks' aux losses
+        land in ``self.aux_losses``."""
+        offset = 0
+        if self.attention == "ring":
+            if mesh is None:
+                raise ValueError("attention='ring' needs mesh= at call time")
+            offset = mesh.get_local_rank("sp") * tokens.shape[1]
+        x = self._embed(tokens, start=offset)
+        aux_losses = []
         for block in self.blocks:
-            x = self._block(block, x)
+            x, aux = self._block(block, x, mesh, offset)
+            if aux is not None:
+                aux_losses.append(aux)
+        self.aux_losses = aux_losses
         x = self.ln_f(x)
         return x if return_features else self.lm_head(x)
 
@@ -471,6 +530,11 @@ def generate(
             f"prompt + max_new_tokens = {Tp + max_new_tokens} exceeds the "
             f"cache capacity max_len={model.max_len}"
         )
+    if model.moe_num_experts:
+        # Per-step Switch capacity is computed over B tokens, not B*T, so
+        # cached decoding would drop different tokens than the training
+        # forward: refuse rather than silently diverge (the JAX rule).
+        raise ValueError("generate() does not support MoE models yet")
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature > 0 needs an explicit torch.Generator")
     # Checked where the prompt lies (the host, for served requests): on the
@@ -509,8 +573,68 @@ def generate(
 
 
 def sharded_generator(*args, **kwargs):
-    raise NotImplementedError("tensor-parallel generation is not yet ported (slice 9b)")
+    raise NotImplementedError("tensor-parallel generation is not yet ported (slice 9d)")
 
 
-def pipeline_lm_apply(*args, **kwargs):
-    raise NotImplementedError("pipeline-parallel apply is not yet ported (slice 9b)")
+def pipeline_lm_apply(
+    model: TransformerLM,
+    tokens: torch.Tensor,
+    mesh,
+    num_microbatches: int,
+    axis_name: str = "pp",
+    data_axis: Optional[str] = None,
+    circular_repeats: int = 1,
+    remat: bool = False,
+    remat_policy: str = "full",
+) -> torch.Tensor:
+    """Apply ``model`` with its blocks run through
+    :func:`..parallel.pipeline.pipeline_apply` over the mesh's ``pp`` axis
+    (the JAX package's ``pipeline_lm_apply``, per rank).
+
+    ``tokens`` is this rank's batch (its ``data_axis`` block, the same on
+    every ``pp`` rank).  Embeddings, ``ln_f`` and the f32 ``lm_head`` run
+    outside the pipeline, replicated over ``pp``; under the package's
+    gradient convention (``parallel.collectives``) their gradients count
+    once: only the first stage consumes the embeddings, and the head's
+    gradient is each ``pp`` rank's share.  Block ``j`` runs on ``pp`` rank
+    ``j % S`` during lap ``j // S``; gradients land in the per-block
+    parameters (every rank holds every block and uses its own), so one
+    optimizer serves both this and the plain path.  Attention must be
+    "dense" or "flash".  Returns logits [B, T, V] f32.
+    """
+    from ..parallel.pipeline import pipeline_apply
+
+    if model.attention == "ring":
+        raise ValueError("pipeline_lm_apply supports dense/flash attention only")
+    if model.moe_num_experts:
+        raise ValueError("pipeline_lm_apply needs structurally identical blocks (no MoE)")
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(
+            f"remat_policy must be one of {'|'.join(REMAT_POLICIES)}, got {remat_policy!r}"
+        )
+    B, T = tokens.shape
+    if B % num_microbatches:
+        raise ValueError(f"batch {B} not divisible by microbatches {num_microbatches}")
+    x = model._embed(tokens)
+    mb = x.reshape(num_microbatches, B // num_microbatches, T, model.d_model)
+    out = pipeline_apply(lambda block, h: block(h), list(model.blocks), mb, mesh,
+                         axis_name=axis_name, data_axis=data_axis,
+                         circular_repeats=circular_repeats, remat=remat,
+                         remat_policy=remat_policy)
+    return model._head(out.reshape(B, T, model.d_model))
+
+
+def remat_call(fn, args: tuple, remat: bool, policy: str = "full"):
+    """``fn(*args)``, rematerialised in the backward when ``remat``: the
+    policy ("full", "dots" or "dots_no_batch", :data:`REMAT_POLICIES`)
+    names what is saved."""
+    if not remat:
+        return fn(*args)
+    if policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    # Selective: the matmul outputs the policy names are saved, the rest
+    # (norms, activations, and the flash node, which is no matmul) is
+    # recomputed in the backward.
+    ops = _SAVED_OPS[policy]
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(ops))

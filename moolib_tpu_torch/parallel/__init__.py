@@ -1,11 +1,14 @@
-"""Parallelism over ranks: meshes, collectives, the sharded train step, and
-the single-device math of ring attention.
+"""Parallelism over ranks: meshes, collectives, the sharded train step,
+ring attention over ``sp``, Switch MoE over ``ep`` and the GPipe/circular
+pipeline over ``pp``.
 
 A mesh is a ``torch.distributed`` ``DeviceMesh`` over processes, one per
 rank; the elastic RPC stack (broker/group/accumulator) is the inter-host
-plane around it.  Ring attention over an ``sp`` group, MoE and pipeline
-stages come with ROADMAP slice 9b; the Sebulba actor/learner split with
-slice 9c.
+plane around it.  A ``tp`` axis comes with ROADMAP slice 9d, the Sebulba
+actor/learner split with slice 9c.  ``parallel.ring_attention`` stays the
+module (its functions are not re-exported here, where the JAX package
+re-exports them), so ``from moolib_tpu_torch.parallel import
+ring_attention`` keeps giving the module it gave before the ring came.
 """
 
 from .mesh import (  # noqa: F401
@@ -25,9 +28,11 @@ from .mesh import (  # noqa: F401
 )
 from .collectives import (  # noqa: F401
     all_gather_axis,
+    axes_group,
     axis_size,
     broadcast_tree,
     gather_full,
+    psum,
     redistribute,
     reduce_scatter_axis,
     ring_permute,
@@ -37,3 +42,5 @@ from .collectives import (  # noqa: F401
     tree_psum,
 )
 from .train import auto_shardings, fsdp_spec, make_train_step, param_shardings  # noqa: F401
+from .moe import SwitchMoE, moe_param_spec, moe_shardings, shard_experts  # noqa: F401
+from .pipeline import pipeline_apply  # noqa: F401

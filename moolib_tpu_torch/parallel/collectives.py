@@ -25,6 +25,34 @@ sharding.  It observes ``accum_psum_seconds`` and opens a
 to and from its mesh rank 0, the rank that holds the host's Accumulator
 peer (JAX: ``np.asarray`` of a sharded array, and ``device_put`` of a
 host tree onto shardings).
+
+Differentiable collectives and the gradient convention
+------------------------------------------------------
+The model-parallel modules (``ring_attention``, ``moe``, ``pipeline``)
+run inside autograd, so two collectives carry a backward:
+:func:`ring_permute` (its backward sends the gradient the other way round
+the ring, JAX's transpose of ``ppermute``) and :func:`psum` (a sum over
+one or more axes whose backward is again the sum over those axes, JAX's
+transpose of ``psum``).  Their backward follows one convention, and every
+module and the train step keep it:
+
+- each rank's local loss is its token shard's share of the global loss
+  (for the LM, the sum over its scored positions, over the global count);
+- that share is counted once per group of ranks that hold the same tokens:
+  ranks that hold the same tokens (over ``ep`` and ``pp``, which replicate
+  the batch) each weigh their loss by one over the group's size;
+- so the gradient a rank holds for any replicated value is a partial share,
+  and a leaf's gradient is the sum over the ranks that hold a replica of it
+  (``parallel.train`` sums replicated leaves over every axis, ``ep``-sharded
+  experts over every axis but ``ep``).
+
+Under it, Megatron's *g* (a sum feeding a replicated consumer: the MoE
+combine over ``ep``, the pipeline's outputs over ``pp``, the MoE router's
+global means over the token axes) takes :func:`psum`'s backward: every
+replica's partial gradient summed.  Megatron's *f* (a replicated value
+entering a rank-local region: the tokens each ``ep`` rank dispatches to its
+experts) needs no collective at all: its partial gradients are summed with
+the leaves' at the end of the step.
 """
 
 from __future__ import annotations
@@ -103,22 +131,143 @@ def tree_pmean(tree: Any, axis_name: str, mesh) -> Any:
     return nest.tree_map(lambda x: _all_reduce(x, _group(mesh, axis_name)) / n, tree)
 
 
+class RingExchange:
+    """One hop of a ring over a mesh axis, split in two: :meth:`start`
+    posts the send of a tensor to the rank ``shift`` steps on and the
+    receive from the rank ``shift`` steps back; :meth:`wait` returns what
+    arrived, on the sender's device.  Work enqueued between the two (a
+    chunk's kernels) overlaps the hop.  Every rank of the axis makes the
+    same hops in the same order.  Where the group is gloo and the tensor
+    lies on the card it is staged through pinned host memory; a received
+    host copy can be sent on as it is (``wire=``), so a chunk that travels
+    round the ring crosses the PCIe bus once each way a hop."""
+
+    def __init__(self, axis_name: str, mesh, shift: int = 1):
+        self.group = _group(mesh, axis_name)
+        n = dist.get_world_size(self.group)
+        me = dist.get_rank(self.group)
+        self.dst = dist.get_global_rank(self.group, (me + shift) % n)
+        self.src = dist.get_global_rank(self.group, (me - shift) % n)
+        self._reqs = None
+
+    def stage(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as it travels: a pinned host copy where the group is gloo
+        and ``x`` is on the card, else ``x`` itself (contiguous)."""
+        if _on_host_backend(x, self.group):
+            return _to_host(x.detach())
+        return x.detach().contiguous()
+
+    def start(self, wire: torch.Tensor) -> None:
+        self._like = wire
+        self._recv = torch.empty_like(wire)
+        self._reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, wire, self.dst, self.group),
+            dist.P2POp(dist.irecv, self._recv, self.src, self.group)])
+
+    def wait(self, device: torch.device) -> tuple:
+        """``(received on device, received as it travels)``."""
+        for r in self._reqs:
+            r.wait()
+        self._reqs = None
+        recv = self._recv
+        if recv.device != device:
+            _M_STAGED.inc(recv.numel() * recv.element_size())
+            return recv.to(device, non_blocking=True), recv
+        return recv, recv
+
+
+def _ring_permute(x: torch.Tensor, axis_name: str, mesh, shift: int) -> torch.Tensor:
+    hop = RingExchange(axis_name, mesh, shift)
+    hop.start(hop.stage(x))
+    return hop.wait(x.device)[0]
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh, shift):
+        ctx.args = (axis_name, mesh, shift)
+        return _ring_permute(x, axis_name, mesh, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, mesh, shift = ctx.args
+        return _ring_permute(g.contiguous(), axis_name, mesh, -shift), None, None, None
+
+
 def ring_permute(x: torch.Tensor, axis_name: str, mesh, shift: int = 1) -> torch.Tensor:
     """Send ``x`` to the rank ``shift`` steps on along the axis and return
-    what the rank ``shift`` steps back sent."""
-    group = _group(mesh, axis_name)
-    n = dist.get_world_size(group)
-    me = dist.get_rank(group)
-    dst = dist.get_global_rank(group, (me + shift) % n)
-    src = dist.get_global_rank(group, (me - shift) % n)
-    staged = _on_host_backend(x, group)
-    send = _to_host(x.detach()) if staged else x.detach().contiguous()
-    recv = torch.empty_like(send)
-    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, group),
-                                   dist.P2POp(dist.irecv, recv, src, group)])
-    for r in reqs:
-        r.wait()
-    return _back(recv, x) if staged else recv
+    what the rank ``shift`` steps back sent.  Differentiable: the backward
+    sends the gradient ``shift`` steps back (JAX's transpose of
+    ``ppermute``); every rank must then run that backward, in the same
+    order."""
+    return _RingPermute.apply(x, axis_name, mesh, shift)
+
+
+_AXES_GROUPS: dict = {}
+
+
+def axes_group(mesh, axes: Sequence[str]):
+    """The process group of this rank's coset over the mesh axes ``axes``
+    (one axis: the mesh's own group; several: the ranks that differ only
+    along those axes), and ``coords``: for each rank of that group, in
+    group order, its index along each of ``axes``.  The first call for a
+    given mesh and axes creates the groups of every coset, so every rank
+    of the world makes it, in the same order."""
+    axes = tuple(axes)
+    key = (id(mesh), axes)
+    if key not in _AXES_GROUPS:
+        names = list(mesh.mesh_dim_names)
+        grid = mesh.mesh
+        dims = [names.index(a) for a in axes]
+        rest = [d for d in range(grid.ndim) if d not in dims]
+        moved = grid.permute(rest + dims).reshape(-1, math.prod(grid.shape[d] for d in dims))
+        me = dist.get_rank()
+        found = None
+        for row in moved.tolist():
+            g = (mesh.get_group(axes[0]) if len(axes) == 1
+                 else dist.new_group(row, use_local_synchronization=False))
+            if me in row:
+                found = (g,)
+        group = found[0]
+        coords = []
+        for i in range(dist.get_world_size(group)):
+            r = dist.get_global_rank(group, i)
+            pos = (grid == r).nonzero()[0].tolist()
+            coords.append({a: pos[d] for a, d in zip(axes, dims)})
+        _AXES_GROUPS[key] = (group, coords, mesh)
+    group, coords, _ = _AXES_GROUPS[key]
+    return group, coords
+
+
+def _psum_raw(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    return _all_reduce(x, axes_group(mesh, axes)[0])
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.args = (axes, mesh)
+        return _psum_raw(x, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axes, mesh = ctx.args
+        return _psum_raw(g.contiguous(), axes, mesh), None, None
+
+
+def psum(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The sum of ``x`` over the mesh axis or axes ``axes`` (a name or a
+    tuple of names), differentiable: the backward sums the ranks' partial
+    gradients over the same axes (see the module docstring's convention).
+    Axes of size 1, an empty tuple and no mesh give ``x`` itself."""
+    if mesh is None:
+        return x
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    sizes = axis_sizes(mesh)
+    axes = tuple(a for a in axes if sizes.get(a, 1) > 1)
+    if not axes:
+        return x
+    return _Psum.apply(x, axes, mesh)
 
 
 def all_gather_axis(x: torch.Tensor, axis_name: str, mesh, axis: int = 0) -> torch.Tensor:
@@ -169,7 +318,7 @@ def _shard_dim(sharding: Optional[NamedSharding]):
         return None
     if len(hits) > 1 or isinstance(hits[0][0], tuple):
         raise NotImplementedError("a tensor sharded over several mesh axes: "
-                                  "not yet ported (slice 9b)")
+                                  "not yet ported (slice 9d)")
     return hits[0]
 
 

@@ -11,8 +11,9 @@ The axis convention is the JAX package's:
 - ``sp``: sequence/context parallel (time axis sharded; ring attention)
 - ``ep``: expert parallel (MoE experts sharded)
 
-Only ``dp`` has a meaning in the port so far; the others come with
-ROADMAP slice 9b.
+``dp``, ``sp`` (``parallel.ring_attention``), ``ep`` (``parallel.moe``)
+and ``pp`` (``parallel.pipeline``) have their meaning in the port; ``tp``
+comes with ROADMAP slice 9d.
 
 Call :func:`initialize_distributed` first.  It picks the backend
 explicitly: gloo on the CPU and wherever ranks share a card (NCCL refuses

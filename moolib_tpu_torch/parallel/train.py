@@ -1,5 +1,5 @@
-"""Train-step construction on a ``dp`` mesh of ranks, with the in-mesh
-gradient reduction and the hook-streamed backward.
+"""Train-step construction on a mesh of ranks, with the in-mesh gradient
+reduction and the hook-streamed backward.
 
 The JAX package states the data-parallel step as a sharding annotation and
 lets XLA insert the gradient all-reduce or reduce-scatter.  Here each rank
@@ -25,6 +25,21 @@ each bucket's wire op while the rest of the backward is still queued.  The
 values are the barrier step's, bit for bit.  JAX cuts its step into two
 jits at ``overlap_cut``; the hooks need no cut, so ``overlap_cut`` is
 accepted and has no effect.
+
+The step with an optimizer (:func:`_optimizer_step`) serves every static
+mesh: ``dp`` alone, and the model-parallel axes ``sp``, ``ep`` and ``pp``,
+whose collectives run inside ``loss_fn`` (ring attention, the MoE combine,
+the pipeline) under the gradient convention of ``parallel.collectives``.
+``batch_spec`` names the axes that shard the tokens (``P("dp", None)``,
+``P("dp", "sp")`` for a ring LM); the other axes hold replicas of them.
+``loss_fn`` returns this rank's local loss, whose mean over the token shards
+is the global loss (equal on ranks that hold the same tokens); the step
+weighs it by one over the replica count before the backward, sums each
+leaf's gradient over the axes that hold a replica of it (replicated leaves:
+every axis; ``ep``-sharded experts: every axis but ``ep``) and divides by
+the token shards.  The loss and the aux it returns are the
+global ones.  A ``tp`` axis and model parallelism inside the elastic
+cohort (``grad_spec=``, ``overlap_grads=``) are not yet ported (slice 9d).
 """
 
 from __future__ import annotations
@@ -77,6 +92,81 @@ def _model_parallel_axes(mesh) -> List[str]:
     return [k for k, v in axis_sizes(mesh).items() if k != "dp" and v > 1]
 
 
+def _spec_axes(spec) -> set:
+    """The mesh axes a PartitionSpec names."""
+    out = set()
+    for s in spec or ():
+        if s is not None:
+            out |= set(s) if isinstance(s, tuple) else {s}
+    return out
+
+
+def _optimizer_step(loss_fn, optimizer, mesh, params_sharding, batch_spec):
+    """The step with an optimizer, on any mesh or none (see the module
+    docstring): ``step(params, opt_state, batch, rng) -> (params,
+    opt_state, loss, aux)`` with the global loss and aux.
+    ``step.grads(params, batch, rng) -> (loss, aux)`` runs the same forward,
+    backward and reduction and leaves the reduced gradients in the leaves'
+    ``.grad``, without the update (a warm-up or a probe)."""
+    from .collectives import axes_group
+
+    sizes = axis_sizes(mesh) if mesh is not None else {}
+    live = [a for a, n in sizes.items() if n > 1]
+    tok_axes = [a for a in live if a in _spec_axes(batch_spec)]
+    n_tok = int(np.prod([sizes[a] for a in tok_axes])) if tok_axes else 1
+    n_rep = int(np.prod([sizes[a] for a in live])) // n_tok
+    resolved: dict = {}
+
+    def reduce_axes(params) -> list:
+        """Per leaf (flatten order): the axes its gradient is summed over."""
+        if "axes" not in resolved:
+            leaves = nest.tree_leaves(params)
+            if params_sharding is None or params_sharding == "replicated":
+                shs = [None] * len(leaves)
+            else:
+                shs = nest.tree_leaves(params_sharding)
+            resolved["axes"] = [tuple(a for a in live if a not in _spec_axes(
+                sh.spec if sh is not None else ())) for sh in shs]
+        return resolved["axes"]
+
+    def global_mean(x):
+        if not isinstance(x, torch.Tensor) or not live:
+            return x
+        return _all_reduce(x.detach().to(torch.float32) / n_rep,
+                           axes_group(mesh, tuple(live))[0]) / n_tok
+
+    def grads(params, batch, rng):
+        leaves = nest.tree_leaves(params)
+        for p in leaves:
+            p.grad = None
+        if mesh is not None:
+            batch = _slice_batch(batch, mesh, batch_spec)
+        loss, aux = loss_fn(params, batch, rng)
+        (loss / n_rep if n_rep > 1 else loss).backward()
+        axes = reduce_axes(params)
+        gs = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+        for (ax, _), idx in _groups(range(len(leaves)), lambda i: (axes[i], gs[i].dtype)):
+            if not ax and n_tok == 1:
+                continue
+            flat = torch.cat([gs[i].reshape(-1) for i in idx])
+            if ax:
+                flat = _all_reduce(flat, axes_group(mesh, ax)[0])
+            flat = flat.div_(n_tok)
+            off = 0
+            for i in idx:
+                leaves[i].grad = flat[off:off + gs[i].numel()].view(gs[i].shape)
+                off += gs[i].numel()
+        return global_mean(loss.detach()), nest.tree_map(global_mean, aux)
+
+    def step(params, opt_state, batch, rng):
+        loss, aux = grads(params, batch, rng)
+        optimizer.step()
+        return params, opt_state, loss, aux
+
+    step.grads = grads
+    return step
+
+
 def fsdp_spec(x, axis: str = "dp", min_size: int = 2**16) -> P:
     """ZeRO-3-style spec: shard the largest divisible axis of big params."""
     shape = tuple(x.shape)
@@ -112,10 +202,10 @@ def auto_shardings(params, mesh, tp_axis: str = "tp", dp_axis: str = "dp",
                    tp_min: int = 16, fsdp_min: int = 2**12):
     """The ``dp`` half of the JAX package's TP+FSDP composition: FSDP over
     ``dp`` on the largest divisible axis of leaves of ``fsdp_min`` elements
-    or more.  A ``tp`` axis comes with the model-parallel slice."""
+    or more.  A ``tp`` axis comes with slice 9d."""
     sizes = axis_sizes(mesh)
     if sizes.get(tp_axis, 1) > 1:
-        raise NotImplementedError("auto_shardings over a tp axis: not yet ported (slice 9b)")
+        raise NotImplementedError("auto_shardings over a tp axis: not yet ported (slice 9d)")
     has_dp = sizes.get(dp_axis, 1) > 1
 
     def spec_of(x):
@@ -136,7 +226,7 @@ def _slice_batch(batch, mesh, spec: P):
 
     def take(x):
         for d, name in enumerate(spec):
-            if name is not None and d < x.ndim:
+            if name is not None and d < x.ndim and name in sizes:
                 x = x.chunk(sizes[name], dim=d)[mesh.get_local_rank(name)]
         return x.contiguous()
 
@@ -198,8 +288,11 @@ def make_train_step(
     - With ``optimizer=``: ``step(params, opt_state, batch, rng) ->
       (params, opt_state, loss, aux)``.  The torch optimizer (over the same
       leaves) holds its own state and updates ``params`` in place;
-      ``opt_state`` passes through.  On a mesh the gradients are averaged
-      over ``dp`` first and every rank applies the same update.
+      ``opt_state`` passes through.  On a mesh each leaf's gradient is
+      reduced over the axes that hold a replica of it first (the module
+      docstring), every rank applies the same update, and ``loss`` and
+      ``aux`` are the global ones.  ``step.grads(params, batch, rng) ->
+      (loss, aux)`` stops before the update.
     - With ``grad_spec=`` (needs ``mesh=``): ``step(params, batch, rng) ->
       (loss, aux, grads)``, the hierarchical learner's in-mesh half.
       ``grad_spec`` is "replicated", "fsdp", "params" (mirror
@@ -229,9 +322,13 @@ def make_train_step(
         raise ValueError("overlap_grads=True with mesh= requires grad_spec=")
     if grad_spec is None and optimizer is None and not overlap_grads:
         raise ValueError("make_train_step needs an optimizer unless grad_spec= is given")
-    if mesh is not None and _model_parallel_axes(mesh):
+    mp_axes = _model_parallel_axes(mesh) if mesh is not None else []
+    if "tp" in mp_axes:
+        raise NotImplementedError("a tp mesh axis: not yet ported (slice 9d)")
+    if mp_axes and (grad_spec is not None or overlap_grads):
         raise NotImplementedError(
-            f"mesh axes {_model_parallel_axes(mesh)}: not yet ported (slice 9b)")
+            f"mesh axes {mp_axes} inside the elastic cohort (grad_spec=, "
+            "overlap_grads=): not yet ported (slice 9d)")
     if isinstance(grad_spec, str) and grad_spec not in ("replicated", "fsdp", "params"):
         raise ValueError(
             f"unknown grad_spec {grad_spec!r} (expected 'replicated', 'fsdp', "
@@ -240,6 +337,11 @@ def make_train_step(
 
     n_dp = axis_sizes(mesh).get("dp", 1) if mesh is not None else 1
     bspec = batch_spec if batch_spec is not None else P(None, "dp")
+    if optimizer is not None:
+        ostep = _optimizer_step(loss_fn, optimizer, mesh, params_sharding, bspec)
+        timed = _instrument_step(ostep)
+        timed.grads = ostep.grads
+        return timed
     resolved: dict = {}
 
     def grad_shardings(params) -> list:
@@ -265,19 +367,6 @@ def make_train_step(
 
     def zero_missing(leaves):
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
-
-    if optimizer is not None:
-        def step(params, opt_state, batch, rng):
-            leaves = nest.tree_leaves(params)
-            loss, aux = forward_backward(leaves, batch, rng, params)
-            if mesh is not None:
-                group = mesh.get_group("dp")
-                for p, g in zip(leaves, zero_missing(leaves)):
-                    p.grad = _all_reduce(g, group).div_(n_dp)
-            optimizer.step()
-            return params, opt_state, loss, aux
-
-        return _instrument_step(step)
 
     if not overlap_grads:
         def sharded_grad_step(params, batch, rng):

@@ -64,6 +64,7 @@ class StepTimer:
     ):
         self._alpha = alpha
         self._ema: Dict[str, float] = {}
+        self.last: Dict[str, float] = {}  # each section's latest seconds
         self._counts: Dict[str, int] = defaultdict(int)
         self._hist = None
         self._tracer = None
@@ -88,6 +89,7 @@ class StepTimer:
                 span.__exit__(None, None, None)
             if self._hist is not None:
                 self._hist.observe(dt, section=name)
+            self.last[name] = dt
             prev = self._ema.get(name)
             self._ema[name] = dt if prev is None else (1 - self._alpha) * prev + self._alpha * dt
             self._counts[name] += 1

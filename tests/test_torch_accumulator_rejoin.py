@@ -100,7 +100,16 @@ def test_leader_death_mid_transfer_resumes(free_port):
     message ("joiner never converged ... in_transfer=True"): the failure
     belongs to the shared design of the resumable transfer, not to the
     port.  Eight copies of each at once on an 8-core CPU all passed; in a
-    full run of the tier-1 suite on 6 workers this one failed once in two."""
+    full run of the tier-1 suite on 6 workers this one failed once in two.
+
+    Measured against the wait (8 loaded copies at once, the convergence
+    wait stretched to 400 s and the joiner's chunk count traced): seven
+    converged in 5.0-11.8 s at 172-406 chunks/s of the 2,049; the eighth
+    stalled at 29 chunks, disconnected, for the whole 400 s.  A failure is
+    a stalled resume, not a slow transfer that a longer (or
+    progress-bounded) wait would see through, so the 90 s wait stays; the
+    message reports the joiner's chunk count and how long it has not
+    moved."""
     addr = f"127.0.0.1:{free_port}"
     broker = Broker()
     broker.set_name("broker")
@@ -156,13 +165,21 @@ def test_leader_death_mid_transfer_resumes(free_port):
 
         # Survivors re-elect; the new leader resumes the stream; the
         # joiner converges to the cohort version.
-        assert wait_until(
-            broker, accs, 90,
-            lambda: fresh.connected() and fresh.model_version() == version,
-        ), (
+        progress = {"chunks": -1, "at": time.time()}
+
+        def converged():
+            t = fresh._in_transfer
+            got = None if t is None else len(t["chunks"])
+            if got != progress["chunks"]:
+                progress.update(chunks=got, at=time.time())
+            return fresh.connected() and fresh.model_version() == version
+
+        assert wait_until(broker, accs, 90, converged), (
             f"joiner never converged: connected={fresh.connected()} "
             f"version={fresh.model_version()} (cohort {version}) "
-            f"in_transfer={fresh._in_transfer is not None}"
+            f"in_transfer={fresh._in_transfer is not None} "
+            f"chunks={progress['chunks']} unchanged for "
+            f"{time.time() - progress['at']:.1f} s"
         )
         np.testing.assert_allclose(
             np.asarray(fresh.parameters()["w"]),

@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 # Mangled names as cuobjdump prints them (nvcc's name for the anonymous
@@ -280,6 +281,69 @@ def test_sharded_lm_phase_rehearsal(capsys, monkeypatch):
     assert joiner["model_sync_bytes_rx"] > 0 and joiner["exposed_comm_s"]
     assert res["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "sharded_lm"
+
+
+MP_REHEARSAL_WIDTHS = ["--vocab", "64", "--d_model", "32", "--layers", "12", "--heads", "2"]
+# bf16 at d_model 32 on the CPU rounds more than the card's d_model 1024:
+# the rehearsal reads a loss off by at most 5.8e-4 (ring) and a worst leaf
+# off by 0.0365 (ring), 0.0083 (moe), 0.0031 (pipeline) of its norm.
+MP_REHEARSAL_TOLS = (2e-3, 0.1)
+# A planted fault for every process the phase starts: the ring skips the
+# chunk one hop back, in the forward and the backward.
+SKIP_ONE_BACK = """
+import moolib_tpu_torch.parallel.ring_attention as ra
+
+_hops = ra._hops
+
+
+def _skip_one_back(my, n, causal):
+    for i, chunk in _hops(my, n, causal):
+        yield i, None if i == 1 else chunk
+
+
+ra._hops = _skip_one_back
+"""
+
+
+def test_mp_lm_phase_rehearsal(capsys, monkeypatch):
+    """The three model-parallel arms at d_model 32 (12 layers, so the
+    pipeline arm keeps its 4 stages x 3 laps) on the CPU, bf16 compute:
+    each arm's warm-up loss and gradients match one process within the
+    rehearsal's limits, every rank ends with the same replicated parameters (experts per ep block), and the summary
+    carries each rank's memory, staged bytes, hop seconds and drops."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    arms = {name: [a if a not in ("4096", "1024") else "32" for a in arm]
+            for name, arm in chip_smoke.MP_LM_ARMS.items()}
+    res = chip_smoke.phase_mp_lm(0, device="cpu", arms=arms, widths=MP_REHEARSAL_WIDTHS,
+                                 timeout=300, tols=MP_REHEARSAL_TOLS)
+    assert set(res["arms"]) == {"ring_lm", "moe_lm", "pipeline_lm"}
+    for name, arm in res["arms"].items():
+        assert arm["loss_rel_err"] <= MP_REHEARSAL_TOLS[0], name
+        assert arm["grad_rel_err_max"] <= MP_REHEARSAL_TOLS[1], name
+        assert len(arm["step_s"]) == chip_smoke.MP_LM_STEPS
+        assert len(arm["host_staged_bytes"]) == arm["ranks"] == 4
+    assert all(v > 0 for v in res["arms"]["ring_lm"]["ring_hop_seconds"].values())
+    assert res["arms"]["moe_lm"]["moe_dropped_last_step"] is not None
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "mp_lm"
+
+
+def test_mp_lm_phase_fails_a_ring_that_skips_a_past_chunk(tmp_path, monkeypatch, capsys):
+    """The ring arm with a planted fault (every rank's ring drops the chunk
+    one hop back): the phase's check against one process fails it, a
+    gradient leaf off by more than ten times the card's MP_GRAD_TOL and the
+    rehearsal's limit of its norm."""
+    import re
+
+    (tmp_path / "sitecustomize.py").write_text(SKIP_ONE_BACK)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [str(tmp_path), ROOT, os.environ.get("PYTHONPATH", "")]))
+    arm = [a if a != "4096" else "32" for a in chip_smoke.MP_LM_ARMS["ring_lm"]]
+    with pytest.raises(AssertionError, match="mp_lm ring_lm: loss") as e:
+        chip_smoke.phase_mp_lm(0, device="cpu", arms={"ring_lm": arm},
+                               widths=MP_REHEARSAL_WIDTHS, timeout=300, tols=MP_REHEARSAL_TOLS)
+    off = float(re.search(r"off by (\S+) of its norm", str(e.value)).group(1))
+    assert off > 10 * max(chip_smoke.MP_GRAD_TOL, MP_REHEARSAL_TOLS[1]), str(e.value)
 
 
 def test_engine_phase_rehearsal(cpu_rehearsal, capsys):

@@ -180,7 +180,7 @@ def test_engine_rejects_oversized_and_reports_capacity():
     assert eng.can_accept(4, 2)       # 6 tokens -> 2 blocks: fits
     assert not eng.can_accept(4, 8)   # 12 tokens -> 3 blocks: pool-bound
     assert eng.active_count() == 0 and eng.stats()["prefill_tokens"] == 0
-    with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9b\)"):
+    with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9d\)"):
         ContinuousBatchingEngine(model, prefill_devices=1)
 
 

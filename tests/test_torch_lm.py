@@ -6,6 +6,8 @@ amplify it), the batches to the JAX ``make_batch`` for the same seed, and
 the whole trainer to the JAX example's learning bar on the copy task.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -89,23 +91,33 @@ def test_lm_trains_with_remat_on_cpu():
     assert out["steps"] == 4 and np.isfinite(out["loss"])
 
 
-@pytest.mark.parametrize("argv,slice_", [
-    ([], "9b"),  # the JAX defaults: --mesh dp=2,sp=4 --attention ring
-    (["--mesh", "", "--attention", "ring"], "9b"),
-    (["--mesh", "", "--attention", "dense", "--moe_experts", "4"], "9b"),
-    # The dp mesh and the sharded/streamed planes are ported; tp and sp
-    # axes are not.
-    (["--mesh", "dp=2,tp=2", "--attention", "dense"], "9b"),
-    (["--mesh", "sp=2", "--attention", "dense", "--overlap_grads"], "9b"),
-    # The fleet flags work; with a slice-9b plane they still exit.
-    (["--mesh", "", "--attention", "dense", "--autoscale", "--moe_experts", "2"], "9b"),
+@pytest.mark.parametrize("argv,exc,match", [
+    # Ring, MoE and the pipeline are ported: their flags now meet the JAX
+    # example's rules, word for word.
+    (["--mesh", "", "--attention", "ring"], ValueError,
+     "attention='ring' needs --mesh with an sp axis"),
+    (["--mesh", "dp=2", "--attention", "ring"], ValueError,
+     "attention='ring' needs an sp axis in --mesh"),
+    (["--mesh", "sp=3", "--attention", "ring"], ValueError,
+     "the sp axis size must divide --seq_len"),
+    (["--mesh", "", "--attention", "dense", "--moe_experts", "4", "--layers", "1"], ValueError,
+     "--moe_experts needs --layers >= 2"),
+    (["--mesh", "sp=2,pp=2", "--attention", "ring"], ValueError,
+     "pipeline (pp) composes with dense/flash, not ring"),
+    (["--mesh", "pp=2", "--attention", "dense", "--moe_experts", "2"], ValueError,
+     "pipeline (pp) needs identical blocks (no --moe_experts)"),
+    (["--mesh", "pp=2", "--attention", "dense", "--layers", "3"], ValueError,
+     "--layers must be pp_repeats*pp = 2"),
+    # A tp axis and model parallelism inside the elastic cohort are not.
+    (["--mesh", "dp=2,tp=2", "--attention", "dense"], SystemExit,
+     "not yet ported (slice 9d)"),
     (["--mesh", "dp=2,tp=2", "--attention", "dense", "--checkpoint_dir", "x",
-      "--shard_grads", "--connect", "127.0.0.1:1"], "9b"),
-    (["--mesh", "", "--attention", "dense", "--compile_cache_dir", "x", "--attention",
-      "ring"], "9b"),
+      "--shard_grads", "--connect", "127.0.0.1:1"], SystemExit, "not yet ported (slice 9d)"),
+    (["--mesh", "dp=2,sp=2", "--attention", "ring", "--shard_grads", "--connect",
+      "127.0.0.1:1"], SystemExit, "not yet ported (slice 9d)"),
 ])
-def test_unported_flags_exit_with_a_message(argv, slice_):
-    with pytest.raises(SystemExit, match=rf"not yet ported \(slice {slice_}\)"):
+def test_unported_flags_exit_with_a_message(argv, exc, match):
+    with pytest.raises(exc, match=re.escape(match)):
         lm.train(lm.make_flags(argv + ["--device", "cpu"]))
 
 

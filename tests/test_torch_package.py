@@ -148,18 +148,33 @@ def test_unported_paths_say_so():
     from moolib_tpu_torch.examples import lm_serve
     from moolib_tpu_torch.models import transformer
 
-    for flags, slice_ in ((["--listen", "x", "--localdir", "x", "--mesh", "tp=2"], "9b"),
-                          (["--listen", "x", "--engine", "--prefill_devices", "1"], "9b"),
-                          (["--listen", "x", "--mesh", "tp=2"], "9b")):
+    for flags, slice_ in ((["--listen", "x", "--localdir", "x", "--mesh", "tp=2"], "9d"),
+                          (["--listen", "x", "--engine", "--prefill_devices", "1"], "9d"),
+                          (["--listen", "x", "--mesh", "tp=2"], "9d")):
         with pytest.raises(SystemExit, match=rf"not yet ported \(slice {slice_}\)"):
             lm_serve.main(flags)
-    for kw in (dict(attention="ring"), dict(moe_num_experts=4)):
-        with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9b\)"):
-            transformer.TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=1,
-                                      device="cpu", **kw)
-    for fn in (transformer.sharded_generator, transformer.pipeline_lm_apply):
-        with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9b\)"):
-            fn()
+    # Ring attention and MoE blocks are ported: a ring model needs its mesh
+    # to train and serves through flash; a MoE model refuses generate() and
+    # the pipeline, as the JAX package's do.
+    ring = transformer.TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=2,
+                                     max_len=8, device="cpu", attention="ring")
+    flash = transformer.TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=2,
+                                      max_len=8, device="cpu", attention="flash")
+    flash.load_state_dict(ring.state_dict())
+    prompt = torch.tensor([[1, 2, 3]])
+    with pytest.raises(ValueError, match="needs mesh= at call time"):
+        ring(prompt)
+    assert torch.equal(transformer.generate(ring, prompt, 3), transformer.generate(flash, prompt, 3))
+    moe = transformer.TransformerLM(vocab_size=8, d_model=8, num_heads=2, num_layers=2,
+                                    device="cpu", moe_num_experts=4)
+    with pytest.raises(ValueError, match="does not support MoE"):
+        transformer.generate(moe, prompt, 2)
+    with pytest.raises(ValueError, match="dense/flash attention only"):
+        transformer.pipeline_lm_apply(ring, prompt, {"pp": 2}, 1)
+    with pytest.raises(ValueError, match="structurally identical blocks"):
+        transformer.pipeline_lm_apply(moe, prompt, {"pp": 2}, 1)
+    with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9d\)"):
+        transformer.sharded_generator()
     # The paged cache's geometry sizes the engine's pools, and a paged model
     # has no dense decode.
     from moolib_tpu_torch.engine import ContinuousBatchingEngine
@@ -176,18 +191,18 @@ def test_unported_paths_say_so():
         transformer.generate(model, torch.zeros((1, 2), dtype=torch.int64), 2)
 
 
-MESH_9B = "--mesh axes ['tp']: not yet ported (slice 9b)"
+MESH_9D = "--mesh axes ['tp']: not yet ported (slice 9d)"
 
 
 @pytest.mark.parametrize("argv,named", [
-    (["--mesh", "dp=2,tp=2"], MESH_9B),
+    (["--mesh", "dp=2,tp=2"], MESH_9D),
     (["--actor_mesh", "1"], "--actor_mesh: not yet ported (slice 9c)"),
     # --mesh dp=N, --shard_grads and --overlap_grads are ported; tp and the
     # Sebulba split are not.
-    (["--mesh", "tp=2", "--overlap_grads"], MESH_9B),
+    (["--mesh", "tp=2", "--overlap_grads"], MESH_9D),
     (["--actor_mesh", "1", "--shard_grads"], "--actor_mesh: not yet ported (slice 9c)"),
     # --checkpoint_dir is the distributed plane of --shard_grads cohorts.
-    (["--checkpoint_dir", "d", "--shard_grads", "--mesh", "dp=2,tp=2"], MESH_9B),
+    (["--checkpoint_dir", "d", "--shard_grads", "--mesh", "dp=2,tp=2"], MESH_9D),
 ])
 def test_unported_rl_paths_say_so(argv, named):
     from moolib_tpu_torch.examples.vtrace import experiment

@@ -65,7 +65,7 @@ def test_partition_spec_prints_as_jax():
 def test_unported_mesh_paths_say_so():
     with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9c\)"):
         tpar.split_mesh(None, 1)
-    with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9b\)"):
+    with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9d\)"):
         tpar.auto_shardings({"w": torch.zeros(4, 4)}, {"dp": 2, "tp": 2})
 
 
