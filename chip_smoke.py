@@ -110,11 +110,12 @@ exits non-zero, and no result line is printed):
    round ms, the staging time and the bytes on the wire.  Then one
    GlobalStatsAccumulator round of the peers' losses and frames.
 11. cohort_lm — two learner processes (spawned, each its own CUDA context
-   on the card) build the d=1024/L=12 TransformerLM (max_len 1024, learned
+   on the card) build the d=1024 TransformerLM cut to CUT_LAYERS = 4 of
+   its 12 blocks (the time budget's cut; max_len 1024, learned
    positions, bf16 compute, f32 parameters, flash attention) with the same
    weights, run one forward + backward each on their own B=4 x T=1024
-   batch (the three flash kernels), and allreduce the ~219M-element f32
-   gradient 5 times (auto: the flat-bucket tree).  Each result must equal
+   batch (the three flash kernels), and allreduce the f32 gradient 5
+   times (auto: the flat-bucket tree).  Each result must equal
    grad_a + grad_b added on the card, bit for bit.  Round seconds,
    algorithm bandwidth, D2H staging and H2D-back times, peak memory.
 12. accumulator_impala — the IMPALA training loop of slice 4b: two
@@ -132,8 +133,9 @@ exits non-zero, and no result line is printed):
    learner frames/s across the cohort, count- and grad-round ms, model-sync
    bytes and ms, elections, env steps/s and act ms per learner, peak
    memory.
-13. accumulator_lm — examples.lm's elastic path with the d=1024/L=12
-   TransformerLM (max_len 1024, learned positions, bf16, f32 parameters,
+13. accumulator_lm — examples.lm's elastic path with the d=1024
+   TransformerLM cut to 4 blocks (max_len 1024, learned positions, bf16,
+   f32 parameters,
    flash attention) on B=4 x T=1024 per learner, virtual batch 8:
    learner 0 (--address) applies one step alone, then learner 1
    (--connect) joins, receives the f32 parameters and the AdamW state
@@ -173,15 +175,16 @@ exits non-zero, and no result line is printed):
    device shard for 3000 env steps (SGD steps, a finite loss, the shard
    on the card; env and SGD steps/s from the first log tick on).
 
-17. durable_lm — examples.lm.train() at the train phase's widths and
-   batch with --checkpoint_dir in a fresh temporary directory: 10 steps,
+17. durable_lm — examples.lm.train() at the train phase's widths cut to
+   4 blocks and its batch with --checkpoint_dir in a fresh temporary directory: 10 steps,
    saved at 10; the example's resume() into a fresh model and AdamW
    equals the saved params and AdamW state bit for bit; a second train()
    resumes at 10 and goes to 20; then the newest checkpoint truncated
    (testing.faults), a third train() resumes from 10 and counts one
    checkpoint_corrupt_skipped.  Save and restore ms, GB written, launches.
 18. dckpt_lm — two learner processes (spawned, one CUDA context each)
-   hold the d=1024/L=12 LM (B 4 x T 1024, bf16 compute, f32 parameters)
+   hold the d=1024 LM cut to 4 blocks (B 4 x T 1024, bf16 compute, f32
+   parameters)
    and AdamW on the card and take 6 steps through an Accumulator with
    enable_distributed_checkpoint(interval 1e-3, lead_steps 1, aux_fn
    steps).  The leader commits a cohort manifest; both shard reports carry
@@ -236,18 +239,40 @@ exits non-zero, and no result line is printed):
    examples.lm.train() at LM_WIDTHS (learned positions, bf16 compute, f32
    parameters, AdamW 1e-4), a warm-up step plus 2 steps, 4 rank processes
    (started once for the three arms) sharing the card over gloo: ring_lm (--mesh sp=4 --attention ring, B 1
-   x T 4096), moe_lm (--mesh dp=2,ep=2, 8 experts on every second block,
-   B 8 x T 1024), pipeline_lm (--mesh pp=4, 12 blocks as 3 laps of 4
+   x T 4096, 4 blocks: the time budget's cut), moe_lm (--mesh dp=2,ep=2,
+   8 experts on every second of 4 blocks, B 8 x T 1024), pipeline_lm (--mesh pp=4, 12 blocks as 3 laps of 4
    stages, 4 microbatches, B 4 x T 1024).  Checks: the warm-up step's
    global loss and every reduced gradient (experts gathered) against one
    process on the card with flash attention and every expert (the loss
    within MP_LOSS_TOL relative, each gradient leaf within MP_GRAD_TOL by
    its own relative norm); every rank ends with the same replicated parameters (experts
    per ep block); each flash kernel's launches per rank are exactly the
-   path's count (ring: 12 x (sp rank + 1) a learn step, 12 x 10 over the
-   group; moe: 12; pipeline: 3 blocks x 4 microbatches).  Prints step
+   path's count (ring: 4 x (sp rank + 1) a learn step, 4 x 10 over the
+   group; moe: 4; pipeline: 3 blocks x 4 microbatches).  Prints step
    seconds, peak memory, host-staged bytes and ring hop seconds per rank,
    and the tokens over capacity in the last MoE step.
+24. tp_lm — tensor parallelism (slice 9d) at LM_WIDTHS, 4 rank processes
+   (started once for both arms) sharing the card over gloo.  tp_serve:
+   examples.lm_serve.serve(mesh=) on a tp=4 mesh (every rank holds its
+   blocks of the auto_shardings layout, attends its 2 of the 8 heads
+   through the flash kernel and keeps those heads' KV cache) answers 4
+   concurrent 1024-token prompts with 16 greedy tokens over Rpc.  Checks:
+   one stacked batch; the last prompt position's prefill logits within
+   TP_LOGIT_TOL of one process's; the replies equal one process's
+   generate() up to a near-tie (reported); flash_fwd launched 12 times per
+   rank; each rank holds a quarter of the cut leaves plus the replicated
+   ones (both printed beside one process's bytes).  Prints prefill ms,
+   decode ms per token, host-staged bytes and peak memory per rank.
+   tp_train: parallel.make_train_step over dp=2 x tp=2 with
+   params_sharding=auto_shardings, B 8 x T 1024 in all, AdamW 1e-4 on the
+   copy task, a warm-up step plus 2.  Checks: the warm-up loss within
+   MP_LOSS_TOL and every gathered gradient leaf within MP_GRAD_TOL of its
+   norm against one process at the same global batch; replicated leaves
+   equal on every rank and each block equal across dp; each flash kernel
+   launched exactly 12 times a step per rank; every rank's peak memory
+   below one process's.  The kernels phase also holds every kernel against
+   its plain version at tp_lm's per-rank shapes, [4, 1024, 2, 128] and
+   [4, 1024, 4, 128].
 
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
@@ -307,12 +332,21 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 KERNEL_SHAPES = [(1, 128, 2, 64), (4, 1024, 8, 128), (16, 1024, 8, 128), (2, 1000, 8, 128),
-                 (1, 4096, 8, 128)]
+                 (1, 4096, 8, 128), (4, 1024, 2, 128), (4, 1024, 4, 128)]
 SERVE_SHAPE = (4, 1024, 8, 128)  # the serving prefill: 4 prompts x 1024, 8 heads of 128
 TRAIN_SHAPE = (16, 1024, 8, 128)  # the training step: 16 x 1024, 8 heads of 128
+# tp_lm's shapes: a tp=4 rank's prefill (8 heads / 4), a dp=2 x tp=2 rank's
+# training step (B 8 / 2, 8 heads / 2).
+TP_SERVE_SHAPE = (4, 1024, 2, 128)
+TP_TRAIN_SHAPE = (4, 1024, 4, 128)
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}  # fwd (out, lse) atol
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # backward, x max(1, max|ref|)
 TRAIN_STEPS = 20
+# The time budget's depth cuts (PERF.md §4): cohort_lm, accumulator_lm,
+# durable_lm, dckpt_lm and mp_lm's ring and moe arms run CUT_LAYERS of the
+# LM's 12 blocks, so that the whole script keeps its margin under the
+# limit with tp_lm in it.
+CUT_LAYERS = 4
 # The repo's LM at lm_bench's widths (benchmarks/lm_bench.py:54-57,109-114).
 LM_WIDTHS = ["--vocab", "32768", "--d_model", "1024", "--layers", "12", "--heads", "8"]
 # impala_parity: card against CPU, error over max(1, max|CPU value|).
@@ -626,7 +660,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
             raise AssertionError(f"flash_bwd {B, T, H, D} with g_lse: rel errs {rels}")
         log({"case": "flash_bwd_g_lse", "shape": [B, T, H, D], "rel_errs": rels})
         del q, k, v, g, g_lse, out, lse, got, want
-    return {"worst": worst, "serve": cases[SERVE_SHAPE], "train": cases[TRAIN_SHAPE]}
+    return {"worst": worst, "serve": cases[SERVE_SHAPE], "train": cases[TRAIN_SHAPE],
+            "tp_serve": cases[TP_SERVE_SHAPE], "tp_train": cases[TP_TRAIN_SHAPE]}
 
 
 def _model_grads(model, tokens):
@@ -2246,9 +2281,9 @@ def phase_sharded_lm(seed: int, device="cuda", args=None, steps: int = SHARDED_L
 # MP_LM_STEPS steps: each arm's mesh, attention and batch flags.
 MP_LM_ARMS = {
     "ring_lm": ["--mesh", "sp=4", "--attention", "ring", "--batch_size", "1",
-                "--seq_len", "4096"],
+                "--seq_len", "4096", "--layers", str(CUT_LAYERS)],
     "moe_lm": ["--mesh", "dp=2,ep=2", "--attention", "flash", "--moe_experts", "8",
-               "--batch_size", "8", "--seq_len", "1024"],
+               "--batch_size", "8", "--seq_len", "1024", "--layers", str(CUT_LAYERS)],
     "pipeline_lm": ["--mesh", "pp=4", "--attention", "flash", "--pp_repeats", "3",
                     "--microbatches", "4", "--batch_size", "4", "--seq_len", "1024"],
 }
@@ -2263,7 +2298,7 @@ MP_LM_RANKS = 4  # every arm's mesh has 4 ranks; one set of rank processes runs 
 MP_LOSS_TOL, MP_GRAD_TOL = 1e-4, 5e-2
 
 
-def _mp_rank(rank: int, world: int, tasks, out) -> None:
+def _mp_rank(rank: int, world: int, tasks, out, notes=None) -> None:
     """One rank process of every mp_lm arm.  For each task ``(argv, port)``
     it joins that arm's process group as ``rank`` (torchrun's environment,
     so examples.lm.train() spawns nothing), counts the kernels' launches
@@ -2304,25 +2339,55 @@ def _mp_rank(rank: int, world: int, tasks, out) -> None:
 
 
 class _MpRanks:
-    """MP_LM_RANKS rank processes, started once for every mp_lm arm
-    (a process takes seconds to reach the card)."""
+    """MP_LM_RANKS rank processes, started once for every arm of a phase
+    (a process takes seconds to reach the card).  ``target(rank, world,
+    tasks, out, notes)`` is each one's loop: ``tasks`` its own queue,
+    ``out`` the reports, ``notes`` messages a rank sends mid-task."""
 
-    def __init__(self, world: int = MP_LM_RANKS):
+    def __init__(self, world: int = MP_LM_RANKS, target=None, name: str = "mp_lm"):
         import multiprocessing as mp
 
+        self.name = name
         ctx = mp.get_context("spawn")
-        self.out = ctx.Queue()
+        self.out, self.notes = ctx.Queue(), ctx.Queue()
         self.tasks = [ctx.Queue() for _ in range(world)]
-        self.procs = [ctx.Process(target=_mp_rank, args=(r, world, self.tasks[r], self.out))
+        self.procs = [ctx.Process(target=target or _mp_rank,
+                                  args=(r, world, self.tasks[r], self.out, self.notes))
                       for r in range(world)]
         for proc in self.procs:
             proc.start()
 
-    def run(self, argv: list, timeout: float) -> list:
-        """Every rank's report of one arm, in rank order."""
+    def run(self, argv, timeout: float) -> list:
+        """Every rank's report of one arm (task ``argv``), in rank order."""
+        self.start(argv)
+        return self.reports(timeout)
+
+    def start(self, task) -> None:
         port = free_port()
         for q in self.tasks:
-            q.put((argv, port))
+            q.put((task, port))
+
+    def note(self, timeout: float):
+        """The next mid-task message of a rank (a rank's error fails it)."""
+        deadline = time.time() + timeout
+        while True:
+            try:
+                return self.notes.get(timeout=5)
+            except queue.Empty:
+                pass
+            try:
+                rep = self.out.get_nowait()
+            except queue.Empty:
+                rep = {}
+            if "error" in rep:
+                raise AssertionError(f"{self.name}: rank {rep['rank']}: {rep['error']}")
+            dead = [p.exitcode for p in self.procs if p.exitcode is not None]
+            if dead or time.time() > deadline:
+                raise AssertionError(f"{self.name}: no rank wrote within {timeout} s "
+                                     f"(exit codes {dead})")
+
+    def reports(self, timeout: float) -> list:
+        """Every rank's report of the task in flight, in rank order."""
         reps, deadline = {}, time.time() + timeout
         while len(reps) < len(self.procs):
             try:
@@ -2330,11 +2395,11 @@ class _MpRanks:
             except queue.Empty:
                 dead = [p.exitcode for p in self.procs if p.exitcode is not None]
                 if time.time() > deadline or dead:
-                    raise AssertionError(f"mp_lm: {len(reps)} of {len(self.procs)} ranks "
+                    raise AssertionError(f"{self.name}: {len(reps)} of {len(self.procs)} ranks "
                                          f"reported (exit codes {dead})")
                 continue
             if "error" in rep:
-                raise AssertionError(f"mp_lm: rank {rep['rank']}: {rep['error']}")
+                raise AssertionError(f"{self.name}: rank {rep['rank']}: {rep['error']}")
             reps[rep["rank"]] = rep
         return [reps[r] for r in sorted(reps)]
 
@@ -2485,6 +2550,380 @@ def phase_mp_lm(seed: int, device="cuda", arms=None, steps: int = MP_LM_STEPS,
     res["launches"] = launches_by_path
     res["wall_s"] = time.perf_counter() - t_phase
     log({k: v for k, v in res.items() if k != "arms"})
+    return res
+
+
+# ------------------------------------------------------------------ tp_lm
+# Tensor parallelism (slice 9d) at the LM's full width (LM_WIDTHS, bf16,
+# flash) on the one card: four rank processes, started once for both arms,
+# share it over gloo.  tp_serve: lm_serve.serve(mesh=) over a tp=4 mesh
+# answers the slice phase's traffic (4 concurrent 1024-token prompts, 16
+# greedy tokens each).  tp_train: make_train_step over dp=2 x tp=2 with the
+# auto_shardings layout, B 8 x T 1024 in all, AdamW 1e-4 on the copy task,
+# a warm-up step plus TP_LM_STEPS.
+TP_SERVE = dict(tp=4, batch=4, prompt=1024, new=16)
+TP_TRAIN_ARGS = ["--batch_size", "8", "--seq_len", "1024", "--learning_rate", "1e-4"]
+TP_LM_STEPS = 2
+# bf16: the last prompt position's prefill logits of the tp=4 server within
+# TP_LOGIT_TOL x max(1, max|logit|) of one process's on the same card; its
+# replies equal one process's generate() up to a position where that
+# process's top-two logits lie within the same margin (LOGIT_MARGIN's rule).
+TP_LOGIT_TOL = 2e-2
+
+
+def _tp_serve_model(widths: list, sv: dict, device, seed: int) -> TransformerLM:
+    """The serving LM (phase_slice's configuration at ``widths``)."""
+    f = lm.make_flags(widths)
+    return TransformerLM(
+        vocab_size=f.vocab, d_model=f.d_model, num_heads=f.heads, num_layers=f.layers,
+        attention="flash", dtype=torch.bfloat16, pos_embedding="rotary",
+        max_len=sv["prompt"] + sv["new"], device=device,
+        generator=torch.Generator().manual_seed(seed)).eval()
+
+
+def _tp_prompts(seed: int, vocab: int, sv: dict) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, vocab, (sv["batch"], sv["prompt"])).astype(np.int32)
+
+
+def _synced_ms(fn, dev, reps: int) -> float:
+    """Median wall ms of ``fn`` with the card synchronised around each call
+    (every rank calls it together: collectives inside)."""
+    out = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def _tp_rank(rank: int, world: int, tasks, out, notes) -> None:
+    """One rank process of both tp_lm arms: for each task ``((kind, cfg),
+    port)`` it joins that arm's process group, runs the arm's part and
+    reports; ``None`` ends it."""
+    import gc
+
+    import torch.distributed as dist
+
+    from moolib_tpu_torch import parallel
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1")
+    reg = telemetry.get_registry()
+    while (task := tasks.get()) is not None:
+        (kind, cfg), port = task
+        try:
+            parallel.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                            device=cfg["device"])
+            dev = torch.device("cuda", torch.cuda.current_device()) \
+                if cfg["device"] == "cuda" else torch.device("cpu")
+            staged0 = lm._counter(reg, "collectives_host_staged_bytes_total")
+            arm = _tp_serve_rank if kind == "serve" else _tp_train_rank
+            rep = arm(rank, cfg, dev, tasks, notes)
+            rep["host_staged_bytes"] = lm._counter(
+                reg, "collectives_host_staged_bytes_total") - staged0
+            rep["max_memory_allocated"] = (torch.cuda.max_memory_allocated(dev)
+                                           if dev.type == "cuda" else None)
+            out.put({"rank": rank, **rep})
+        except BaseException as e:  # reported to the parent, which fails, then re-raised
+            import traceback
+
+            out.put({"rank": rank, "error": f"{e!r}\n{traceback.format_exc()}"})
+            raise
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            gc.collect()
+            if torch.cuda.is_initialized():
+                torch.cuda.empty_cache()
+
+
+def _tp_serve_rank(rank: int, cfg: dict, dev, tasks, notes) -> dict:
+    """tp_serve on one rank: rank 0 serves the parent's requests over Rpc
+    (serve(mesh=)), the others follow; then every rank times the sharded
+    prefill and generate on the same prompts, rank 0 keeping the last
+    position's prefill logits."""
+    import torch.distributed as dist
+
+    from moolib_tpu_torch import parallel
+    from moolib_tpu_torch.examples import lm_serve
+    from moolib_tpu_torch.parallel import tensor_parallel
+
+    sv = cfg["serve"]
+    mesh = parallel.make_mesh({"tp": sv["tp"]}, device_type=dev.type)
+    model = _tp_serve_model(cfg["widths"], sv, dev, cfg["seed"])
+    tensor_parallel.shard_model(model, mesh)
+    new = sv["new"]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    # The served path: counts start at 0 here and are read right after.
+    fa.reset_launches()
+    served = None
+    if rank == 0:
+        server = Rpc()
+        server.set_name("tp_server")
+        server.listen(cfg["addr"])
+        try:
+            coro = serve(server, model, new, mesh=mesh, batch_size=sv["batch"],
+                         total=sv["batch"])
+            notes.put("listening")
+            if tasks.get() != "go":  # the parent's requests sit in the queue
+                raise RuntimeError("tp_serve: expected the parent's go")
+            served = asyncio.run(coro)
+            if tasks.get() != "replied":  # hold the server until the replies arrived
+                raise RuntimeError("tp_serve: expected the parent's replied")
+        finally:
+            server.close()
+    else:
+        lm_serve.follow(model, new, mesh)
+    launches = _counts()
+    prompts = torch.from_numpy(_tp_prompts(cfg["seed"], model.vocab_size, sv)).to(dev)
+    dist.barrier()
+    with torch.inference_mode():
+        logits = model.prefill(prompts)[0][:, -1].float().cpu()
+        prefill_ms = _synced_ms(lambda: model.prefill(prompts), dev, 2)
+        gen_ms = _synced_ms(lambda: generate(model, prompts, new), dev, 1)
+    return {"iterations": served, "launches": launches,
+            "param_bytes": tensor_parallel.param_bytes(model),
+            "cache_kv_heads": model.cache_kv_heads(),
+            "prefill_ms": prefill_ms, "generate_ms": gen_ms,
+            "decode_ms_per_token": (gen_ms - prefill_ms) / (new - 1),
+            "logits": logits if rank == 0 else None}
+
+
+def _tp_train_rank(rank: int, cfg: dict, dev, tasks, notes) -> dict:
+    """tp_train on one rank: the warm-up step's loss and its gradients
+    gathered onto rank 0 (written to the probe file), then TP_LM_STEPS
+    AdamW steps; the replicated leaves' and the blocks' sha256."""
+    from moolib_tpu_torch import parallel
+    from moolib_tpu_torch.parallel import tensor_parallel
+
+    flags = lm.make_flags(cfg["argv"])
+    mesh = parallel.make_mesh({"dp": 2, "tp": 2}, device_type=dev.type)
+    model = lm.make_model(flags, dev)
+    layout = parallel.auto_shardings(dict(model.named_parameters()), mesh)
+    held = tensor_parallel.shard_model(model, mesh, layout)
+    named = dict(model.named_parameters())
+    opt = lm.make_optimizer(named.values(), flags.learning_rate)
+    half = flags.seq_len // 2
+    step = parallel.make_train_step(
+        lambda p, b, r: lm.copy_task_loss(model(b), b, half), opt, mesh=mesh,
+        params_sharding=layout, batch_spec=parallel.PartitionSpec("dp", None))
+    tokens = torch.from_numpy(lm.make_batch(np.random.default_rng(flags.seed), flags)).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    # The tp_train path: counts start at 0 here and are read right after.
+    fa.reset_launches()
+    loss0, _ = step.grads(named, tokens, None)
+    grads = parallel.gather_full(tensor_parallel.as_dtensors(
+        model, {k: p.grad for k, p in named.items()}))
+    if rank == 0:
+        torch.save({"loss": float(loss0), "grads": {k: v.cpu() for k, v in grads.items()}},
+                   cfg["probe"])
+    del grads
+    step_s, losses = [], []
+    for _ in range(cfg["steps"]):
+        t0 = time.perf_counter()
+        _, _, loss, _ = step(named, None, tokens, None)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    launches = _counts()
+    rep_keys = [k for k in named if k not in held]
+    return {"coords": {a: mesh.get_local_rank(a) for a in ("dp", "tp")},
+            "launches": launches, "step_s": step_s, "losses": losses,
+            "param_bytes": tensor_parallel.param_bytes(model),
+            "replicated_sha256": lm.params_sha256({k: named[k] for k in rep_keys}),
+            "blocks_sha256": lm.params_sha256({k: named[k] for k in held})}
+
+
+def _tp_reference_train(flags, device) -> tuple:
+    """One process at the same global batch: the warm-up's loss and
+    gradients (``_mp_reference``) and its peak memory with one AdamW step."""
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = lm.make_model(flags, torch.device(device))
+    tokens = torch.from_numpy(lm.make_batch(np.random.default_rng(flags.seed), flags)).to(device)
+    loss, _ = lm.copy_task_loss(model(tokens), tokens, flags.seq_len // 2)
+    loss.backward()
+    lm.make_optimizer(model.parameters(), flags.learning_rate).step()
+    grads = {k: p.grad.detach() for k, p in model.named_parameters()}
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    return float(loss.detach()), grads, peak
+
+
+def phase_tp_lm(seed: int, device="cuda", widths=None, timeout: float = 600,
+                tols: tuple = (TP_LOGIT_TOL, MP_LOSS_TOL, MP_GRAD_TOL), serve_cfg=None,
+                train_args=None, steps: int = TP_LM_STEPS) -> dict:
+    """The tensor-parallel arms on the one card (see TP_SERVE above).
+    tp_serve checks: one stacked batch; the last prompt position's prefill
+    logits against one process (``tols[0]``); the replies equal one
+    process's generate() up to a near-tie (reported); flash_fwd launched
+    exactly once a block per rank in the served run; each rank holds 1/tp
+    of the cut leaves plus the replicated ones.  tp_train checks: the
+    warm-up loss (``tols[1]``, relative) and every gathered gradient leaf
+    (``tols[2]`` of its own norm) against one process at the same global
+    batch; the replicated leaves equal on every rank and each block equal
+    across dp; each flash kernel launched exactly once a block a step per
+    rank; each rank's peak memory below one process's."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    widths = LM_WIDTHS if widths is None else widths
+    sv = TP_SERVE if serve_cfg is None else serve_cfg
+    train_args = TP_TRAIN_ARGS if train_args is None else train_args
+    wf = lm.make_flags(widths)
+    res = {"phase": "tp_lm"}
+    launches = {}
+    ranks = _MpRanks(target=_tp_rank, name="tp_lm")
+    failed = True
+    probe = tempfile.mkdtemp(prefix="tp_lm_")
+    try:
+        # ---- tp_serve
+        addr = f"127.0.0.1:{free_port()}"
+        t_arm = time.perf_counter()
+        ranks.start(("serve", {"widths": widths, "seed": seed, "device": device, "addr": addr,
+                               "serve": sv}))
+        if ranks.note(timeout) != "listening":
+            raise AssertionError("tp_lm: rank 0 did not start serving")
+        prompts = _tp_prompts(seed, wf.vocab, sv)
+        B = sv["batch"]
+        client = Rpc()
+        client.set_name("tp_client")
+        client.set_timeout(600)
+        client.connect(addr)
+        try:
+            t_send = time.perf_counter()
+            futs = [client.async_("tp_server", "generate", p) for p in prompts]
+            deadline = time.monotonic() + 120
+            while client.sync("tp_server", "generate_stats")["depth_max"] < B:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("tp_serve: requests did not reach the server queue")
+                time.sleep(0.01)
+            ranks.tasks[0].put("go")
+            replies = np.stack([np.asarray(f.result(timeout)) for f in futs])
+            latency_ms = (time.perf_counter() - t_send) * 1e3
+            ranks.tasks[0].put("replied")
+        finally:
+            client.close()
+        reps = ranks.reports(timeout)
+        serve_s = time.perf_counter() - t_arm
+        if reps[0]["iterations"] != 1:
+            raise AssertionError(f"tp_serve: served in {reps[0]['iterations']} iterations, not 1")
+        n = sv["tp"]
+        for r in reps:
+            if device != "cpu" and r["launches"]["flash_fwd"] != wf.layers:
+                raise AssertionError(f"tp_serve: rank {r['rank']} launched flash_fwd "
+                                     f"{r['launches']['flash_fwd']} times, want {wf.layers}")
+            b = r["param_bytes"]
+            if b["sharded"] * n + b["replicated"] != b["whole"]:
+                raise AssertionError(f"tp_serve: rank {r['rank']} holds {b}, not 1/{n} "
+                                     "of the cut leaves")
+        launches["tp_serve"] = {k: sum(r["launches"][k] for r in reps) for k in reps[0]["launches"]}
+        if replies.shape != (B, sv["prompt"] + sv["new"]) or \
+                not np.array_equal(replies[:, :sv["prompt"]], prompts):
+            raise AssertionError(f"tp_serve: replies have shape {replies.shape} or lost their prompts")
+        # One process on the card (the ranks hold no model now).
+        t_ref = time.perf_counter()
+        ref = _tp_serve_model(widths, sv, torch.device(device), seed)
+        with torch.inference_mode():
+            dev_prompts = torch.from_numpy(prompts).to(device)
+            want_logits = ref.prefill(dev_prompts)[0][:, -1].float().cpu()
+            want = generate(ref, dev_prompts, sv["new"]).cpu().numpy()
+        got_logits = reps[0]["logits"]
+        logit_err = (got_logits - want_logits).abs().max().item()
+        logit_limit = tols[0] * max(1.0, want_logits.abs().max().item())
+        if not logit_err <= logit_limit:
+            raise AssertionError(f"tp_serve: prefill logits off by {logit_err} (limit {logit_limit})")
+        divergences = []
+        for i in range(B):
+            if not np.array_equal(replies[i], want[i]):
+                j, gap, limit = _first_divergence(ref, prompts[i], replies[i], want[i])
+                if not gap < limit:
+                    raise AssertionError(f"tp_serve: prompt {i} departs at new token {j} where "
+                                         f"the top-two gap is {gap} (margin {limit})")
+                divergences.append({"prompt": i, "new_token": j, "top2_gap": gap})
+        del ref
+        torch.cuda.empty_cache() if device == "cuda" else None
+        res["tp_serve"] = {
+            "tp": n, "batch": B, "prompt_len": sv["prompt"],
+            "max_new_tokens": sv["new"], "request_latency_ms": latency_ms,
+            "prefill_logit_err": logit_err, "prefill_logit_limit": logit_limit,
+            "replies_equal_generate": not divergences, "near_tie_divergences": divergences,
+            "prefill_ms": {r["rank"]: r["prefill_ms"] for r in reps},
+            "decode_ms_per_token": {r["rank"]: r["decode_ms_per_token"] for r in reps},
+            "host_staged_bytes": {r["rank"]: r["host_staged_bytes"] for r in reps},
+            "max_memory_allocated": {r["rank"]: r["max_memory_allocated"] for r in reps},
+            "param_bytes_per_rank": reps[0]["param_bytes"]["total"],
+            "param_bytes_one_process": reps[0]["param_bytes"]["whole"],
+            "param_bytes": {r["rank"]: r["param_bytes"] for r in reps},
+            "cache_kv_heads_per_rank": reps[0]["cache_kv_heads"],
+            "launches_per_rank": {r["rank"]: r["launches"]["flash_fwd"] for r in reps},
+            "arm_wall_s": serve_s, "reference_s": time.perf_counter() - t_ref}
+        log({"phase": "tp_lm", "arm": "tp_serve", **res["tp_serve"]})
+
+        # ---- tp_train
+        argv = [*widths, *train_args, "--mesh", "", "--attention", "flash",
+                "--seed", str(seed), "--device", device]
+        flags = lm.make_flags(argv)
+        t_arm = time.perf_counter()
+        ranks.start(("train", {"argv": argv, "device": device, "steps": steps,
+                               "probe": os.path.join(probe, "step0.pt")}))
+        reps = ranks.reports(timeout)
+        train_s = time.perf_counter() - t_arm
+        got = torch.load(os.path.join(probe, "step0.pt"))
+        if len({r["replicated_sha256"] for r in reps}) != 1:
+            raise AssertionError("tp_train: replicated parameters differ across ranks")
+        for t in {r["coords"]["tp"] for r in reps}:
+            if len({r["blocks_sha256"] for r in reps if r["coords"]["tp"] == t}) != 1:
+                raise AssertionError(f"tp_train: the blocks of tp rank {t} differ across dp")
+        want_n = flags.layers * (steps + 1)
+        for r in reps:
+            for k, v in r["launches"].items():
+                if device != "cpu" and v != want_n:
+                    raise AssertionError(f"tp_train: rank {r['rank']} launched {k} {v} times, "
+                                         f"want {want_n}")
+        launches["tp_train"] = {k: sum(r["launches"][k] for r in reps) for k in reps[0]["launches"]}
+        torch.cuda.empty_cache() if device == "cuda" else None
+        t_ref = time.perf_counter()
+        ref_loss, ref_grads, ref_peak = _tp_reference_train(flags, device)
+        if set(got["grads"]) != set(ref_grads):
+            raise AssertionError("tp_train: gradient leaves differ")
+        errs = _mp_grad_errors(got["grads"], ref_grads)
+        del ref_grads
+        worst = max(errs, key=errs.get)
+        loss_err = abs(got["loss"] - ref_loss) / abs(ref_loss)
+        if loss_err > tols[1] or errs[worst] > tols[2]:
+            raise AssertionError(f"tp_train: loss {got['loss']} vs {ref_loss} (rel {loss_err}), "
+                                 f"gradient leaf {worst} off by {errs[worst]} of its norm")
+        peaks = {r["rank"]: r["max_memory_allocated"] for r in reps}
+        if ref_peak is not None and not max(peaks.values()) < ref_peak:
+            raise AssertionError(f"tp_train: peak memory per rank {peaks} not below one "
+                                 f"process's {ref_peak}")
+        res["tp_train"] = {
+            "mesh": {"dp": 2, "tp": 2}, "batch": flags.batch_size, "seq_len": flags.seq_len,
+            "loss_step0": got["loss"], "loss_step0_reference": ref_loss, "loss_rel_err": loss_err,
+            "grad_rel_err_max": errs[worst], "grad_worst_leaf": worst,
+            "grad_rel_err_median": float(np.median(list(errs.values()))),
+            "step_s": reps[0]["step_s"], "losses": reps[0]["losses"],
+            "tokens_per_s": flags.batch_size * flags.seq_len / float(np.median(reps[0]["step_s"])),
+            "launches_per_rank": {r["rank"]: r["launches"] for r in reps},
+            "max_memory_allocated": peaks, "max_memory_allocated_one_process": ref_peak,
+            "host_staged_bytes": {r["rank"]: r["host_staged_bytes"] for r in reps},
+            "param_bytes": {r["rank"]: r["param_bytes"] for r in reps},
+            "arm_wall_s": train_s, "reference_s": time.perf_counter() - t_ref}
+        log({"phase": "tp_lm", "arm": "tp_train", **res["tp_train"]})
+        failed = False
+    finally:
+        ranks.close(failed)
+        shutil.rmtree(probe, ignore_errors=True)
+    res["launches"] = launches
+    res["wall_s"] = time.perf_counter() - t_phase
+    log({k: v for k, v in res.items() if k not in ("tp_serve", "tp_train")})
     return res
 
 
@@ -3726,8 +4165,8 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     pool = make_pool()
     try:
-        kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded, mp_lm = _phases(
-            pool, args.seed)
+        kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded, mp_lm, tp_lm = \
+            _phases(pool, args.seed)
     finally:
         pool.close()
     case = kern["train"]
@@ -3757,7 +4196,8 @@ def main(argv=None) -> None:
                              **{path: fleet[path]["launches"][name] for path in fleet},
                              "anakin": anakin[name],
                              "sharded_lm": sharded[name],
-                             **{path: mp_lm[path][name] for path in mp_lm}},
+                             **{path: mp_lm[path][name] for path in mp_lm},
+                             **{path: tp_lm[path][name] for path in tp_lm}},
         "max_abs_err": kern["worst"][name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
@@ -3769,9 +4209,25 @@ def main(argv=None) -> None:
         "tensor_core_instructions": sum(sass[instance[name]].values()),
         "tflops": case["tflops"][name],
         "share_of_bound": case["bound_ms"][name] / times[name][0],
+        "tp_shapes": _tp_shape_rows(kern, name),
     } for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
+
+
+def _tp_shape_rows(kern: dict, name: str) -> dict:
+    """A kernel's times at tp_lm's per-rank shapes (bf16, causal): the
+    forward at both, the backward passes at the training one."""
+    rows = {}
+    for arm in (("tp_serve", "tp_train") if name == "flash_fwd" else ("tp_train",)):
+        c = kern[arm]
+        ms = {"flash_fwd": c["ms"], "flash_bwd_dq": c["dq_ms"], "flash_bwd_dkv": c["dkv_ms"]}[name]
+        rows[arm] = {"shape": c["shape"], "ms": ms,
+                     "plain_ms": c["plain_ms"] if name == "flash_fwd" else c["plain_bwd_ms"],
+                     "library_ms": c["sdpa_ms"] if name == "flash_fwd" else c["sdpa_bwd_ms"],
+                     "bound_ms": c["bound_ms"][name], "bound_by": c["bound_by"][name],
+                     "share_of_bound": c["bound_ms"][name] / ms}
+    return rows
 
 
 PHASE_SECONDS: dict = {}  # each phase's wall seconds, in order (printed before the summary)
@@ -3783,6 +4239,12 @@ def timed(name: str, fn, *args, **kwargs):
         return fn(*args, **kwargs)
     finally:
         PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+
+
+def _cut(argv: list) -> list:
+    """An LM argv with ``--layers`` cut to CUT_LAYERS."""
+    i = argv.index("--layers")
+    return [*argv[:i + 1], str(CUT_LAYERS), *argv[i + 2:]]
 
 
 def _phases(pool: EnvPool, seed: int) -> tuple:
@@ -3801,11 +4263,11 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     rl = timed("impala_learner", phase_impala_learner, pool, seed)
     timed("cohort_impala", phase_cohort_impala, seed)
     torch.cuda.empty_cache()  # the learner processes share the card
-    cl = timed("cohort_lm", phase_cohort_lm, seed)
+    cl = timed("cohort_lm", phase_cohort_lm, seed, lm_cfg=dict(COHORT_LM, num_layers=CUT_LAYERS))
     torch.cuda.empty_cache()
     timed("accumulator_impala", phase_accumulator_impala, seed)
     torch.cuda.empty_cache()
-    acl = timed("accumulator_lm", phase_accumulator_lm, seed)
+    acl = timed("accumulator_lm", phase_accumulator_lm, seed, args=_cut(ACC_LM_ARGS))
     torch.cuda.empty_cache()
     # The r2d2 path: counts start at 0 here and are read right after.
     fa.reset_launches()
@@ -3815,9 +4277,10 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     timed("r2d2_replay", phase_r2d2_replay, seed)
     r2 = _counts()
     torch.cuda.empty_cache()
-    fleet = {"durable_lm": timed("durable_lm", phase_durable_lm, seed)}
+    fleet = {"durable_lm": timed("durable_lm", phase_durable_lm, seed, widths=_cut(LM_WIDTHS))}
     torch.cuda.empty_cache()
-    fleet["dckpt_lm"] = timed("dckpt_lm", phase_dckpt_lm, seed)
+    fleet["dckpt_lm"] = timed("dckpt_lm", phase_dckpt_lm, seed,
+                              lm_cfg=dict(COHORT_LM, num_layers=CUT_LAYERS))
     torch.cuda.empty_cache()
     fleet["timeline_lm"] = timed("timeline_lm", phase_timeline_lm, seed)
     timed("compile_cache", phase_compile_cache)
@@ -3834,8 +4297,12 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     # The mp_lm paths: every rank process counts from 0 before each arm
     # (_mp_rank).
     mp_lm = timed("mp_lm", phase_mp_lm, seed)["launches"]
+    torch.cuda.empty_cache()
+    # The tp_lm paths: every rank process counts from 0 before each arm
+    # (_tp_serve_rank, _tp_train_rank).
+    tp_lm = timed("tp_lm", phase_tp_lm, seed)["launches"]
     log({"phase_seconds": PHASE_SECONDS, "total_s": round(sum(PHASE_SECONDS.values()), 1)})
-    return kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded, mp_lm
+    return kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded, mp_lm, tp_lm
 
 
 if __name__ == "__main__":

@@ -343,7 +343,9 @@ def sharding_signature(shape: Tuple[int, ...], sharding) -> Optional[tuple]:
                             "neither a NamedSharding nor a DTensor")
         sharding = named
     ss = sharding.shard_shape(tuple(int(d) for d in shape))
-    counts = tuple(int(d // s) if s else 1 for d, s in zip(shape, ss))
+    # Counted in the spec's (flax's) order: a conv kernel the port holds in
+    # torch's layout reads as the JAX package's leaf.
+    counts = sharding.spec_order(tuple(int(d // s) if s else 1 for d, s in zip(shape, ss)))
     if all(c <= 1 for c in counts):
         return None  # fully replicated: indistinguishable from host data
     return (str(sharding.spec), counts)

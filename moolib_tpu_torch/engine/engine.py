@@ -21,9 +21,10 @@ straight into the slot's pool blocks.  The pools are allocated once and
 never rebound: their ``data_ptr()``s are stable for the engine's lifetime,
 the port's form of "one decode compile, no cache reshuffle".
 
-Greedy decoding only, as the serving plane is.  Tensor-parallel serving
-(``mesh=``) and disaggregated prefill (``prefill_devices=``) come with the
-model-parallel slice.
+Greedy decoding only, as the serving plane is.  ``mesh=`` and
+``prefill_devices=`` keep the JAX engine's meaning: only the two together
+shard (disaggregated prefill on a ``split_mesh`` submesh), and that comes
+with the Sebulba split (slice 9c).
 """
 
 from __future__ import annotations
@@ -99,10 +100,12 @@ class ContinuousBatchingEngine:
                  max_prompt_len: Optional[int] = None,
                  eos_id: Optional[int] = None,
                  mesh=None, prefill_devices: int = 0):
-        if mesh is not None or prefill_devices:
+        if mesh is not None and prefill_devices:
+            # The JAX engine shards nothing but this split: a mesh alone, or
+            # prefill_devices alone, is accepted and unused there too.
             raise NotImplementedError(
-                "ContinuousBatchingEngine(mesh=, prefill_devices=): tensor-parallel "
-                "serving and disaggregated prefill are not yet ported (slice 9d)"
+                "ContinuousBatchingEngine(mesh=, prefill_devices=): disaggregated "
+                "prefill over the Sebulba mesh split is not yet ported (slice 9c)"
             )
         self.model = model
         self.slots = int(slots)

@@ -302,15 +302,18 @@ class pumping:
 
 class MeshControl:
     """Rank 0 of a mesh host tells its other ranks what comes next: one
-    broadcast of ``(command, argument)`` over the ``dp`` group, on the
-    backend's own device (gloo reduces host memory, NCCL the card's)."""
+    broadcast of ``(command, argument)`` over the ``dp`` group (or over the
+    mesh axes ``axes``), on the backend's own device (gloo reduces host
+    memory, NCCL the card's)."""
 
-    def __init__(self, mesh, device):
+    def __init__(self, mesh, device, axes=("dp",)):
         import torch.distributed as dist
 
+        from ...parallel.collectives import axes_group
+
         self._dist = dist
-        self.group = mesh.get_group("dp")
-        self.rank = mesh.get_local_rank("dp")
+        self.group = axes_group(mesh, tuple(axes))[0]
+        self.rank = dist.get_rank(self.group)
         self._root = dist.get_global_rank(self.group, 0)
         self._device = device if dist.get_backend(self.group) == "nccl" else torch.device("cpu")
 
@@ -413,10 +416,18 @@ class TsvLogger:
 # in for rmsprop: it adds eps outside the square root.
 
 
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """optax's ``global_norm``: the 2-norm of every element of every tensor
+    (a 0-d tensor on their device)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
 class clip_by_global_norm:  # noqa: N801 - optax's name
     """optax ``clip_by_global_norm``: where the global norm g is at least
     ``max_norm``, every update becomes ``(u / g) * max_norm``; below it,
-    updates pass unchanged.  Decided on the device."""
+    updates pass unchanged.  Decided on the device.  ``update``'s ``norm``
+    stands in for the norm of ``updates`` where they are a rank's blocks of
+    a whole gradient (tensor parallelism)."""
 
     def __init__(self, max_norm: float):
         self.max_norm = max_norm
@@ -424,8 +435,9 @@ class clip_by_global_norm:  # noqa: N801 - optax's name
     def init(self, params):
         return None
 
-    def update(self, updates: List[torch.Tensor], state) -> List[torch.Tensor]:
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(updates)))
+    def update(self, updates: List[torch.Tensor], state,
+               norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        g_norm = global_norm(updates) if norm is None else norm
         clip = g_norm >= self.max_norm
         one = torch.ones((), dtype=g_norm.dtype, device=g_norm.device)
         torch._foreach_div_(updates, torch.where(clip, g_norm, one))
@@ -498,10 +510,15 @@ class OptaxOptimizer:
             p.grad = None
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, global_norm: Optional[torch.Tensor] = None) -> None:
+        """``global_norm``: the norm ``clip_by_global_norm`` takes instead of
+        the gradients' own (they are a rank's blocks of the whole)."""
         updates = [p.grad for p in self.params]
         if any(u is None for u in updates):
             raise RuntimeError("OptaxOptimizer.step: a parameter has no gradient")
         for transform, state in zip(self.transforms, self.state):
-            updates = transform.update(updates, state)
+            if global_norm is not None and isinstance(transform, clip_by_global_norm):
+                updates = transform.update(updates, state, global_norm)
+            else:
+                updates = transform.update(updates, state)
         torch._foreach_add_(self.params, updates)

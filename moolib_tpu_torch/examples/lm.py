@@ -89,8 +89,15 @@ Durability and the fleet (docs/RESILIENCE.md):
   telemetry (``autoscaler``); ``--localdir``: the directory whose
   decommission flag drains this peer and leaves the cohort.
 
-A ``tp`` mesh axis, and model parallelism inside the elastic cohort, come
-with ROADMAP slice 9d; their flags exit with a message.
+- ``--mesh ...,tp=M``: the JAX example's meaning, parameters replicated
+  over ``tp`` (``lm.py``'s static mesh places them so): the ``tp`` ranks
+  hold replicas of the tokens and the step reduces over them.  The
+  tensor-parallel LM (``parallel.tensor_parallel``) is the layer below,
+  for ``make_train_step(params_sharding=auto_shardings(...))`` callers.
+
+Model-parallel axes inside the elastic cohort (``--shard_grads`` with any
+axis but ``dp``) come with ROADMAP slice 9e; their flags exit with a
+message.
 """
 
 from __future__ import annotations
@@ -217,12 +224,10 @@ def _unported(flags) -> list:
     """(flag, slice) for every flag set to a path this slice does not port."""
     found = []
     axes = parallel.mesh.parse_axes(flags.mesh)
-    if axes.get("tp", 1) != 1:
-        found.append(("--mesh axes ['tp']", "9d"))
-    other = [k for k, v in axes.items() if k not in ("dp", "tp") and v != 1]
+    other = [k for k, v in axes.items() if k != "dp" and v != 1]
     if other and flags.shard_grads:
-        found.append((f"--mesh axes {other} with --shard_grads (model parallelism "
-                       "inside the elastic cohort)", "9d"))
+        found.append((f"--mesh axes {other} with --shard_grads (model-parallel axes "
+                       "inside the elastic cohort)", "9e"))
     return found
 
 
@@ -334,7 +339,7 @@ def _check_flags(flags) -> None:
     if unported:
         raise SystemExit(
             "; ".join(f"{f}: not yet ported (slice {n})" for f, n in unported)
-            + ". This port trains over dp, sp, ep and pp mesh axes, and over "
+            + ". This port trains over dp, tp, sp, ep and pp mesh axes, and over "
             "dp alone in an elastic cohort")
     _check_model_parallel_flags(flags)
     if flags.publish_every and not elastic:
@@ -604,10 +609,11 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
 
 
 class _StaticMesh:
-    """The static mesh: ``dp``, and the model axes ``sp``, ``ep`` and ``pp``
-    (the JAX example's ``jit`` over its mesh, per rank).  The tokens shard
-    over ``dp``, and over ``sp`` under ring attention; ``ep`` and ``pp``
-    ranks hold replicas of them.  Built on every rank, right after the
+    """The static mesh: ``dp``, and the model axes ``tp``, ``sp``, ``ep``
+    and ``pp`` (the JAX example's ``jit`` over its mesh, per rank).  The
+    tokens shard over ``dp``, and over ``sp`` under ring attention; ``tp``,
+    ``ep`` and ``pp`` ranks hold replicas of them (the parameters are
+    replicated over ``tp``, as the JAX example places them).  Built on every rank, right after the
     model: it cuts the model's experts to this rank's ``ep`` block.  Its
     methods with collectives are entered by every rank in the same order."""
 

@@ -36,9 +36,20 @@ brokers and publishers mix.  Prompts in one batch of the plain server must
 share a length (the queue stacks them); pad client-side for mixed lengths.
 
 Servers run on CUDA unless ``--device`` names another device.
-``--mesh`` and ``--prefill_devices`` (tensor-parallel serving) exit "not
-yet ported (slice 9d)".  With ``--localdir`` a serving replica watches the
-autoscaler's decommission flag there and leaves when it appears.
+
+Tensor-parallel serving: ``--mesh tp=N`` with ``--listen`` (the plain
+batch-synchronous server, the path the JAX package gives ``--mesh``) runs N
+rank processes: this one spawns ranks 1..N-1 (or all N run under
+``torchrun``).  Every rank holds its ``tp`` blocks of the model
+(``models.transformer.sharded_generator``); rank 0 owns the Rpc queue and
+the bucket padding and, for each batch, broadcasts one command and the
+padded prompts; every rank runs the sharded generate; rank 0 replies.
+``--mesh`` with ``--engine`` or the resilient replica keeps the JAX
+meaning: those paths do not shard (the engine shards only its
+disaggregated prefill, ``--prefill_devices``, which needs the Sebulba mesh
+split and exits "not yet ported (slice 9c)").  With ``--localdir`` a
+serving replica watches the autoscaler's decommission flag there and
+leaves when it appears.
 """
 
 from __future__ import annotations
@@ -46,15 +57,16 @@ from __future__ import annotations
 import argparse
 import asyncio
 import functools
+import math
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .. import telemetry
+from .. import parallel, telemetry
 from .._device import resolve
-from ..models.transformer import TransformerLM, generate
+from ..models.transformer import TransformerLM, generate, sharded_generator
 from ..rpc import Rpc
 from ..utils import create_uid
 from ..serving import bucket as _bucket
@@ -90,8 +102,65 @@ def _generate_np(model: TransformerLM, prompts: np.ndarray, max_new: int) -> np.
         return out.cpu().numpy().astype(prompts.dtype, copy=False)
 
 
+# Rank 0 of a tensor-parallel server to its other ranks (MeshControl).
+_GENERATE, _STOP = 1, 2
+
+
+class _MeshGenerate:
+    """:func:`_generate_np` over a tensor-parallel mesh, on rank 0: one
+    command and one broadcast of the (padded) prompts to every rank, then
+    the sharded generate, which every rank runs (:func:`follow`)."""
+
+    def __init__(self, model: TransformerLM, max_new_tokens: int, mesh):
+        from .common import MeshControl
+
+        self.model, self.mesh = model, mesh
+        self.axes = tuple(mesh.mesh_dim_names)
+        self.control = MeshControl(mesh, model.device, axes=self.axes)
+        self.fn = sharded_generator(model, max_new_tokens, mesh)
+
+    def __call__(self, prompts: np.ndarray) -> np.ndarray:
+        self.control.send(_GENERATE)
+        batch = parallel.broadcast_tree(torch.from_numpy(prompts).to(self.model.device),
+                                        self.mesh, self.model.device, axis_name=self.axes)
+        with torch.inference_mode():
+            out = self.fn(batch)
+        return out.cpu().numpy().astype(prompts.dtype, copy=False)
+
+    def stop(self) -> None:
+        """Release the other ranks (once; moot after the process group is
+        gone: an interrupted server's host has killed them)."""
+        import torch.distributed as dist
+
+        if dist.is_initialized() and self.control is not None:
+            self.control.send(_STOP)
+        self.control = None
+
+
+def follow(model: TransformerLM, max_new_tokens: int, mesh) -> int:
+    """The loop of a tensor-parallel server's ranks other than 0: run the
+    sharded generate on every batch rank 0 broadcasts until it says stop.
+    Returns the batches run.  A batch that fails (a prompt out of the
+    vocabulary fails on every rank alike) is rank 0's to report."""
+    from .common import MeshControl
+
+    axes = tuple(mesh.mesh_dim_names)
+    control = MeshControl(mesh, model.device, axes=axes)
+    fn = sharded_generator(model, max_new_tokens, mesh)
+    n = 0
+    while control.receive()[0] == _GENERATE:
+        batch = parallel.broadcast_tree(None, mesh, model.device, axis_name=axes)
+        try:
+            with torch.inference_mode():
+                fn(batch)
+        except Exception:  # noqa: BLE001 — rank 0 replies with the error
+            pass
+        n += 1
+    return n
+
+
 def serve(rpc: Rpc, model: TransformerLM, max_new_tokens: int, *, name: str = "generate",
-          batch_size: int = 16, total=None, dynamic_batching: bool = True,
+          batch_size: int = 16, total=None, mesh=None, dynamic_batching: bool = True,
           warm_seq_len: Optional[int] = None):
     """Coroutine serving ``total`` prompts (None = forever).  Returns the
     number of *service iterations* — with concurrent callers this is smaller
@@ -102,6 +171,13 @@ def serve(rpc: Rpc, model: TransformerLM, max_new_tokens: int, *, name: str = "g
     Dynamic batches are padded to the next power-of-two bucket (capped at
     ``batch_size``), the JAX package's policy, so both servers see the same
     batch shapes.  ``dynamic_batching`` off serves one call per iteration.
+
+    ``mesh``: serve tensor-parallel, on mesh rank 0, while every other rank
+    runs :func:`follow` on its copy of the model (the same weights): the
+    model is cut to this rank's ``tp`` blocks (``auto_shardings``), so one
+    server peer fronts a model larger than one card's memory.  When the
+    coroutine ends (``total`` served, or cancelled) it releases the other
+    ranks.
     """
     queue = rpc.define_queue(
         name,
@@ -113,7 +189,10 @@ def serve(rpc: Rpc, model: TransformerLM, max_new_tokens: int, *, name: str = "g
     rpc.define(f"{name}_stats", lambda: {**queue.stats(), **counters,
                                          "batch_size": batch_size if dynamic_batching else 1})
 
-    gen = functools.partial(_generate_np, model, max_new=max_new_tokens)
+    if mesh is not None:
+        gen = _MeshGenerate(model, max_new_tokens, mesh)
+    else:
+        gen = functools.partial(_generate_np, model, max_new=max_new_tokens)
 
     if warm_seq_len is not None:
         shapes = _bucket_shapes(batch_size) if dynamic_batching else [1]
@@ -121,6 +200,13 @@ def serve(rpc: Rpc, model: TransformerLM, max_new_tokens: int, *, name: str = "g
             gen(np.zeros((b, warm_seq_len), np.int32))
 
     async def loop():
+        try:
+            return await _loop()
+        finally:
+            if mesh is not None:
+                gen.stop()
+
+    async def _loop():
         served = iterations = 0
         while total is None or served < total:
             ret_cb, args, kwargs = await queue
@@ -210,11 +296,52 @@ async def _serve_until_decommissioned(loop, localdir, replica, rpc):
 def _unported(flags) -> list:
     """(flag, slice) for every flag set to a path this slice does not port."""
     found = []
-    if flags.mesh:
-        found.append(("--mesh", "9d"))
-    if flags.prefill_devices:
-        found.append(("--prefill_devices", "9d"))
+    if flags.prefill_devices and flags.mesh and flags.engine:
+        found.append(("--prefill_devices (disaggregated prefill over the Sebulba "
+                      "mesh split)", "9c"))
     return found
+
+
+def _mesh_world(flags) -> int:
+    """Rank processes of a tensor-parallel server (0: none): ``--mesh`` on
+    the plain server; the engine and the resilient replica do not shard
+    (the JAX package's meaning)."""
+    axes = parallel.mesh.parse_axes(flags.mesh)
+    if not axes or flags.listen is None or flags.engine or flags.broker or \
+            flags.broker_addrs or flags.publisher:
+        return 0
+    if any(v == -1 for v in axes.values()):
+        import os
+
+        if "WORLD_SIZE" not in os.environ:
+            raise ValueError("--mesh with a -1 axis needs the world size: start the "
+                             "ranks with torchrun, or give every axis its size")
+        world = int(os.environ["WORLD_SIZE"])
+        parallel.mesh.mesh_axes(axes, world)  # the JAX package's mesh errors
+        return world
+    return math.prod(axes.values())
+
+
+def _mesh_rank(flags, coordinator, world: int, rank):
+    """Join the server's process group; returns ``(mesh, model, device)``:
+    every rank builds the seed's whole model, then serving cuts it."""
+    device = resolve(flags.device)
+    parallel.initialize_distributed(coordinator, world if coordinator else None, rank,
+                                    device=device)
+    mesh = parallel.parse_mesh_spec(flags.mesh, device_type=device.type)
+    device = resolve(flags.device)  # the card the rank was bound to
+    return mesh, make_model(flags, device, torch.Generator().manual_seed(flags.seed)), device
+
+
+def _follow_main(flags) -> None:
+    """A rank other than 0 of a tensor-parallel server."""
+    import torch.distributed as dist
+
+    mesh, model, _ = _mesh_rank(flags, None, _mesh_world(flags), None)
+    try:
+        follow(model, flags.max_new_tokens, mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def _replica(flags, rpc, model, broker_list):
@@ -335,6 +462,12 @@ def _client(flags, broker_list) -> None:
 
 
 def main(argv=None):
+    from .common import mesh_flags_from_env
+
+    spawned = mesh_flags_from_env()
+    if spawned is not None:  # a rank 1..N-1 of a tensor-parallel server
+        _follow_main(spawned)
+        return
     p = argparse.ArgumentParser(description="batched LM generation over RPC")
     p.add_argument("--listen", default=None, help="serve on this address")
     p.add_argument("--connect", default=None,
@@ -377,7 +510,9 @@ def main(argv=None):
     p.add_argument("--max_new_tokens", type=int, default=16)
     p.add_argument("--batch_size", type=int, default=16,
                    help="dynamic-batching cap: batches pad to power-of-two buckets")
-    p.add_argument("--mesh", default="", help="tensor-parallel serving (not yet ported)")
+    p.add_argument("--mesh", default="",
+                   help='serve tensor-parallel over these axes, e.g. "tp=4": that many '
+                   "rank processes (server side only; params cut to auto_shardings)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     p.add_argument("--no_dynamic_batching", action="store_true",
@@ -390,7 +525,8 @@ def main(argv=None):
     p.add_argument("--block_size", type=int, default=16,
                    help="engine KV pool block size in tokens")
     p.add_argument("--prefill_devices", type=int, default=0,
-                   help="disaggregated prefill over a mesh (not yet ported)")
+                   help="with --engine and --mesh: disaggregated prefill on the first N "
+                   "mesh devices (not yet ported: slice 9c)")
     p.add_argument("--service_delay_ms", type=float, default=0.0,
                    help="add this many milliseconds to every service iteration "
                    "(a load-testing hook that makes saturation deterministic)")
@@ -413,9 +549,54 @@ def main(argv=None):
     if flags.listen is None:
         _client(flags, broker_list)
         return
+    world = _mesh_world(flags)
+    if world:
+        import os
+
+        if os.environ.get("RANK", "0") != "0":  # under torchrun: not the Rpc owner
+            _follow_main(flags)
+            return
+        _serve_mesh(flags, world)
+        return
     device = resolve(flags.device)
     telemetry.init_from_env()
     model = make_model(flags, device, torch.Generator().manual_seed(flags.seed))
+    _serve_main(flags, model, device, broker_list)
+
+
+def _serve_mesh(flags, world: int) -> None:
+    """Rank 0 of a tensor-parallel server: spawn ranks 1..N-1 unless
+    ``torchrun`` started them, serve, then release and join them."""
+    import os
+
+    import torch.distributed as dist
+
+    from ..utils.config import Config
+    from .common import spawn_mesh_ranks
+
+    children = []
+    coordinator = None
+    if "RANK" not in os.environ:
+        coordinator, children = spawn_mesh_ranks(
+            "moolib_tpu_torch.examples.lm_serve", Config(vars(flags)), world)
+    try:
+        mesh, model, device = _mesh_rank(flags, coordinator, world,
+                                         None if "RANK" in os.environ else 0)
+        telemetry.init_from_env()
+        _serve_main(flags, model, device, [], mesh=mesh)
+    except BaseException:
+        for c in children:
+            c.kill()
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for c in children:
+        if c.wait(timeout=600) != 0:
+            raise RuntimeError(f"lm_serve: a mesh rank exited with {c.returncode}")
+
+
+def _serve_main(flags, model, device, broker_list, mesh=None) -> None:
     rpc = Rpc()
     rpc.set_name(flags.name)
     rpc.listen(flags.listen)
@@ -439,7 +620,7 @@ def main(argv=None):
             loop = replica.loop()
         else:
             loop = serve(
-                rpc, model, flags.max_new_tokens,
+                rpc, model, flags.max_new_tokens, mesh=mesh,
                 batch_size=flags.batch_size,
                 dynamic_batching=not flags.no_dynamic_batching,
                 warm_seq_len=flags.seq_len,

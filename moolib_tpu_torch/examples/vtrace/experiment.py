@@ -169,8 +169,8 @@ def make_flags(argv=None):
                    help="stream the gradients from the backward's hooks into the "
                    "allreduce bucket by bucket; bit-identical results")
     p.add_argument("--mesh", default=None,
-                   help='learner mesh axes, e.g. "dp=2": one rank process each '
-                   "(spawned by this process, or started by torchrun)")
+                   help='learner mesh axes, e.g. "dp=2" or "dp=2,tp=2": one rank '
+                   "process each (spawned by this process, or started by torchrun)")
     # A flag of the JAX example whose plane the port has not yet;
     # unported() names it and its slice.
     p.add_argument("--actor_mesh", type=int, default=0, help="not yet ported")
@@ -325,44 +325,75 @@ def unported(flags) -> list:
     from ... import parallel
 
     other = [k for k, v in parallel.mesh.parse_axes(flags.get("mesh") or "").items()
-             if k != "dp" and v != 1]
+             if k not in ("dp", "tp") and v != 1]
     if other:
-        out.append((f"--mesh axes {other}", "9d"))
+        out.append((f"--mesh axes {other}", "9e"))
     return out
 
 
 class _MeshLearner:
-    """The rank processes of a ``--mesh dp=N`` learner.  Rank 0 runs the
-    whole loop (actors, Batcher, Accumulator); before each learn, apply or
-    model sync it broadcasts one command, and the other ranks, in
+    """The rank processes of a ``--mesh dp=N[,tp=M]`` learner.  Rank 0 runs
+    the whole loop (actors, Batcher, Accumulator); before each learn, apply
+    or model sync it broadcasts one command, and the other ranks, in
     :meth:`follow`, take the same step with it.  A learn broadcasts the
     learner batch and every rank takes its ``dp`` block; the step reduces
-    the gradients over the mesh into the ``auto_shardings`` layout
-    (fsdp over ``dp`` for big leaves) as ``DTensor``s, which the
-    Accumulator gathers onto rank 0.  The apply broadcasts the cohort
-    mean and every rank runs the same optimizer update (the optimizer's
-    global-norm clip needs the whole gradient)."""
+    the gradients over the mesh into the ``auto_shardings`` layout (fsdp
+    over ``dp`` for big leaves, and ``tp`` on the output features of big
+    kernels) as ``DTensor``s, which the Accumulator gathers onto rank 0.
+    The apply broadcasts the cohort mean and every rank runs the same
+    optimizer update (the optimizer's global-norm clip needs the whole
+    gradient: every rank takes its norm from the broadcast).
+
+    With a ``tp`` axis the learner's network is cut to each rank's ``tp``
+    blocks (``parallel.tensor_parallel``): its convs and ``Dense_0`` compute
+    their own output features.  Ranks 1.. hold only those blocks, and their
+    optimizer state takes the same layout; rank 0 also keeps the whole
+    network and its optimizer state, which its actors, the Accumulator's
+    model sync and the checkpoints read, and refreshes its blocks from it
+    after every update (an elementwise update of a block is the block of
+    the whole update, bit for bit)."""
 
     LEARN, APPLY, STATE_IN, STOP = range(1, 5)
 
     def __init__(self, flags, mesh, model, opt, named, device):
         from ... import parallel
+        from ...parallel import tensor_parallel
 
         self.flags, self.mesh, self.model, self.opt = flags, mesh, model, opt
         self.named, self.device = named, device
-        self.control = common.MeshControl(mesh, device)
+        self.control = common.MeshControl(mesh, device, axes=tuple(mesh.mesh_dim_names))
         self.rank = self.control.rank
-        self._n = parallel.mesh.axis_sizes(mesh)["dp"]
+        sizes = parallel.mesh.axis_sizes(mesh)
+        self._n = sizes.get("dp", 1)
+        self._dp_rank = mesh.get_local_rank("dp") if "dp" in sizes else 0
+        layout = parallel.auto_shardings(named, mesh)
+        self.learner, self.held = model, {}
+        if sizes.get("tp", 1) > 1:
+            import copy
+
+            # Rank 0's actors and Accumulator keep the whole network; the
+            # other ranks keep only their blocks.
+            self.learner = copy.deepcopy(model) if self.rank == 0 else model
+            self.held = tensor_parallel.shard_model(self.learner, mesh, layout)
+            if self.rank != 0:
+                self.named = dict(model.named_parameters())
+                self.opt = make_optimizer(model.parameters(), flags)
+        self.lnamed = dict(self.learner.named_parameters())
         self.step = parallel.make_train_step(
-            lambda p, b, r: compute_loss(b[0], b[1], model, flags), mesh=mesh,
-            grad_spec=parallel.auto_shardings(named, mesh),
-            batch_spec=parallel.PartitionSpec())
+            lambda p, b, r: compute_loss(b[0], b[1], self.learner, flags), mesh=mesh,
+            grad_spec=layout, batch_spec=parallel.PartitionSpec())
 
     def command(self, cmd: int) -> None:
         self.control.send(cmd)
 
     def _block(self, x, dim: int):
-        return x.chunk(self._n, dim=dim)[self.rank].contiguous()
+        return x.chunk(self._n, dim=dim)[self._dp_rank].contiguous()
+
+    def _cut(self, k: str, t):
+        """Leaf ``k`` of a whole tree as this rank's network holds it."""
+        from ...parallel import shard_of
+
+        return shard_of(t, self.held[k]) if k in self.held else t
 
     def learn(self, batch=None, initial_core=None):
         """Returns (loss, aux, grads): this rank's loss on its block and the
@@ -370,29 +401,52 @@ class _MeshLearner:
         core state [B, ...]."""
         from ...parallel import broadcast_tree
 
+        axes = tuple(self.mesh.mesh_dim_names)
         batch, initial_core = broadcast_tree(
-            (batch, initial_core) if self.rank == 0 else None, self.mesh, self.device)
+            (batch, initial_core) if self.rank == 0 else None, self.mesh, self.device,
+            axis_name=axes)
         local = (nest.tree_map(lambda x: self._block(x, 1), batch),
                  nest.tree_map(lambda x: self._block(x, 0), initial_core))
-        return self.step(self.named, local, None)
+        return self.step(self.lnamed, local, None)
 
     def apply(self, grads=None) -> None:
         from ...parallel import broadcast_tree
 
-        grads = broadcast_tree(grads if self.rank == 0 else None, self.mesh, self.device)
+        grads = broadcast_tree(grads if self.rank == 0 else None, self.mesh, self.device,
+                               axis_name=tuple(self.mesh.mesh_dim_names))
+        norm = common.global_norm(list(grads.values()))
         for k, p in self.named.items():
-            p.grad = grads[k]
-        self.opt.step()
+            p.grad = self._cut(k, grads[k]) if self.rank != 0 else grads[k]
+        self.opt.step(global_norm=norm)
+        self._refresh()
+
+    def _refresh(self) -> None:
+        """Rank 0: its learner blocks from the whole network."""
+        if self.learner is self.model:
+            return
+        with torch.no_grad():
+            for k, p in self.lnamed.items():
+                p.copy_(self._cut(k, self.named[k]))
 
     def load_state(self) -> None:
-        """Every rank takes rank 0's parameters and optimizer state."""
+        """Every rank takes rank 0's parameters and optimizer state (its
+        blocks of them where its network is cut)."""
         from ...parallel import broadcast_tree
 
         got = broadcast_tree((self.named, self.opt.state) if self.rank == 0 else None,
-                             self.mesh, self.device)
+                             self.mesh, self.device, axis_name=tuple(self.mesh.mesh_dim_names))
         if self.rank != 0:
-            common.copy_into(self.named, got[0])
-            common.copy_into(self.opt.state, got[1])
+            params = {k: self._cut(k, v) for k, v in got[0].items()}
+            # Same-shaped leaves take the same layout (auto_shardings is
+            # shape-driven): each moment is cut as its parameter is.
+            shape_to_key = {self.learner.tp_full_shapes[k]: k for k in self.held}
+            state = nest.tree_map(
+                lambda t: self._cut(shape_to_key[tuple(t.shape)], t)
+                if isinstance(t, torch.Tensor) and tuple(t.shape) in shape_to_key else t,
+                got[1])
+            common.copy_into(self.named, params)
+            common.copy_into(self.opt.state, state)
+        self._refresh()
 
     def follow(self) -> dict:
         from ...parallel import gather_full
@@ -412,12 +466,20 @@ class _MeshLearner:
         return self._summaries()[self.rank]
 
     def _summaries(self) -> list:
+        """Every rank's summary: the sha256 of its network's parameters (its
+        learner's, blocks included) and of the replicated ones alone."""
         import hashlib
 
-        h = hashlib.sha256()
-        for k in sorted(self.named):
-            h.update(self.named[k].detach().float().cpu().numpy().tobytes())
-        return self.control.gather_objects({"rank": self.rank, "params_sha256": h.hexdigest()})
+        def sha(keys):
+            h = hashlib.sha256()
+            for k in sorted(keys):
+                h.update(self.lnamed[k].detach().float().cpu().numpy().tobytes())
+            return h.hexdigest()
+
+        coords = {a: self.mesh.get_local_rank(a) for a in self.mesh.mesh_dim_names}
+        return self.control.gather_objects({
+            "rank": self.rank, "coords": coords, "params_sha256": sha(self.lnamed),
+            "replicated_sha256": sha([k for k in self.lnamed if k not in self.held])})
 
     def stop(self) -> list:
         """Rank 0: release the other ranks; returns every rank's summary."""
@@ -497,9 +559,10 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
     Returns the run's summary (steps, episodes, sgd_steps, the mean episode
     return, sps, mfu).
 
-    ``--mesh dp=N``: the learner is N rank processes (``_MeshLearner``);
-    started without ``RANK`` this process is rank 0 and spawns the others
-    (``_dist_args``: this rank's ``(coordinator, world, rank)``)."""
+    ``--mesh dp=N[,tp=M]``: the learner is N x M rank processes
+    (``_MeshLearner``); started without ``RANK`` this process is rank 0
+    and spawns the others (``_dist_args``: this rank's ``(coordinator,
+    world, rank)``)."""
     missing = unported(flags)
     if missing:
         raise SystemExit("; ".join(f"{f}: not yet ported (slice {n})" for f, n in missing))

@@ -69,17 +69,24 @@ def max_pool_same(x: torch.Tensor) -> torch.Tensor:
 class Conv(nn.Module):
     """flax ``nn.Conv(features, (3, 3), padding="SAME", dtype=dtype)``: f32
     parameters cast to ``dtype`` at use.  ``kernel`` is torch's [out, in,
-    kh, kw] (the converter transposes flax's [kh, kw, in, out])."""
+    kh, kw] (the converter transposes flax's [kh, kw, in, out]).  Cut over
+    ``tp`` (``parallel.tensor_parallel.shard_model``) it computes its block
+    of output channels and gathers them."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device=None):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(d_out, d_in, 3, 3, device=device))
         self.bias = nn.Parameter(torch.zeros(d_out, device=device))
+        self.tp = None  # cut over tp: the kernel's block of output channels
 
     def forward(self, x):
         kernel = self.kernel.to(self.dtype, memory_format=torch.channels_last)
-        return F.conv2d(x.to(self.dtype), kernel, self.bias.to(self.dtype), padding=1)
+        bias = self.bias.to(self.dtype)
+        if self.tp is None:
+            return F.conv2d(x.to(self.dtype), kernel, bias, padding=1)
+        y = F.conv2d(x.to(self.dtype), kernel, self.tp.local(bias), padding=1)
+        return self.tp.gather(y, 1)
 
 
 class ResidualBlock(nn.Module):

@@ -18,6 +18,12 @@ positions against a shared KV block pool, ``ops.paged_attention``).
   the same flash kernels on a chunk.  Positions (the learned table and
   rotary alike) start at ``sp_rank * T/sp``.
 
+Tensor parallelism over a ``tp`` mesh axis: ``parallel.tensor_parallel.
+shard_model`` cuts the model to a rank's blocks of the ``auto_shardings``
+layout; ``forward``, ``prefill`` and ``decode_step`` then run sharded (each
+cut layer computes its output features and gathers them, attention splits
+by heads), and :func:`sharded_generator` serves through them.
+
 Sparse capacity via ``moe_num_experts > 0``: every ``moe_every``-th block
 swaps its dense FFN for a :class:`..parallel.moe.SwitchMoE` (``ffn_dim``
 4·d, no residual inside), whose experts shard over an ``ep`` mesh axis
@@ -114,7 +120,10 @@ class LayerNorm(nn.Module):
 class Dense(nn.Module):
     """flax ``nn.Dense(dtype=dtype)``: f32 parameters; input, kernel and
     bias are cast to ``dtype`` at use and the output is in ``dtype``.
-    ``kernel`` is [in, out] as in flax."""
+    ``kernel`` is [in, out] as in flax.  Cut over ``tp``
+    (``parallel.tensor_parallel.shard_model``) it holds its block of output
+    features: :meth:`forward_local` computes them, :meth:`forward` gathers
+    them."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device=None):
         super().__init__()
@@ -122,10 +131,18 @@ class Dense(nn.Module):
         self.kernel = nn.Parameter(torch.empty(d_in, d_out, device=device))
         self.bias = nn.Parameter(torch.zeros(d_out, device=device))
         self.cast = None  # (kernel, bias) in dtype, set by cast_weights_once
+        self.tp = None  # parallel.tensor_parallel.TPShard once cut
+
+    def forward_local(self, x):
+        """This rank's output features (all of them when not cut)."""
+        kernel, bias = self.cast or (self.kernel.to(self.dtype), self.bias.to(self.dtype))
+        if self.tp is not None:
+            bias = self.tp.local(bias)
+        return F.linear(x.to(self.dtype), kernel.t(), bias)
 
     def forward(self, x):
-        kernel, bias = self.cast or (self.kernel.to(self.dtype), self.bias.to(self.dtype))
-        return F.linear(x.to(self.dtype), kernel.t(), bias)
+        y = self.forward_local(x)
+        return y if self.tp is None else self.tp.gather(y)
 
 
 class Embed(nn.Module):
@@ -137,10 +154,12 @@ class Embed(nn.Module):
         self.dtype = dtype
         self.embedding = nn.Parameter(torch.empty(num, dim, device=device))
         self.cast = None  # the table in dtype, set by cast_weights_once
+        self.tp = None  # cut over tp: the table's block of features
 
     def forward(self, idx):
         table = self.embedding.to(self.dtype) if self.cast is None else self.cast
-        return F.embedding(idx.long(), table)
+        out = F.embedding(idx.long(), table)
+        return out if self.tp is None else self.tp.gather(out)
 
 
 def weight_casts(model: nn.Module) -> dict:
@@ -190,6 +209,7 @@ class Block(nn.Module):
         self.d_model, self.num_heads, self.attention = d_model, num_heads, attention
         self.dtype, self.rotary = dtype, rotary
         self.num_kv_heads = num_kv_heads or num_heads
+        self.tp = None  # parallel.tensor_parallel.TPShard of a cut model
         if num_heads % self.num_kv_heads:
             raise ValueError(
                 f"num_heads={num_heads} must be divisible by num_kv_heads={self.num_kv_heads}"
@@ -218,16 +238,39 @@ class Block(nn.Module):
         return qkv[:, :, :H], qkv[:, :, H : H + Hk], qkv[:, :, H + Hk :]
 
     def _finish(self, x, att, mesh=None):
-        """The projection and the FFN: ``(x, moe aux loss or None)``."""
+        """The projection and the FFN: ``(x, moe aux loss or None)``.
+        ``att`` is this rank's heads' output (every head's unless the heads
+        split over ``tp``)."""
         B, T, D = x.shape
-        x = x + self.proj(att.reshape(B, T, D))
+        att = att.reshape(B, T, -1)
+        if self.head_split() is not None:
+            att = self.tp.gather(att)
+        x = x + self.proj(att)
         y = self.LayerNorm_1(x)
         if self.moe is not None:
             y, aux = self.moe(y, mesh)
             return x + y, aux
-        y = self.Dense_0(y)
-        y = self.Dense_1(gelu(y))
+        # GELU on the local features of a cut Dense_0, then one gather.
+        y = gelu(self.Dense_0.forward_local(y))
+        if self.Dense_0.tp is not None:
+            y = self.Dense_0.tp.gather(y)
+        y = self.Dense_1(y)
         return x + y, None
+
+    def head_split(self) -> Optional[Tuple[slice, slice]]:
+        """This rank's ``(query heads, KV heads)`` where the heads split over
+        ``tp`` (both counts multiples of its size), else None."""
+        tp = self.tp
+        if tp is None or self.num_heads % tp.n or self.num_kv_heads % tp.n:
+            return None
+        hq, hk = self.num_heads // tp.n, self.num_kv_heads // tp.n
+        return slice(tp.rank * hq, (tp.rank + 1) * hq), slice(tp.rank * hk, (tp.rank + 1) * hk)
+
+    def _local_heads(self, q, k, v):
+        split = self.head_split()
+        if split is None:
+            return q, k, v
+        return q[:, :, split[0]], k[:, :, split[1]], v[:, :, split[1]]
 
     def _attend(self, x, q, k, v, mesh=None, prefill: bool = False):
         group = self.num_heads // self.num_kv_heads
@@ -256,7 +299,7 @@ class Block(nn.Module):
         return self._finish(x, att, mesh)
 
     def _qkv_positions(self, x, offset=0):
-        q, k, v = self._qkv(x)
+        q, k, v = self._local_heads(*self._qkv(x))
         if self.rotary:
             q, k = apply_rotary(q, offset=offset), apply_rotary(k, offset=offset)
         return q, k, v
@@ -273,19 +316,21 @@ class Block(nn.Module):
 
     def prefill(self, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Full-sequence pass that also returns ``(x, k, v)`` with the
-        block's K/V in ``dtype`` at Hk heads — what seeds the decode cache."""
+        block's K/V in ``dtype`` at Hk heads (this rank's Hk/tp where the
+        heads split over ``tp``) — what seeds the decode cache."""
         q, k, v = self._qkv_positions(x)
         return self._attend(x, q, k, v, prefill=True)[0], k.to(self.dtype), v.to(self.dtype)
 
     def decode(self, x, cache_k, cache_v, t: int):
         """One-token step against the dense KV cache: writes this position's
-        K/V into ``cache_k``/``cache_v`` ([B, max_len, Hk, hd]) at ``t`` in
-        place, then attends over positions ``<= t``."""
+        K/V into ``cache_k``/``cache_v`` ([B, max_len, Hk, hd], this rank's
+        heads under a ``tp`` split) at ``t`` in place, then attends over
+        positions ``<= t``."""
         from ..ops.paged_attention import gathered_decode_attention
 
         if x.shape[1] != 1:
             raise ValueError(f"decode mode steps one token at a time, got T={x.shape[1]}")
-        q, k, v = self._qkv(x)
+        q, k, v = self._local_heads(*self._qkv(x))
         if self.rotary:
             q, k = apply_rotary(q, offset=t), apply_rotary(k, offset=t)
         cache_k[:, t] = k[:, 0].to(cache_k.dtype)
@@ -366,6 +411,7 @@ class TransformerLM(nn.Module):
         # the pools belong to the serving engine, which sizes them from these
         # two fields unless it is told otherwise.
         self.kv_num_blocks, self.kv_block_size = kv_num_blocks, kv_block_size
+        self.tp = None  # set when parallel.tensor_parallel.shard_model cuts the model
         self.embed = Embed(vocab_size, d_model, dtype, dev)
         self.pos = Embed(max_len, d_model, dtype, dev) if pos_embedding == "learned" else None
         self.blocks = nn.ModuleList(
@@ -386,6 +432,13 @@ class TransformerLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.embedding.device
+
+    def cache_kv_heads(self) -> int:
+        """KV heads of this rank's decode cache: Hk, or Hk/tp where a cut
+        model's heads split over ``tp``."""
+        hk = self.num_kv_heads or self.num_heads
+        split = self.blocks[0].head_split() if len(self.blocks) else None
+        return hk if split is None else split[1].stop - split[1].start
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -549,7 +602,7 @@ def generate(
         logits, kvs = model.prefill(tokens)
         last = logits[:, -1]
         L = model.num_layers
-        Hk = model.num_kv_heads or model.num_heads
+        Hk = model.cache_kv_heads()
         hd = model.d_model // model.num_heads
         cache_k = torch.zeros(L, B, model.max_len, Hk, hd, dtype=model.dtype, device=dev)
         cache_v = torch.zeros_like(cache_k)
@@ -572,8 +625,53 @@ def generate(
         return torch.cat([tokens, torch.stack(new, dim=1).to(tokens.dtype)], dim=1)
 
 
-def sharded_generator(*args, **kwargs):
-    raise NotImplementedError("tensor-parallel generation is not yet ported (slice 9d)")
+def sharded_generator(
+    model: TransformerLM,
+    max_new_tokens: int,
+    mesh,
+    params_sharding=None,
+    temperature: float = 0.0,
+    sample: bool = False,
+):
+    """A reusable tensor-parallel :func:`generate` over ``mesh`` (the JAX
+    package's ``sharded_generator``, per rank): the model is cut to this
+    rank's ``tp`` blocks (``parallel.tensor_parallel.shard_model``, once;
+    its weights come in whole, from ``models.convert.from_flax`` or a
+    checkpoint), so a rank holds ~1/tp of the big kernels and a model
+    larger than one card's memory serves.  ``params_sharding`` defaults to
+    ``parallel.auto_shardings``, the layout the training step uses.  Each
+    block's prefill attends this rank's heads through the flash kernel
+    and the decode cache holds them (the JAX package's "heads follow the
+    attention kernels' TP axis").  The prompt and the output are
+    replicated: every rank of the mesh calls the returned function with
+    the same prompt, in the same order.
+
+    Returns ``fn(prompt)`` (greedy) or, with ``sample=True``, ``fn(prompt,
+    generator)`` (softmax sampling at ``temperature``; every rank passes a
+    generator in the same state, so each draws the same tokens from the
+    same gathered logits)."""
+    from ..parallel.tensor_parallel import shard_model
+
+    shard_model(model, mesh, params_sharding)
+    if sample:
+        return lambda prompt, generator: generate(model, prompt, max_new_tokens,
+                                                  temperature, generator)
+    return lambda prompt: generate(model, prompt, max_new_tokens, temperature)
+
+
+def generate_sharded(
+    model: TransformerLM,
+    prompt: torch.Tensor,
+    max_new_tokens: int,
+    mesh,
+    params_sharding=None,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """One-shot form of :func:`sharded_generator`."""
+    fn = sharded_generator(model, max_new_tokens, mesh, params_sharding, temperature,
+                           sample=generator is not None)
+    return fn(prompt, generator) if generator is not None else fn(prompt)
 
 
 def pipeline_lm_apply(

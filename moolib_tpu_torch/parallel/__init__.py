@@ -1,11 +1,12 @@
 """Parallelism over ranks: meshes, collectives, the sharded train step,
-ring attention over ``sp``, Switch MoE over ``ep`` and the GPipe/circular
+tensor parallelism over ``tp`` (``parallel.tensor_parallel``), ring
+attention over ``sp``, Switch MoE over ``ep`` and the GPipe/circular
 pipeline over ``pp``.
 
 A mesh is a ``torch.distributed`` ``DeviceMesh`` over processes, one per
 rank; the elastic RPC stack (broker/group/accumulator) is the inter-host
-plane around it.  A ``tp`` axis comes with ROADMAP slice 9d, the Sebulba
-actor/learner split with slice 9c.  ``parallel.ring_attention`` stays the
+plane around it.  The Sebulba actor/learner split comes with ROADMAP
+slice 9c.  ``parallel.ring_attention`` stays the
 module (its functions are not re-exported here, where the JAX package
 re-exports them), so ``from moolib_tpu_torch.parallel import
 ring_attention`` keeps giving the module it gave before the ring came.

@@ -307,19 +307,79 @@ def reduce_scatter_axis(x: torch.Tensor, axis_name: str, mesh, axis: int = 0) ->
     return out.movedim(0, axis)
 
 
+def _shard_dims(sharding: Optional[NamedSharding]) -> list:
+    """``(axis name, tensor dim)`` for every mesh axis a sharding shards
+    over (empty when replicated or None)."""
+    return [] if sharding is None else sharding.hits()
+
+
 def _shard_dim(sharding: Optional[NamedSharding]):
-    """``(axis name, tensor dim)`` of a sharding's one sharded dim, or None
-    when replicated.  A tensor sharded over two mesh axes comes with the
-    model-parallel slice."""
-    if sharding is None:
-        return None
-    hits = [(s, d) for d, s in enumerate(sharding.spec) if s is not None]
+    """``(axis name, tensor dim)`` of a sharding over one mesh axis, or None
+    when replicated.  A sharding over several axes (``P("dp", "tp")``) has
+    no single one: callers test :func:`_multi` first."""
+    hits = _shard_dims(sharding)
     if not hits:
         return None
-    if len(hits) > 1 or isinstance(hits[0][0], tuple):
-        raise NotImplementedError("a tensor sharded over several mesh axes: "
-                                  "not yet ported (slice 9d)")
+    if len(hits) > 1:
+        raise ValueError(f"{sharding!r} shards over {len(hits)} mesh axes")
     return hits[0]
+
+
+def _multi(sharding: Optional[NamedSharding]) -> bool:
+    return len(_shard_dims(sharding)) > 1
+
+
+def _block_index(sharding: NamedSharding, coords: dict) -> dict:
+    """``{tensor dim: (block index, block count)}`` of the rank at mesh
+    ``coords`` (a dim sharded over a tuple of axes: the first axis major)."""
+    sizes = axis_sizes(sharding.mesh)
+    out: dict = {}
+    for name, d in sharding.hits():
+        i, n = out.get(d, (0, 1))
+        out[d] = (i * sizes[name] + coords[name], n * sizes[name])
+    return out
+
+
+def _mesh_blocks(local: List[torch.Tensor], shardings, shapes, dst: Optional[int]):
+    """The whole tensors of ``local`` blocks sharded over any mesh axes,
+    assembled from every rank of the mesh: one gather (``dst`` a mesh rank)
+    or all-gather (``dst`` None) of the blocks packed flat per dtype over the
+    whole mesh's group.  Returns the list of whole tensors where they land
+    (None elsewhere)."""
+    mesh = shardings[0].mesh
+    group, coords = axes_group(mesh, tuple(mesh.mesh_dim_names))
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    out: List[Optional[torch.Tensor]] = [None] * len(local)
+    for _, idx in _groups(range(len(local)), lambda i: local[i].dtype):
+        like = local[idx[0]]
+        src = torch.cat([local[i].detach().reshape(-1) for i in idx])
+        staged = _on_host_backend(src, group)
+        if staged:
+            src = _to_host(src)
+        if dst is None:
+            flat = torch.empty(n * src.numel(), dtype=src.dtype, device=src.device)
+            dist.all_gather_into_tensor(flat, src, group=group)
+            parts = list(flat.chunk(n))
+        else:
+            parts = [torch.empty_like(src) for _ in range(n)] if me == dst else None
+            dist.gather(src, parts, dst=dist.get_global_rank(group, dst), group=group)
+            if me != dst:
+                continue
+        if staged:
+            parts = [_back(p, like) for p in parts]
+        for r, part in enumerate(parts):
+            off = 0
+            for i in idx:
+                k = local[i].numel()
+                if out[i] is None:
+                    out[i] = torch.empty(tuple(shapes[i]), dtype=like.dtype, device=like.device)
+                view = out[i]
+                for d, (b, cnt) in _block_index(shardings[i], coords[r]).items():
+                    view = view.narrow(d, b * (shapes[i][d] // cnt), shapes[i][d] // cnt)
+                view.copy_(part[off:off + k].view(local[i].shape))
+                off += k
+    return out
 
 
 def _dtensor(local: torch.Tensor, sharding: NamedSharding, shape, stride=None):
@@ -338,14 +398,10 @@ def _dtensor(local: torch.Tensor, sharding: NamedSharding, shape, stride=None):
 def shard_of(x: torch.Tensor, sharding: Optional[NamedSharding]) -> torch.Tensor:
     """This rank's block of a full tensor ``x`` under ``sharding`` (a view;
     the whole of ``x`` when replicated)."""
-    hit = _shard_dim(sharding)
-    if hit is None:
-        return x
-    name, d = hit
-    mesh = sharding.mesh
-    n = axis_sizes(mesh)[name]
-    i = mesh.get_local_rank(name)
-    return x.chunk(n, dim=d)[i]
+    for name, d in _shard_dims(sharding):
+        mesh = sharding.mesh
+        x = x.chunk(axis_sizes(mesh)[name], dim=d)[mesh.get_local_rank(name)]
+    return x
 
 
 def _block_shape(t: torch.Tensor, d: int, n: int):
@@ -398,7 +454,8 @@ def redistribute(tree: Any, shardings: Any, block: bool = False) -> Any:
     replicated full values); ``shardings`` is a tree of
     :class:`NamedSharding` matching ``tree`` or one broadcast to every
     leaf.  Returns ``DTensor``s in the target layout: the leaves a sharded
-    layout leaves gather in one all-gather per axis and dtype, a replicated
+    layout leaves gather in one all-gather per axis and dtype (over the
+    whole mesh for a leaf sharded over several axes), a replicated
     leaf that becomes sharded keeps its local block, nothing moves where
     the layout holds.  With ``block=True`` the call waits for the card, so
     the recorded time covers the copies.  Host time lands in
@@ -411,9 +468,19 @@ def redistribute(tree: Any, shardings: Any, block: bool = False) -> Any:
     with _M_PSUM.time(), telemetry.timeline.comm_span("parallel.redistribute"):
         curs = [sharding_of(x) for x in leaves]
         local = [x.to_local() if isinstance(x, DTensor) else x for x in leaves]
-        have = [_shard_dim(c) for c in curs]
+        # Leaves sharded over several axes, or to become so, assemble whole
+        # from the whole mesh; the rest move along their one axis.
+        multi = [i for i in range(len(leaves)) if (_multi(curs[i]) or _multi(targets[i]))
+                 and _shard_dims(curs[i]) != _shard_dims(targets[i]) and curs[i] is not None]
+        if multi:
+            wholes = _mesh_blocks([local[i] for i in multi], [curs[i] for i in multi],
+                                  [tuple(leaves[i].shape) for i in multi], None)
+            for i, whole in zip(multi, wholes):
+                local[i] = whole
+        have = [None if i in multi else _shard_dim(c) for i, c in enumerate(curs)]
         moving = [i for i in range(len(leaves))
-                  if have[i] is not None and have[i] != _shard_dim(targets[i])]
+                  if have[i] is not None and have[i] != (None if _multi(targets[i])
+                                                         else _shard_dim(targets[i]))]
         for (_, name, _), idx in _groups(moving, lambda i: (id(curs[i].mesh), have[i][0],
                                                             local[i].dtype)):
             group = _group(curs[idx[0]].mesh, name)
@@ -444,16 +511,29 @@ def redistribute(tree: Any, shardings: Any, block: bool = False) -> Any:
 
 def gather_full(tree: Any, dst: int = 0) -> Optional[Any]:
     """Every ``DTensor`` leaf of ``tree`` in full on mesh rank ``dst``: one
-    gather per mesh axis and dtype of the sharded leaves' blocks.  Every
-    rank of the mesh calls it with its own tree (same structure); rank
-    ``dst`` gets the tree of full tensors, the others None.  Replicated
-    DTensors give their local value, plain leaves pass through."""
+    gather per mesh axis and dtype of the sharded leaves' blocks, or, when
+    a leaf is sharded over several axes (``P("dp", "tp")``), one gather per
+    dtype of every sharded leaf's block over the whole mesh.  Every rank of
+    the mesh calls it with its own tree (same structure); rank ``dst`` gets
+    the tree of full tensors, the others None.  Replicated DTensors give
+    their local value, plain leaves pass through."""
     from torch.distributed.tensor import DTensor
 
     leaves, treedef = nest.tree_flatten(tree)
     out = [x.to_local() if isinstance(x, DTensor) else x for x in leaves]
     shs = [sharding_of(x) for x in leaves]
-    sharded = [i for i, sh in enumerate(shs) if _shard_dim(sh) is not None]
+    sharded = [i for i, sh in enumerate(shs) if _shard_dims(sh)]
+    if any(_multi(shs[i]) for i in sharded):
+        # A leaf sharded over several axes: every sharded leaf assembles
+        # from the whole mesh onto its rank ``dst``.
+        group, _ = axes_group(shs[sharded[0]].mesh, tuple(shs[sharded[0]].mesh.mesh_dim_names))
+        wholes = _mesh_blocks([out[i] for i in sharded], [shs[i] for i in sharded],
+                              [tuple(leaves[i].shape) for i in sharded], dst)
+        if dist.get_rank(group) != dst:
+            return None
+        for i, whole in zip(sharded, wholes):
+            out[i] = whole
+        return treedef.unflatten(out)
     on_dst = True
     for (_, name, _), idx in _groups(sharded, lambda i: (id(shs[i].mesh), _shard_dim(shs[i])[0],
                                                          out[i].dtype)):
@@ -488,12 +568,22 @@ def scatter_shards(full: Optional[Any], template: Any, shardings: Sequence, mesh
     ``shardings`` the flat list of per-leaf :class:`NamedSharding` (None:
     replicated, broadcast whole over ``axis_name``).  One scatter per axis
     and dtype for the sharded leaves, one broadcast per dtype for the
-    replicated ones.  Returns the flat list of blocks."""
+    replicated ones; leaves sharded over several axes are broadcast whole
+    over the mesh and cut.  Returns the flat list of blocks."""
     tleaves = nest.tree_leaves(template)
     fleaves = nest.tree_leaves(full) if full is not None else [None] * len(tleaves)
-    hits = [_shard_dim(sh) for sh in shardings]
     out: List[Optional[torch.Tensor]] = [None] * len(tleaves)
-    for (name, _), idx in _groups(range(len(tleaves)), lambda i: (
+    multi = [i for i, sh in enumerate(shardings) if _multi(sh)]
+    if multi:
+        # Leaves sharded over several axes: broadcast whole over the whole
+        # mesh, each rank keeps its block.
+        whole = broadcast_tree({str(i): fleaves[i] for i in multi} if full is not None
+                               else None, mesh, tleaves[multi[0]].device,
+                               axis_name=tuple(mesh.mesh_dim_names), src=src)
+        for i in multi:
+            out[i] = shard_of(whole[str(i)], shardings[i])
+    hits = [None if i in multi else _shard_dim(sh) for i, sh in enumerate(shardings)]
+    for (name, _), idx in _groups([i for i in range(len(tleaves)) if i not in multi], lambda i: (
             hits[i][0] if hits[i] is not None else None, tleaves[i].dtype)):
         group = _group(mesh, name if name is not None else axis_name)
         me = dist.get_rank(group)
@@ -545,10 +635,12 @@ class _LeafSpec:
 def broadcast_tree(tree: Optional[Any], mesh, device, axis_name: str = "dp",
                    src: int = 0) -> Any:
     """The tree of tensors that mesh rank ``src`` holds, on every rank of
-    the axis (the others pass None; their copies land on ``device``).  The
+    the axis, or of the axes when ``axis_name`` is a tuple (the others pass
+    None; their copies land on ``device``).  The
     structure, shapes and dtypes travel first as one pickled object, then
     one broadcast per dtype of the leaves packed flat."""
-    group = _group(mesh, axis_name)
+    group = (axes_group(mesh, axis_name)[0] if isinstance(axis_name, tuple)
+             else _group(mesh, axis_name))
     me = dist.get_rank(group)
     root = dist.get_global_rank(group, src)
     spec = [nest.tree_map(lambda x: _LeafSpec(x.shape, x.dtype), tree) if me == src else None]

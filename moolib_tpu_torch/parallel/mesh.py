@@ -11,9 +11,16 @@ The axis convention is the JAX package's:
 - ``sp``: sequence/context parallel (time axis sharded; ring attention)
 - ``ep``: expert parallel (MoE experts sharded)
 
-``dp``, ``sp`` (``parallel.ring_attention``), ``ep`` (``parallel.moe``)
-and ``pp`` (``parallel.pipeline``) have their meaning in the port; ``tp``
-comes with ROADMAP slice 9d.
+``dp``, ``tp`` (``parallel.tensor_parallel``), ``sp``
+(``parallel.ring_attention``), ``ep`` (``parallel.moe``) and ``pp``
+(``parallel.pipeline``) have their meaning in the port.
+
+A :class:`NamedSharding` reads as the JAX package's sharding of the flax
+leaf.  Where the port stores a leaf in torch's own layout (ImpalaNet's conv
+kernels, ``[out, in, kh, kw]`` against flax's ``[kh, kw, in, out]``), the
+sharding carries ``dims``: the tensor dim each spec entry describes.  So
+the spec prints, and ``buckets.sharding_signature`` counts, in flax's
+order, while the ``DTensor`` placements shard the torch dims.
 
 Call :func:`initialize_distributed` first.  It picks the backend
 explicitly: gloo on the CPU and wherever ranks share a card (NCCL refuses
@@ -68,44 +75,79 @@ def axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
+# The port's 4-D leaves are conv kernels in torch's [out, in, kh, kw]; flax
+# holds them as [kh, kw, in, out]: flax dim j is torch dim CONV_FLAX_DIMS[j].
+CONV_FLAX_DIMS = (2, 3, 1, 0)
+
+
+def layout_dims(shape) -> Optional[Tuple[int, ...]]:
+    """The tensor dim of each flax dim for a port leaf of ``shape`` stored
+    in torch's own layout (a conv kernel), or None where the two agree."""
+    return CONV_FLAX_DIMS if len(shape) == 4 else None
+
+
+def flax_shape(shape) -> Tuple[int, ...]:
+    """``shape`` in the flax leaf's order."""
+    dims = layout_dims(shape)
+    return tuple(shape) if dims is None else tuple(shape[d] for d in dims)
+
+
 class NamedSharding:
     """``jax.sharding.NamedSharding``: a mesh and a :class:`PartitionSpec`.
     The port's sharded tensors are ``DTensor``s; this object names the
     layout one should have (``param_shardings``, ``redistribute``) and
-    answers ``shard_shape`` as the JAX class does."""
+    answers ``shard_shape`` as the JAX class does.  ``dims`` (None: the
+    identity) names the tensor dim each spec entry describes, for a leaf
+    the port stores in another order than flax (see the module
+    docstring)."""
 
-    __slots__ = ("mesh", "spec")
+    __slots__ = ("mesh", "spec", "dims")
 
-    def __init__(self, mesh, spec=PartitionSpec()):
+    def __init__(self, mesh, spec=PartitionSpec(), dims: Optional[Sequence[int]] = None):
         self.mesh = mesh
         self.spec = spec if isinstance(spec, PartitionSpec) else PartitionSpec(*spec)
+        self.dims = tuple(dims) if dims is not None else None
+
+    def _dim(self, j: int) -> int:
+        return j if self.dims is None else self.dims[j]
+
+    def hits(self) -> list:
+        """``(axis name, tensor dim)`` for every mesh axis the spec names,
+        in spec order (a dim sharded over a tuple of axes gives one pair
+        per axis, outermost first)."""
+        out = []
+        for j, s in enumerate(self.spec):
+            for name in (() if s is None else (s if isinstance(s, tuple) else (s,))):
+                out.append((name, self._dim(j)))
+        return out
 
     def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The block shape of a tensor of ``shape`` (the tensor's own
+        order)."""
         sizes = axis_sizes(self.mesh)
-        out = []
-        for i, d in enumerate(shape):
-            name = self.spec[i] if i < len(self.spec) else None
-            names = () if name is None else (name if isinstance(name, tuple) else (name,))
-            out.append(int(d) // math.prod(sizes[n] for n in names))
+        out = [int(d) for d in shape]
+        for name, d in self.hits():
+            out[d] //= sizes[name]
         return tuple(out)
+
+    def spec_order(self, seq: Sequence) -> tuple:
+        """A per-tensor-dim sequence in spec (flax) order."""
+        return tuple(seq) if self.dims is None else tuple(seq[d] for d in self.dims)
 
     def placements(self):
         """The ``DTensor`` placements of this sharding, one per mesh dim."""
         from torch.distributed.tensor import Replicate, Shard
 
-        out = []
-        for name in axis_sizes(self.mesh):
-            dims = [i for i, s in enumerate(self.spec)
-                    if s == name or (isinstance(s, tuple) and name in s)]
-            out.append(Shard(dims[0]) if dims else Replicate())
-        return out
+        where = dict(self.hits())
+        return [Shard(where[name]) if name in where else Replicate()
+                for name in axis_sizes(self.mesh)]
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, NamedSharding) and self.mesh == other.mesh
-                and tuple(self.spec) == tuple(other.spec))
+                and tuple(self.spec) == tuple(other.spec) and self.dims == other.dims)
 
     def __hash__(self) -> int:
-        return hash((id(self.mesh), tuple(self.spec)))
+        return hash((id(self.mesh), tuple(self.spec), self.dims))
 
     def __repr__(self) -> str:
         return f"NamedSharding({axis_sizes(self.mesh)}, {self.spec!r})"
@@ -113,7 +155,8 @@ class NamedSharding:
 
 def sharding_of(x) -> Optional[NamedSharding]:
     """The :class:`NamedSharding` of a ``DTensor`` (from its placements), or
-    ``None`` for a plain tensor or array (JAX: ``x.sharding``)."""
+    ``None`` for a plain tensor or array (JAX: ``x.sharding``).  A conv
+    kernel's spec reads in flax's order (:func:`layout_dims`)."""
     from torch.distributed.tensor import DTensor, Shard
 
     if not isinstance(x, DTensor):
@@ -125,7 +168,10 @@ def sharding_of(x) -> Optional[NamedSharding]:
             d = pl.dim % x.ndim
             spec[d] = name if spec[d] is None else (
                 (spec[d] if isinstance(spec[d], tuple) else (spec[d],)) + (name,))
-    return NamedSharding(mesh, PartitionSpec(*spec))
+    dims = layout_dims(x.shape)
+    if dims is not None:
+        spec = [spec[d] for d in dims]
+    return NamedSharding(mesh, PartitionSpec(*spec), dims)
 
 
 def choose_backend(device: torch.device, ranks_per_host: int) -> str:

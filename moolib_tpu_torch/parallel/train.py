@@ -27,19 +27,31 @@ jits at ``overlap_cut``; the hooks need no cut, so ``overlap_cut`` is
 accepted and has no effect.
 
 The step with an optimizer (:func:`_optimizer_step`) serves every static
-mesh: ``dp`` alone, and the model-parallel axes ``sp``, ``ep`` and ``pp``,
-whose collectives run inside ``loss_fn`` (ring attention, the MoE combine,
-the pipeline) under the gradient convention of ``parallel.collectives``.
-``batch_spec`` names the axes that shard the tokens (``P("dp", None)``,
-``P("dp", "sp")`` for a ring LM); the other axes hold replicas of them.
-``loss_fn`` returns this rank's local loss, whose mean over the token shards
-is the global loss (equal on ranks that hold the same tokens); the step
-weighs it by one over the replica count before the backward, sums each
-leaf's gradient over the axes that hold a replica of it (replicated leaves:
-every axis; ``ep``-sharded experts: every axis but ``ep``) and divides by
-the token shards.  The loss and the aux it returns are the
-global ones.  A ``tp`` axis and model parallelism inside the elastic
-cohort (``grad_spec=``, ``overlap_grads=``) are not yet ported (slice 9d).
+mesh: ``dp`` alone, and the model-parallel axes ``tp``, ``sp``, ``ep`` and
+``pp``, whose collectives run inside ``loss_fn`` (the tensor-parallel
+gathers, ring attention, the MoE combine, the pipeline) under the gradient
+convention of ``parallel.collectives``.  ``batch_spec`` names the axes that
+shard the tokens (``P("dp", None)``, ``P("dp", "sp")`` for a ring LM); the
+other axes hold replicas of them.  ``loss_fn`` returns this rank's local
+loss, whose mean over the token shards is the global loss (equal on ranks
+that hold the same tokens); the step weighs it by one over the replica
+count before the backward, sums each leaf's gradient over the axes that
+hold a replica of it and divides by the token shards.  A leaf's held axes
+are those its parameter is cut over: ``tp`` for the blocks
+``parallel.tensor_parallel.shard_model`` cut (tagged on the parameter),
+``ep`` for experts (``params_sharding``); ``dp`` in ``params_sharding`` is
+FSDP's gradient layout and cuts no parameter.  So replicated leaves are
+summed over every axis, ``tp`` blocks over every axis but ``tp``, experts
+over every axis but ``ep``.  The loss and the aux it returns are the global
+ones.
+
+``grad_spec=`` on a ``dp`` x ``tp`` mesh (the vtrace learner's
+``--mesh dp=N,tp=M``) reduces the same way into the ``auto_shardings``
+layout: a leaf sharded over ``dp`` and ``tp`` comes back as a ``DTensor``
+with two ``Shard`` placements.  Other model-parallel axes inside the
+elastic cohort (``grad_spec=`` with ``sp``/``ep``/``pp``, and
+``overlap_grads=`` on any model-parallel axis) are not yet ported
+(slice 9e).
 """
 
 from __future__ import annotations
@@ -55,9 +67,10 @@ import torch
 from .. import buckets, telemetry
 from ..telemetry import devmon
 from ..utils import nest
-from .collectives import (_all_reduce, _dtensor, _groups, _pack, _shard_dim, _unpack_block,
-                          gather_full, reduce_scatter_axis)
-from .mesh import NamedSharding, PartitionSpec as P, axis_sizes, replicated
+from .collectives import (_all_reduce, _dtensor, _groups, _pack, _unpack_block, axes_group,
+                          gather_full, reduce_scatter_axis, shard_of)
+from .mesh import (NamedSharding, PartitionSpec as P, axis_sizes, flax_shape, layout_dims,
+                   replicated)
 
 _REG = telemetry.get_registry()
 _M_STEPS = _REG.counter("train_steps_total", "train-step invocations")
@@ -101,6 +114,18 @@ def _spec_axes(spec) -> set:
     return out
 
 
+def _held_axes(p, sharding) -> set:
+    """The mesh axes parameter ``p`` is cut over: its ``tp`` tag from
+    ``shard_model``, else ``sharding``'s axes but ``dp`` (FSDP's gradient
+    layout) and ``tp`` (a leaf ``shard_model`` left whole)."""
+    from .tensor_parallel import held_sharding
+
+    tag = held_sharding(p)
+    if tag is not None:
+        return _spec_axes(tag.spec)
+    return _spec_axes(sharding.spec if sharding is not None else ()) - {"dp", "tp"}
+
+
 def _optimizer_step(loss_fn, optimizer, mesh, params_sharding, batch_spec):
     """The step with an optimizer, on any mesh or none (see the module
     docstring): ``step(params, opt_state, batch, rng) -> (params,
@@ -108,8 +133,6 @@ def _optimizer_step(loss_fn, optimizer, mesh, params_sharding, batch_spec):
     ``step.grads(params, batch, rng) -> (loss, aux)`` runs the same forward,
     backward and reduction and leaves the reduced gradients in the leaves'
     ``.grad``, without the update (a warm-up or a probe)."""
-    from .collectives import axes_group
-
     sizes = axis_sizes(mesh) if mesh is not None else {}
     live = [a for a, n in sizes.items() if n > 1]
     tok_axes = [a for a in live if a in _spec_axes(batch_spec)]
@@ -125,8 +148,8 @@ def _optimizer_step(loss_fn, optimizer, mesh, params_sharding, batch_spec):
                 shs = [None] * len(leaves)
             else:
                 shs = nest.tree_leaves(params_sharding)
-            resolved["axes"] = [tuple(a for a in live if a not in _spec_axes(
-                sh.spec if sh is not None else ())) for sh in shs]
+            resolved["axes"] = [tuple(a for a in live if a not in _held_axes(p, sh))
+                                for p, sh in zip(leaves, shs)]
         return resolved["axes"]
 
     def global_mean(x):
@@ -200,22 +223,31 @@ def param_shardings(params, mesh, mode: str = "replicated", axis: str = "dp"):
 
 def auto_shardings(params, mesh, tp_axis: str = "tp", dp_axis: str = "dp",
                    tp_min: int = 16, fsdp_min: int = 2**12):
-    """The ``dp`` half of the JAX package's TP+FSDP composition: FSDP over
-    ``dp`` on the largest divisible axis of leaves of ``fsdp_min`` elements
-    or more.  A ``tp`` axis comes with slice 9d."""
+    """The JAX package's TP+FSDP composition on one mesh, leaf for leaf:
+    ``tp`` on the last axis of every kernel of two or more dims (its output
+    features) when that axis is at least ``tp_min`` and the ``tp`` size
+    divides it, then FSDP over ``dp`` on the largest remaining divisible
+    axis of leaves of ``fsdp_min`` elements or more.  Decided on the flax
+    leaf's shape: a conv kernel the port holds as ``[out, in, kh, kw]``
+    gets flax's spec (``tp`` on ``out``) with the torch dims in ``dims``
+    (``mesh.layout_dims``).  ``parallel.tensor_parallel.shard_model`` cuts
+    a model to this layout's ``tp`` blocks; ``dp`` stays a layout of the
+    reduced gradients (parameters are whole over ``dp``)."""
     sizes = axis_sizes(mesh)
-    if sizes.get(tp_axis, 1) > 1:
-        raise NotImplementedError("auto_shardings over a tp axis: not yet ported (slice 9d)")
+    has_tp = sizes.get(tp_axis, 1) > 1
     has_dp = sizes.get(dp_axis, 1) > 1
 
     def spec_of(x):
-        shape = tuple(x.shape)
+        shape = flax_shape(tuple(x.shape))
         spec = [None] * len(shape)
+        if has_tp and len(shape) >= 2 and shape[-1] >= tp_min and shape[-1] % sizes[tp_axis] == 0:
+            spec[-1] = tp_axis
         if has_dp and int(np.prod(shape)) >= fsdp_min:
-            cand = max(range(len(shape)), key=lambda d: shape[d], default=None)
+            cand = max((d for d in range(len(shape)) if spec[d] is None),
+                       key=lambda d: shape[d], default=None)
             if cand is not None and shape[cand] % sizes[dp_axis] == 0:
                 spec[cand] = dp_axis
-        return NamedSharding(mesh, P(*spec))
+        return NamedSharding(mesh, P(*spec), layout_dims(tuple(x.shape)))
 
     return nest.tree_map(spec_of, params)
 
@@ -233,30 +265,70 @@ def _slice_batch(batch, mesh, spec: P):
     return nest.tree_map(take, batch)
 
 
-def _reduce_leaves(grads: List[torch.Tensor], shardings: List[NamedSharding], n: int) -> list:
-    """The dp-mean of gradient leaves, each in its sharding's layout, as
-    DTensors: one reduce-scatter of the sharded leaves' blocks packed
-    rank-major (each rank keeps its block of every leaf), one all-reduce
-    of the replicated leaves, per dtype."""
+def _reduce_leaves(grads: List[torch.Tensor], shardings: List[NamedSharding], n: int,
+                   helds: Optional[List[set]] = None) -> list:
+    """The dp-mean of gradient leaves, each in its target sharding's layout,
+    as DTensors.  ``grads`` are the leaves' local gradients: whole, or the
+    block of the axes ``helds[i]`` their parameter is cut over (a ``tp``
+    block), which must be among the target's.  Per leaf: one all-reduce
+    over the axes that hold a replica of it and that the target does not
+    scatter; its block of the target's other model-parallel axes; and,
+    where the target shards it over ``dp``, one reduce-scatter of the
+    blocks packed rank-major (each rank keeps its block of every leaf).
+    One collective per group of leaves that share those axes and a
+    dtype."""
     mesh = shardings[0].mesh
-    hits = [_shard_dim(sh) for sh in shardings]
+    sizes = axis_sizes(mesh)
+    live = [a for a, k in sizes.items() if k > 1]
+    helds = helds if helds is not None else [set()] * len(grads)
+    full_shapes, scatter, sums = [], [], []
+    for g, sh, held in zip(grads, shardings, helds):
+        axes = _spec_axes(sh.spec)
+        if not held <= axes:
+            raise ValueError(f"a gradient held over {sorted(held)} cannot take the layout {sh!r}")
+        shape = list(g.shape)
+        for a, d in sh.hits():
+            if a in held:
+                shape[d] *= sizes[a]
+        full_shapes.append(tuple(shape))
+        scatter.append("dp" in axes and sizes.get("dp", 1) > 1)
+        sums.append(tuple(a for a in live if a not in held and not (a == "dp" and "dp" in axes)))
     out: list = [None] * len(grads)
-    for (sharded, _), idx in _groups(range(len(grads)),
-                                     lambda i: (hits[i] is not None, grads[i].dtype)):
-        if sharded:
-            dims = [hits[i][1] for i in idx]
-            flat = reduce_scatter_axis(_pack([grads[i] for i in idx], dims, n), "dp", mesh)
-            locals_ = _unpack_block(flat.div_(n), [grads[i] for i in idx], dims, n)
-        else:
-            flat = _all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
-                               mesh.get_group("dp")).div_(n)
-            locals_, off = [], 0
+    red: list = [None] * len(grads)
+    for (ax, _), idx in _groups(range(len(grads)), lambda i: (sums[i], grads[i].dtype)):
+        if not ax:
             for i in idx:
-                locals_.append(flat[off:off + grads[i].numel()].view(grads[i].shape))
-                off += grads[i].numel()
+                red[i] = grads[i]
+            continue
+        flat = _all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
+                           axes_group(mesh, ax)[0])
+        off = 0
+        for i in idx:
+            red[i] = flat[off:off + grads[i].numel()].view(grads[i].shape)
+            off += grads[i].numel()
+    for i, (sh, held) in enumerate(zip(shardings, helds)):
+        cut = [(a, d) for a, d in sh.hits() if a not in held and a != "dp"]
+        if cut:  # the target's model-parallel blocks of a leaf held whole
+            red[i] = shard_of(red[i], _hits_sharding(mesh, cut, red[i].ndim))
+    for (sharded, _), idx in _groups(range(len(grads)), lambda i: (scatter[i], red[i].dtype)):
+        if sharded:
+            dims = [dict(shardings[i].hits())["dp"] for i in idx]
+            flat = reduce_scatter_axis(_pack([red[i] for i in idx], dims, n), "dp", mesh)
+            locals_ = _unpack_block(flat.div_(n), [red[i] for i in idx], dims, n)
+        else:
+            locals_ = [red[i] / n if n > 1 else red[i] for i in idx]
         for i, local in zip(idx, locals_):
-            out[i] = _dtensor(local, shardings[i], tuple(grads[i].shape))
+            out[i] = _dtensor(local, shardings[i], full_shapes[i])
     return out
+
+
+def _hits_sharding(mesh, hits, ndim: int) -> NamedSharding:
+    """A sharding of a tensor of ``ndim`` dims over ``hits`` ((axis, dim)
+    pairs, each dim once)."""
+    spec = [None] * ndim
+    for a, d in hits:
+        spec[d] = a
+    return NamedSharding(mesh, P(*spec))
 
 
 def _leaf_runs(sizes: List[int], itemsize: int):
@@ -306,8 +378,10 @@ def make_train_step(
       ranks take part in the reductions and get ``None``.
 
     ``params_sharding`` ("replicated", "fsdp" or a tree) names the params'
-    layout; parameters stay whole on every rank (the forward needs them
-    whole), so it decides the layout of ``grad_spec="params"``.
+    layout and decides the layout of ``grad_spec="params"``.  Parameters
+    are whole over ``dp`` (FSDP is a layout of the reduced gradients); a
+    model ``parallel.tensor_parallel.shard_model`` cut holds its ``tp``
+    blocks, and ``ep``-sharded experts their block.
     ``batch_spec`` (default ``P(None, "dp")``) names the batch dims each
     rank takes its block of.
     """
@@ -323,12 +397,11 @@ def make_train_step(
     if grad_spec is None and optimizer is None and not overlap_grads:
         raise ValueError("make_train_step needs an optimizer unless grad_spec= is given")
     mp_axes = _model_parallel_axes(mesh) if mesh is not None else []
-    if "tp" in mp_axes:
-        raise NotImplementedError("a tp mesh axis: not yet ported (slice 9d)")
-    if mp_axes and (grad_spec is not None or overlap_grads):
+    cohort_mp = [a for a in mp_axes if a != "tp" or overlap_grads]
+    if cohort_mp and (grad_spec is not None or overlap_grads):
         raise NotImplementedError(
-            f"mesh axes {mp_axes} inside the elastic cohort (grad_spec=, "
-            "overlap_grads=): not yet ported (slice 9d)")
+            f"mesh axes {cohort_mp} inside the elastic cohort (grad_spec=, "
+            "overlap_grads=): not yet ported (slice 9e)")
     if isinstance(grad_spec, str) and grad_spec not in ("replicated", "fsdp", "params"):
         raise ValueError(
             f"unknown grad_spec {grad_spec!r} (expected 'replicated', 'fsdp', "
@@ -358,11 +431,15 @@ def make_train_step(
     def local_batch(batch):
         return _slice_batch(batch, mesh, bspec) if mesh is not None else batch
 
+    # Ranks of a tp group hold the same tokens: each weighs its loss by
+    # one over the group (the gradient convention of parallel.collectives).
+    n_tp = axis_sizes(mesh).get("tp", 1) if mesh is not None else 1
+
     def forward_backward(leaves, batch, rng, params):
         for p in leaves:
             p.grad = None
         loss, aux = loss_fn(params, local_batch(batch), rng)
-        loss.backward()
+        (loss / n_tp if n_tp > 1 else loss).backward()
         return loss.detach(), aux
 
     def zero_missing(leaves):
@@ -372,7 +449,9 @@ def make_train_step(
         def sharded_grad_step(params, batch, rng):
             leaves, treedef = nest.tree_flatten(params)
             loss, aux = forward_backward(leaves, batch, rng, params)
-            grads = _reduce_leaves(zero_missing(leaves), grad_shardings(params), n_dp)
+            shs = grad_shardings(params)
+            helds = [_held_axes(p, None) for p in leaves]
+            grads = _reduce_leaves(zero_missing(leaves), shs, n_dp, helds)
             return loss, aux, treedef.unflatten(grads)
 
         return _instrument_step(sharded_grad_step)

@@ -7,7 +7,9 @@ broker process, and two spawned learner processes reducing an LM of
 d_model 64 with 2 layers); a CPU rehearsal of the Accumulator phases (two
 spawned learner processes each through the examples' own loops: the
 IMPALA loop on Catch's 10x5 frames, and the elastic LM of d_model 64 with
-2 layers); and the CPU smoke of ``python -m moolib_tpu_torch.bench``."""
+2 layers); a CPU rehearsal of the model-parallel and tensor-parallel
+phases (four rank processes, d_model 32); and the CPU smoke of ``python -m
+moolib_tpu_torch.bench``."""
 
 import functools
 import json
@@ -344,6 +346,32 @@ def test_mp_lm_phase_fails_a_ring_that_skips_a_past_chunk(tmp_path, monkeypatch,
                                widths=MP_REHEARSAL_WIDTHS, timeout=300, tols=MP_REHEARSAL_TOLS)
     off = float(re.search(r"off by (\S+) of its norm", str(e.value)).group(1))
     assert off > 10 * max(chip_smoke.MP_GRAD_TOL, MP_REHEARSAL_TOLS[1]), str(e.value)
+
+
+def test_tp_lm_phase_rehearsal(capsys, monkeypatch):
+    """Both tensor-parallel arms at d_model 32 (12 layers, 8 heads, so the
+    tp=4 server splits them 2 a rank) on the CPU, bf16 compute, prompts of
+    32 and a train batch of 8 x 32: the served replies equal one process's
+    (the prefill logits within the card's TP_LOGIT_TOL), each rank holds a
+    quarter of the cut leaves, and the dp=2 x tp=2 warm-up matches one
+    process within the rehearsal's limits with the ranks' replicated
+    leaves and blocks in step."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    widths = [a if a != "2" else "8" for a in MP_REHEARSAL_WIDTHS]
+    res = chip_smoke.phase_tp_lm(
+        0, device="cpu", widths=widths, timeout=300,
+        tols=(chip_smoke.TP_LOGIT_TOL, *MP_REHEARSAL_TOLS),
+        serve_cfg=dict(tp=4, batch=4, prompt=32, new=4),
+        train_args=["--batch_size", "8", "--seq_len", "32", "--learning_rate", "1e-4"])
+    sv, tr = res["tp_serve"], res["tp_train"]
+    assert sv["near_tie_divergences"] == [] and sv["cache_kv_heads_per_rank"] == 2
+    b = sv["param_bytes"][0]
+    assert b["sharded"] * 4 + b["replicated"] == b["whole"] == sv["param_bytes_one_process"]
+    assert tr["loss_rel_err"] <= MP_REHEARSAL_TOLS[0]
+    assert tr["grad_rel_err_max"] <= MP_REHEARSAL_TOLS[1]
+    assert len(tr["step_s"]) == chip_smoke.TP_LM_STEPS
+    assert set(res["launches"]) == {"tp_serve", "tp_train"}
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "tp_lm"
 
 
 def test_engine_phase_rehearsal(cpu_rehearsal, capsys):

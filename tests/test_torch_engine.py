@@ -180,8 +180,12 @@ def test_engine_rejects_oversized_and_reports_capacity():
     assert eng.can_accept(4, 2)       # 6 tokens -> 2 blocks: fits
     assert not eng.can_accept(4, 8)   # 12 tokens -> 3 blocks: pool-bound
     assert eng.active_count() == 0 and eng.stats()["prefill_tokens"] == 0
-    with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9d\)"):
-        ContinuousBatchingEngine(model, prefill_devices=1)
+    # The JAX engine's rule: a mesh, or prefill_devices, alone shards
+    # nothing; the two together are disaggregated prefill (slice 9c).
+    with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9c\)"):
+        ContinuousBatchingEngine(model, mesh={"tp": 2}, prefill_devices=1)
+    assert ContinuousBatchingEngine(model, slots=2, block_size=4, max_seq_len=16,
+                                    mesh={"tp": 2}).slots == 2
 
 
 def test_full_engine_refuses_before_prefill():

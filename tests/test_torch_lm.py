@@ -108,13 +108,14 @@ def test_lm_trains_with_remat_on_cpu():
      "pipeline (pp) needs identical blocks (no --moe_experts)"),
     (["--mesh", "pp=2", "--attention", "dense", "--layers", "3"], ValueError,
      "--layers must be pp_repeats*pp = 2"),
-    # A tp axis and model parallelism inside the elastic cohort are not.
-    (["--mesh", "dp=2,tp=2", "--attention", "dense"], SystemExit,
-     "not yet ported (slice 9d)"),
+    # A tp axis is ported (the JAX example's rules); model-parallel axes
+    # inside the elastic cohort are not.
+    (["--mesh", "dp=3,tp=2", "--attention", "dense"], ValueError,
+     "the dp axis size must divide --batch_size"),
     (["--mesh", "dp=2,tp=2", "--attention", "dense", "--checkpoint_dir", "x",
-      "--shard_grads", "--connect", "127.0.0.1:1"], SystemExit, "not yet ported (slice 9d)"),
+      "--shard_grads", "--connect", "127.0.0.1:1"], SystemExit, "not yet ported (slice 9e)"),
     (["--mesh", "dp=2,sp=2", "--attention", "ring", "--shard_grads", "--connect",
-      "127.0.0.1:1"], SystemExit, "not yet ported (slice 9d)"),
+      "127.0.0.1:1"], SystemExit, "not yet ported (slice 9e)"),
 ])
 def test_unported_flags_exit_with_a_message(argv, exc, match):
     with pytest.raises(exc, match=re.escape(match)):

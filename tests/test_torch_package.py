@@ -144,15 +144,21 @@ def test_rl_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     assert Batcher(2)._device is None and Batcher(2, device="cpu")._device is None
 
 
-def test_unported_paths_say_so():
+def test_unported_paths_say_so(monkeypatch):
     from moolib_tpu_torch.examples import lm_serve
     from moolib_tpu_torch.models import transformer
 
-    for flags, slice_ in ((["--listen", "x", "--localdir", "x", "--mesh", "tp=2"], "9d"),
-                          (["--listen", "x", "--engine", "--prefill_devices", "1"], "9d"),
-                          (["--listen", "x", "--mesh", "tp=2"], "9d")):
-        with pytest.raises(SystemExit, match=rf"not yet ported \(slice {slice_}\)"):
-            lm_serve.main(flags)
+    # Tensor-parallel serving is ported: its flags meet the JAX example's
+    # errors; disaggregated prefill (--engine --mesh --prefill_devices)
+    # needs the Sebulba split.
+    with pytest.raises(SystemExit, match="--listen and --connect are mutually exclusive"):
+        lm_serve.main(["--listen", "x", "--connect", "y", "--localdir", "x", "--mesh", "tp=2"])
+    with pytest.raises(SystemExit, match=r"not yet ported \(slice 9c\)"):
+        lm_serve.main(["--listen", "x", "--engine", "--mesh", "tp=2", "--prefill_devices", "1"])
+    monkeypatch.setenv("WORLD_SIZE", "8")
+    with pytest.raises(ValueError, match="8 devices not divisible by 3"):
+        lm_serve.main(["--listen", "x", "--mesh", "dp=3,tp=-1"])
+    monkeypatch.delenv("WORLD_SIZE")
     # Ring attention and MoE blocks are ported: a ring model needs its mesh
     # to train and serves through flash; a MoE model refuses generate() and
     # the pipeline, as the JAX package's do.
@@ -173,8 +179,10 @@ def test_unported_paths_say_so():
         transformer.pipeline_lm_apply(ring, prompt, {"pp": 2}, 1)
     with pytest.raises(ValueError, match="structurally identical blocks"):
         transformer.pipeline_lm_apply(moe, prompt, {"pp": 2}, 1)
-    with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9d\)"):
-        transformer.sharded_generator()
+    # sharded_generator keeps generate()'s rules (JAX: an explicit rng key
+    # for temperature > 0); a tp axis of 1 cuts nothing.
+    with pytest.raises(ValueError, match="temperature > 0 needs an explicit torch.Generator"):
+        transformer.sharded_generator(flash, 3, {"tp": 1}, temperature=1.0)(prompt)
     # The paged cache's geometry sizes the engine's pools, and a paged model
     # has no dense decode.
     from moolib_tpu_torch.engine import ContinuousBatchingEngine
@@ -191,23 +199,25 @@ def test_unported_paths_say_so():
         transformer.generate(model, torch.zeros((1, 2), dtype=torch.int64), 2)
 
 
-MESH_9D = "--mesh axes ['tp']: not yet ported (slice 9d)"
+MESH_9E = "--mesh axes ['sp']: not yet ported (slice 9e)"
 
 
-@pytest.mark.parametrize("argv,named", [
-    (["--mesh", "dp=2,tp=2"], MESH_9D),
-    (["--actor_mesh", "1"], "--actor_mesh: not yet ported (slice 9c)"),
-    # --mesh dp=N, --shard_grads and --overlap_grads are ported; tp and the
-    # Sebulba split are not.
-    (["--mesh", "tp=2", "--overlap_grads"], MESH_9D),
-    (["--actor_mesh", "1", "--shard_grads"], "--actor_mesh: not yet ported (slice 9c)"),
+@pytest.mark.parametrize("argv,exc,named", [
+    # --mesh dp=N,tp=M is ported: the JAX example's flag errors.
+    (["--mesh", "dp=3,tp=2"], ValueError, "the dp mesh axis size must divide --batch_size"),
+    (["--actor_mesh", "1"], SystemExit, "--actor_mesh: not yet ported (slice 9c)"),
+    # --mesh dp=N, tp=M, --shard_grads and --overlap_grads are ported; sp
+    # and the Sebulba split are not.
+    (["--mesh", "tp=2", "--overlap_grads"], ValueError,
+     "--overlap_grads is the unmeshed learner's overlap plane"),
+    (["--actor_mesh", "1", "--shard_grads"], SystemExit, "--actor_mesh: not yet ported (slice 9c)"),
     # --checkpoint_dir is the distributed plane of --shard_grads cohorts.
-    (["--checkpoint_dir", "d", "--shard_grads", "--mesh", "dp=2,tp=2"], MESH_9D),
+    (["--checkpoint_dir", "d", "--shard_grads", "--mesh", "dp=2,sp=2"], SystemExit, MESH_9E),
 ])
-def test_unported_rl_paths_say_so(argv, named):
+def test_unported_rl_paths_say_so(argv, exc, named):
     from moolib_tpu_torch.examples.vtrace import experiment
 
-    with pytest.raises(SystemExit, match=re.escape(named)):
+    with pytest.raises(exc, match=re.escape(named)):
         experiment.train(experiment.make_flags(argv))
     if "--checkpoint_dir" in argv:
         # Without --shard_grads it is the JAX example's ValueError.

@@ -65,8 +65,14 @@ def test_partition_spec_prints_as_jax():
 def test_unported_mesh_paths_say_so():
     with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9c\)"):
         tpar.split_mesh(None, 1)
-    with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9d\)"):
-        tpar.auto_shardings({"w": torch.zeros(4, 4)}, {"dp": 2, "tp": 2})
+    # auto_shardings over tp is ported: JAX's spec (tp on a kernel's last
+    # axis from tp_min up, FSDP over dp on the largest other axis).
+    got = tpar.auto_shardings({"w": torch.zeros(4, 4), "k": torch.zeros(256, 32),
+                               "b": torch.zeros(32)}, {"dp": 2, "tp": 2})
+    jmesh = jpar.make_mesh({"dp": 2, "tp": 2}, devices=jax.devices()[:4])
+    want = jpar.auto_shardings({"w": np.zeros((4, 4)), "k": np.zeros((256, 32)),
+                                "b": np.zeros(32)}, jmesh)
+    assert {k: tuple(v.spec) for k, v in got.items()} == {k: tuple(v.spec) for k, v in want.items()}
 
 
 def _lm_tree():
