@@ -12,8 +12,11 @@ the R2D2 agent's replay plane and learner at the JAX package's pixel
 geometry, and then the fleet and durability plane: the LM stopped and
 resumed from checkpoints, a distributed checkpoint committed by a
 two-learner cohort and restored by one process, a profiler timeline of
-the train step, and the shared kernel build cache; last, the zero-crossing
-actor plane: batched envs stepped on the card inside the act step.
+the train step, and the shared kernel build cache; then the zero-crossing
+actor plane: batched envs stepped on the card inside the act step, and
+split over rank processes as Sebulba's actor and learner meshes; the
+model-parallel LM meshes last.  After the engine, the same engine split
+into a prefill rank and a decode rank.
 
     python3 chip_smoke.py [--seed N]
 
@@ -80,6 +83,17 @@ exits non-zero, and no result line is printed):
    emitted tokens/s, prefill ms by shape (CUDA events), decode ms per step,
    mean slot occupancy, padding tokens, iterations, peak memory; and the
    device idle share over a profiled window of 16 decode steps of each.
+7c. disagg_engine — disaggregated prefill (slice 9c): the engine phase's
+   LM from the same seed, ContinuousBatchingEngine(mesh=dp=2,
+   prefill_devices=1) over two rank processes sharing the card over gloo:
+   rank 0 prefills on the flash forward, rank 1 owns the engine, decodes,
+   and serves traffic (a) through an engine replica as the engine phase
+   does.  Checks: the replies equal the one-process engine's; flash_fwd
+   launches, counted from 0 after warmup(), are exactly 12 x 32 on the
+   prefill rank and 0 on the decode rank; the K/V bytes that crossed equal
+   each joined request's [12, 2, Lb, 8, 128] bf16 rows and are counted
+   once, by route.  Prints latency p50/p99, tokens/s, decode ms a step and
+   the K/V handoff ms a request beside the one-process engine's.
 8. impala_parity — ImpalaNet (feed-forward and LSTM, 84x84x4, f32 and
    bf16) and ActorCriticNet (LSTM, f32) on the card against the same model
    on the CPU, same weights and inputs: logits and baselines, then one
@@ -223,6 +237,17 @@ exits non-zero, and no result line is printed):
    SGD steps, the mean episode return, which must clear the tier-1 bar
    (0.4), and again no byte across the boundary.
 
+21b. sebulba — the Sebulba split (slice 9c) at the anakin point:
+   examples.vtrace.experiment.train(--mesh dp=4 --actor_mesh 2), four rank
+   processes sharing the card over gloo; ranks 0-1 are a dp=2 actor mesh
+   of 256 envs each, ranks 2-3 the dp=2 learner (this process is rank 2,
+   the loop), 400k frames.  Checks: the actor and learner ranks are
+   disjoint; every unroll's columns reached their learner ranks byte for
+   byte (sha256 per pair of ranks) and the handoff counted exactly the
+   unrolls' bytes, d2d and staged by route; the actor ranks crossed no
+   host-boundary bytes per frame; the learner ranks end with one set of
+   parameters.  Prints each actor rank's unroll and handoff ms, the learn
+   step ms, acting frames/s and sps beside the anakin phase's.
 22. sharded_lm — the hierarchical learner: two elastic hosts through
    examples.lm.train() --mesh dp=2 --shard_grads, each host 2 rank
    processes (it spawns its second itself) sharing the card over gloo, the
@@ -276,8 +301,8 @@ exits non-zero, and no result line is printed):
 
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
-at the training shape and its launches on every path (the r2d2 and anakin
-phases launch none: no Pallas kernel is on either path; durable_lm,
+at the training shape and its launches on every path (the r2d2, anakin
+and sebulba phases launch none: no Pallas kernel is on those paths; durable_lm,
 dckpt_lm and timeline_lm are the LM's forward and backward), and {"ok":
 true, "device": {...}}.
 """
@@ -1068,7 +1093,8 @@ def _serve_arm(addr: str, name: str, group: str, make_service, reqs, cuda: bool)
     try:
         client.wait_for_replicas(1, timeout=60.0)
         pad0 = _counter("serve_pad_tokens_total")
-        torch.cuda.reset_peak_memory_stats()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
         t_sub, t_done, futs = [], [None] * len(reqs), []
         for i, (prompt, budget) in enumerate(reqs):
             t_sub.append(time.perf_counter())
@@ -1166,8 +1192,7 @@ def phase_engine(seed: int, device="cuda", lm_cfg=None, engine_cfg=None, traffic
     warmup_s = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
     lo, hi = tr["prompt"]
-    reqs_a = [(rng.integers(0, V, int(rng.integers(lo, hi + 1))).astype(np.int32),
-               int(rng.choice(tr["budgets"]))) for _ in range(tr["requests"])]
+    reqs_a = _engine_requests(rng, V, tr)
     reqs_b = [(rng.integers(0, V, tr["b_prompt"]).astype(np.int32),
                int(rng.choice(tr["b_budgets"]))) for _ in range(tr["b_requests"])]
 
@@ -1285,6 +1310,7 @@ def phase_engine(seed: int, device="cuda", lm_cfg=None, engine_cfg=None, traffic
             ctx.__exit__(None, None, None)
     del model, eng, pools, timer
     lap("profiles")
+    a_replies = arms["a_engine"]["replies"]
     for arm in arms.values():
         del arm["replies"], arm["stats"]
     res = {"phase": "engine", "model": f"TransformerLM vocab={V} d={lm_cfg['d_model']} L={L} "
@@ -1305,7 +1331,16 @@ def phase_engine(seed: int, device="cuda", lm_cfg=None, engine_cfg=None, traffic
          f"{ecfg['slots']} slots of {tr['b_prompt']}-token prompts", **eng_profile})
     log({"phase": "batch_decode_profile", "window": f"{n_win} generate() decode steps, "
          f"batch {cap} of {tr['b_prompt']}-token prompts", **batch_profile})
-    return res
+    # Traffic (a)'s replies, for disagg_engine to hold its replies to.
+    return dict(res, a_replies=a_replies)
+
+
+def _engine_requests(rng, V: int, tr: dict) -> list:
+    """Traffic (a): ``tr["requests"]`` prompts of lengths in ``tr["prompt"]``
+    and budgets from ``tr["budgets"]``, the first draws of ``rng``."""
+    lo, hi = tr["prompt"]
+    return [(rng.integers(0, V, int(rng.integers(lo, hi + 1))).astype(np.int32),
+             int(rng.choice(tr["budgets"]))) for _ in range(tr["requests"])]
 
 
 def _check_drained(eng, ptrs, pools, when: str) -> None:
@@ -3991,8 +4026,7 @@ ANAKIN_ENV_STEPS = 2000
 ANAKIN_FRAMES = 1_500_000
 ANAKIN_LR = 0.02
 ANAKIN_BAR = 0.4
-BOUNDARY = ("actor_h2d_bytes_total", "actor_d2h_bytes_total", "batcher_h2d_bytes_total",
-            "batcher_d2h_bytes_total")
+BOUNDARY = experiment.BOUNDARY
 
 
 def _boundary() -> dict:
@@ -4155,6 +4189,246 @@ def phase_anakin(seed: int, device="cuda", cfg=None, keys: int = ANAKIN_KEYS,
     return res
 
 
+# The Sebulba split at the Anakin operating point: 4 rank processes on the
+# card over gloo, the first 2 an actor mesh of 256 envs each, the other 2 the
+# dp=2 learner; the frame budget gives ~20 unrolls.
+SEBULBA = dict(ANAKIN, mesh="dp=4", actor_mesh=2)
+SEBULBA_FRAMES = 400_000
+
+
+def _median_ms(seconds: list) -> float:
+    return float(np.median(seconds) * 1e3)
+
+
+def phase_sebulba(seed: int, device="cuda", cfg=None, frames: int = SEBULBA_FRAMES,
+                  anakin=None) -> dict:
+    """examples.vtrace.experiment.train(--mesh dp=4 --actor_mesh 2) at the
+    Anakin operating point: this process is the learner's first rank (the
+    loop), it spawns the two actor ranks and the second learner rank.
+    Checks: the actor and learner ranks are disjoint; every byte of every
+    unroll reached its learner rank as sent (the pairs' sha256 digests),
+    and the handoff counted exactly the unrolls' bytes, by route; the actor
+    ranks crossed no host-boundary bytes per frame; the learner ranks end
+    with one set of parameters.  Prints each actor rank's unroll and
+    handoff times, the learn step, acting frames/s and sps, beside the
+    anakin phase's (``anakin``: its result)."""
+    t0 = time.perf_counter()
+    cfg = dict(SEBULBA if cfg is None else cfg)
+    argv = ["--env", "catch_flat", "--env_backend", "jax", "--device", str(device), "--quiet",
+            "--seed", str(seed), "--total_steps", str(frames), "--learning_rate", str(ANAKIN_LR),
+            "--address", f"127.0.0.1:{free_port()}"]
+    for k, v in cfg.items():
+        argv += [f"--{k}", str(v)]
+    out = experiment.train(experiment.make_flags(argv))
+    wall_s = time.perf_counter() - t0
+    seb = out["sebulba"]
+    A, T = cfg["actor_mesh"], cfg["unroll_length"]
+    actors, learners = seb["actors"], seb["learners"]
+    if [a.get("role") for a in actors] != ["actor"] * A or \
+            [a["rank"] for a in actors] != list(range(A)) or \
+            any(rk.get("role") == "actor" for rk in learners):
+        raise AssertionError(f"sebulba: ranks {[a.get('rank') for a in actors]} are not the "
+                             f"{A} actor ranks, or a learner rank acted")
+    for a, actor in enumerate(actors):
+        if actor["unrolls"] != seb["unrolls"]:
+            raise AssertionError(f"sebulba: actor rank {a} made {actor['unrolls']} of the "
+                                 f"{seb['unrolls']} ticketed unrolls")
+        if any(actor["boundary_bytes"].values()):
+            raise AssertionError(f"sebulba: actor rank {a} crossed the host boundary: "
+                                 f"{actor['boundary_bytes']}")
+        for j, learner in enumerate(learners):
+            if actor["digests"][f"tx:{A + j}"] != learner["digests"][f"rx:{a}"]:
+                raise AssertionError(f"sebulba: the columns actor rank {a} sent learner rank "
+                                     f"{A + j} did not arrive as sent")
+    moved = {k: sum(rk["handoff_bytes"][k] for rk in learners) for k in
+             ("batcher_d2d_bytes_total", "batcher_staged_bytes_total")}
+    want = seb["unrolls"] * seb["unroll_bytes"]
+    if sum(moved.values()) != want or (seb["route"] != "direct" and moved[
+            "batcher_d2d_bytes_total"]):
+        raise AssertionError(f"sebulba: the handoff counted {moved} for {want} unroll bytes "
+                             f"over the {seb['route']} route")
+    shas = {rk["params_sha256"] for rk in learners} | {out["params_sha256"]}
+    if len(shas) != 1:
+        raise AssertionError(f"sebulba: the learner ranks' parameters differ: {sorted(shas)}")
+    per_actor = []
+    for actor in actors:
+        act = actor["seconds"]["act"][1:] or actor["seconds"]["act"]  # past the T+1 bootstrap
+        ms = _median_ms(act)
+        per_actor.append({"rank": actor["rank"], "envs": actor["envs"], "unroll_ms": ms,
+                          "handoff_ms": _median_ms(actor["seconds"]["handoff"]),
+                          "acting_frames_per_s": actor["envs"] * T / (ms / 1e3),
+                          "param_refreshes": actor["param_refreshes"]})
+    res = {"phase": "sebulba", "config": cfg, "route": seb["route"], "frames": out["steps"],
+           "unrolls": seb["unrolls"], "unroll_bytes": seb["unroll_bytes"], "handoff_bytes": moved,
+           "window": seb["window"], "param_refreshes": seb["param_refreshes"],
+           "param_bytes": seb["param_bytes"], "sgd_steps": out["sgd_steps"],
+           "columns_bitwise": True, "params_sha256_equal": True, "actor_boundary_bytes": 0,
+           "actors": per_actor,
+           "acting_frames_per_s": sum(a["acting_frames_per_s"] for a in per_actor),
+           "learn_step_ms": _median_ms(seb["learn_s"][1:] or seb["learn_s"]),
+           "learn_steps": len(seb["learn_s"]),
+           "sps": out["sps"], "steady_sps": out["steady_sps"],
+           "mean_episode_return": out["mean_episode_return"], "wall_s": wall_s}
+    if anakin is not None:
+        res["anakin"] = {"unroll_ms": anakin["unroll"]["ms_median"],
+                         "acting_frames_per_s": anakin["unroll"]["acting_frames_per_s"],
+                         "sps": anakin["train"]["sps"], "steady_sps": anakin["train"]["steady_sps"]}
+    log(res)
+    return res
+
+
+def _hist(name: str) -> tuple:
+    """(count, sum) of this process's histogram ``name``."""
+    fam = telemetry.get_registry().snapshot().get(name) or {}
+    vals = [s["value"] for s in fam.get("series", ()) if isinstance(s.get("value"), dict)]
+    return sum(v.get("count", 0) for v in vals), sum(v.get("sum", 0.0) for v in vals)
+
+
+def _disagg_run(rank: int, world: int, cfg: dict) -> dict:
+    """One rank of the disagg_engine phase: the engine phase's LM from the
+    same seed, split over ``world`` ranks (the first ``prefill`` prefill).
+    A prefill rank serves and counts its launches from 0 after the warm-up's
+    prefills; the owner warms up and serves traffic (a) through an engine
+    replica registered with the broker at ``cfg["broker"]``."""
+    from moolib_tpu_torch import parallel
+    from moolib_tpu_torch.engine import ContinuousBatchingEngine, EngineService
+    from moolib_tpu_torch.serving import bucket, bucket_shapes
+
+    device, lm_cfg, ecfg = cfg["device"], cfg["lm"], cfg["engine"]
+    cuda = torch.device(device).type == "cuda"
+    parallel.initialize_distributed(None, None, None, device=device)
+    mesh = parallel.make_mesh({"dp": world}, device_type=torch.device(device).type)
+    model = TransformerLM(dtype=torch.bfloat16, device=device,
+                          generator=torch.Generator().manual_seed(cfg["seed"]), **lm_cfg).eval()
+    eng = ContinuousBatchingEngine(model, mesh=mesh, prefill_devices=cfg["prefill"], **ecfg)
+    n_warm = len(set(bucket_shapes(ecfg["max_prompt_len"])))
+    if rank < cfg["prefill"]:
+        prefill, calls = eng._prefill, [0]
+
+        def counted(toks, tp):
+            calls[0] += 1
+            if calls[0] == n_warm + 1:  # the first request after the warm-up
+                fa.reset_launches()
+            return prefill(toks, tp)
+
+        eng._prefill = counted
+        eng.follow()
+        return {"role": "prefill", "prefills": calls[0] - n_warm, "launches": _counts()}
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    fa.reset_launches()
+    reqs = _engine_requests(np.random.default_rng(cfg["seed"]), lm_cfg["vocab_size"],
+                            cfg["traffic"])
+    names = ("batcher_d2d_bytes_total", "batcher_staged_bytes_total")
+    before, hist0 = experiment.counters(names), _hist("serve_engine_kv_handoff_seconds")
+    with _ServeTimer(model, eng) as timer:
+        arm = _serve_arm(cfg["broker"], "engine_disagg", "serve_engine_disagg",
+                         lambda rpc: EngineService(rpc, eng, max_queue=256), reqs, cuda)
+    after, hist1 = experiment.counters(names), _hist("serve_engine_kv_handoff_seconds")
+    launches = _counts()
+    H = lm_cfg["num_heads"]
+    rows = sum(lm_cfg["num_layers"] * 2 * bucket(len(p), ecfg["max_prompt_len"]) * H
+               * (lm_cfg["d_model"] // H) * 2 for p, b in reqs if b > 1)
+    n = hist1[0] - hist0[0]
+    st = eng.stats()
+    eng.close()
+    arm["replies"] = [r.tolist() for r in arm["replies"]]
+    arm.pop("stats")
+    return {"role": "decode", "arm": arm, "launches": launches, "warmup_s": warmup_s,
+            "decode_ms_per_step": float(np.median([ms for ms, _ in timer.steps])),
+            "kv_rows_bytes": rows, "kv_handoff_bytes": st["kv_handoff_bytes"],
+            "handoff_counted": {k: after[k] - before[k] for k in names},
+            "handoff_ms_per_request": (hist1[1] - hist0[1]) / max(n, 1) * 1e3,
+            "handoffs": n, "remote_prefills": st["remote_prefills"], "joins": st["joins"]}
+
+
+def _disagg_rank(rank: int, world: int, tasks, out, notes=None) -> None:
+    """A rank process of the disagg_engine phase (``_MpRanks`` target)."""
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1")
+    while (task := tasks.get()) is not None:
+        cfg, port = task
+        os.environ["MASTER_PORT"] = str(port)
+        try:
+            out.put({"rank": rank, **_disagg_run(rank, world, cfg)})
+        except BaseException as e:  # reported to the parent, which fails, then re-raised
+            import traceback
+
+            out.put({"rank": rank, "error": f"{e!r}\n{traceback.format_exc()}"})
+            raise
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def phase_disagg_engine(seed: int, device="cuda", engine=None, lm_cfg=None, engine_cfg=None,
+                        traffic=None, timeout: float = 600) -> dict:
+    """The engine phase's LM and traffic (a) through a split engine: two
+    rank processes, rank 0 prefills (the flash forward), rank 1 owns the
+    engine and decodes.  Checks: the replies equal the one-process
+    engine's (``engine``: the engine phase's result); flash_fwd launches
+    are exactly L per prompt on the prefill rank and 0 on the decode rank;
+    the K/V bytes that crossed equal each joined request's [L, 2, Lb, Hk,
+    hd] rows, counted once by route.  Prints latency, tokens/s, decode ms a
+    step and handoff ms a request beside the one-process engine's."""
+    t0 = time.perf_counter()
+    lm_cfg = dict(ENGINE_LM, **(lm_cfg or {}))
+    ecfg = dict(ENGINE, **(engine_cfg or {}))
+    tr = dict(ENGINE_TRAFFIC, **(traffic or {}))
+    cuda = torch.device(device).type == "cuda"
+    port = free_port()
+    broker = start_broker(port)
+    ranks = _MpRanks(world=2, target=_disagg_rank, name="disagg_engine")
+    failed = True
+    try:
+        pre, own = ranks.run({"device": str(device), "seed": seed, "lm": lm_cfg, "engine": ecfg,
+                              "traffic": tr, "prefill": 1, "broker": f"127.0.0.1:{port}"},
+                             timeout)
+        failed = False
+    finally:
+        ranks.close(failed)
+        stop_process(broker)
+    L, arm = lm_cfg["num_layers"], own["arm"]
+    n = tr["requests"]
+    if engine is not None and arm["replies"] != [r.tolist() for r in engine["a_replies"]]:
+        diff = [i for i, (x, y) in enumerate(zip(arm["replies"], engine["a_replies"]))
+                if x != y.tolist()]
+        raise AssertionError(f"disagg_engine: requests {diff} differ from the one-process "
+                             "engine's replies")
+    want = L * n if cuda else 0
+    if pre["prefills"] != n or pre["launches"]["flash_fwd"] != want or \
+            any(own["launches"].values()) or pre["launches"]["flash_bwd_dq"] or \
+            pre["launches"]["flash_bwd_dkv"]:
+        raise AssertionError(f"disagg_engine: {pre['prefills']} prefills, launches {pre['launches']} "
+                             f"(prefill rank) and {own['launches']} (decode rank); flash_fwd must "
+                             f"be exactly {want} and 0")
+    counted = sum(own["handoff_counted"].values())
+    if not own["kv_rows_bytes"] == own["kv_handoff_bytes"] == counted:
+        raise AssertionError(f"disagg_engine: K/V rows {own['kv_rows_bytes']} bytes, "
+                             f"{own['kv_handoff_bytes']} crossed, {counted} counted")
+    del arm["replies"]
+    res = {"phase": "disagg_engine", "ranks": {"prefill": [0], "decode": [1]},
+           "traffic_a": {"requests": n, "prompt": list(tr["prompt"]),
+                         "budgets": list(tr["budgets"])},
+           "replies_equal_one_process": engine is not None,
+           "launches": {"prefill_rank": pre["launches"], "decode_rank": own["launches"]},
+           "kv_bytes": own["kv_handoff_bytes"], "handoff_counted": own["handoff_counted"],
+           "handoff_ms_per_request": own["handoff_ms_per_request"], "handoffs": own["handoffs"],
+           "decode_ms_per_step": own["decode_ms_per_step"], "warmup_s": own["warmup_s"],
+           "latency_ms_p50": arm["latency_ms_p50"], "latency_ms_p99": arm["latency_ms_p99"],
+           "tokens_per_s": arm["tokens_per_s"], "arm": arm,
+           "wall_s": time.perf_counter() - t0}
+    if engine is not None:
+        a = engine["arms"]["a_engine"]
+        res["one_process"] = {k: a[k] for k in ("latency_ms_p50", "latency_ms_p99",
+                                                "tokens_per_s", "decode_ms_per_step")}
+    log(res)
+    return res
+
+
 def make_pool() -> EnvPool:
     """The data path's EnvPool, forked before the first CUDA call."""
     return EnvPool(SyntheticAtariEnv, **POOL)
@@ -4165,8 +4439,8 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     pool = make_pool()
     try:
-        kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded, mp_lm, tp_lm = \
-            _phases(pool, args.seed)
+        (kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded, mp_lm, tp_lm,
+         sebulba, dis) = _phases(pool, args.seed)
     finally:
         pool.close()
     case = kern["train"]
@@ -4197,7 +4471,10 @@ def main(argv=None) -> None:
                              "anakin": anakin[name],
                              "sharded_lm": sharded[name],
                              **{path: mp_lm[path][name] for path in mp_lm},
-                             **{path: tp_lm[path][name] for path in tp_lm}},
+                             **{path: tp_lm[path][name] for path in tp_lm},
+                             "sebulba": sebulba[name],
+                             "disagg_engine_prefill": dis["prefill_rank"][name],
+                             "disagg_engine_decode": dis["decode_rank"][name]},
         "max_abs_err": kern["worst"][name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
@@ -4259,6 +4536,9 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     torch.cuda.empty_cache()
     en = timed("engine", phase_engine, seed)
     torch.cuda.empty_cache()
+    # The disagg_engine path: each rank process counts from 0 after the
+    # engine's warm-up (_disagg_run).
+    dis = timed("disagg_engine", phase_disagg_engine, seed, engine=en)["launches"]
     timed("impala_parity", phase_impala_parity, seed)
     rl = timed("impala_learner", phase_impala_learner, pool, seed)
     timed("cohort_impala", phase_cohort_impala, seed)
@@ -4287,8 +4567,14 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     torch.cuda.empty_cache()
     # The anakin path: counts start at 0 here and are read right after.
     fa.reset_launches()
-    timed("anakin", phase_anakin, seed)
+    ak = timed("anakin", phase_anakin, seed)
     anakin = _counts()
+    torch.cuda.empty_cache()
+    # The sebulba path: counts start at 0 here and are read right after (the
+    # spawned ranks run the catch MLP, which reaches no kernel).
+    fa.reset_launches()
+    timed("sebulba", phase_sebulba, seed, anakin=ak)
+    sebulba = _counts()
     torch.cuda.empty_cache()
     # The sharded_lm path: every rank process counts from 0 (each host's
     # rank 0 resets in _cohort_child, its other rank starts fresh).
@@ -4302,7 +4588,8 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     # (_tp_serve_rank, _tp_train_rank).
     tp_lm = timed("tp_lm", phase_tp_lm, seed)["launches"]
     log({"phase_seconds": PHASE_SECONDS, "total_s": round(sum(PHASE_SECONDS.values()), 1)})
-    return kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded, mp_lm, tp_lm
+    return (kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded, mp_lm, tp_lm,
+            sebulba, dis)
 
 
 if __name__ == "__main__":

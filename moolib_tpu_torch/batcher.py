@@ -77,6 +77,23 @@ _M_D2D_BYTES = _REG.counter(
     "batcher_d2d_bytes_total",
     "device batches moved to another card (inter-device handoff)",
 )
+# One process per rank: the actor-to-learner handoff (and the engine's
+# prefill-to-decode K/V) crosses processes through
+# ``parallel.collectives.Handoff``.  Card to card (NCCL, a card per rank) its
+# bytes count as d2d above; through host memory (gloo: CPU tensors, or CUDA
+# tensors staged through pinned memory where ranks share a card) they count
+# here and never as d2d.  The receiving rank counts them.
+_M_STAGED_BYTES = _REG.counter(
+    "batcher_staged_bytes_total",
+    "inter-mesh handoff bytes that crossed through host memory (gloo)",
+)
+
+
+def count_handoff(nbytes: int, card_to_card: bool) -> None:
+    """Count ``nbytes`` that crossed between meshes, by route."""
+    (_M_D2D_BYTES if card_to_card else _M_STAGED_BYTES).inc(nbytes)
+
+
 # Flow control at the Sebulba seam (ROADMAP item 2): with ``max_outstanding``
 # set, producers block once this many completed batches sit unconsumed —
 # actor lead over the learner is bounded instead of growing without limit.

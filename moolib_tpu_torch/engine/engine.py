@@ -21,10 +21,24 @@ straight into the slot's pool blocks.  The pools are allocated once and
 never rebound: their ``data_ptr()``s are stable for the engine's lifetime,
 the port's form of "one decode compile, no cache reshuffle".
 
-Greedy decoding only, as the serving plane is.  ``mesh=`` and
-``prefill_devices=`` keep the JAX engine's meaning: only the two together
-shard (disaggregated prefill on a ``split_mesh`` submesh), and that comes
-with the Sebulba split (slice 9c).
+Greedy decoding only, as the serving plane is.
+
+Disaggregated prefill: ``mesh=`` (a ``DeviceMesh`` over ranks, one process
+each) and ``prefill_devices=N`` together split the mesh
+(``parallel.split_mesh``), as in the JAX engine: the first N ranks prefill,
+the rest decode; either alone shards nothing.  Every rank constructs the
+engine.  The first decode rank owns it: the slot bookkeeping, the KV pools
+and every decode step stay in that process, so only prefill crosses
+processes.  Each request's prompt goes to a prefill rank (round-robin over
+N: JAX replicates prefill over its submesh, one process per rank would only
+repeat it), which runs ``prefill`` on the flash kernel and answers with the
+first token and, when the request needs a slot, its K/V rows ``[L, 2, Lb,
+Hk, hd]`` through ``parallel.collectives.Handoff`` (counted on the owner:
+``batcher_d2d_bytes_total`` card to card, ``batcher_staged_bytes_total``
+through host memory).  The other ranks call :meth:`follow` and serve
+prefill commands (the other decode ranks none: JAX replicates decode over
+its submesh, which one process per rank would only repeat) until the
+owner's :meth:`close`.  ``set_params`` installs the weights on both halves.
 """
 
 from __future__ import annotations
@@ -71,10 +85,92 @@ _M_OCC = _REG.gauge(
 _M_BLOCKS_FREE = _REG.gauge(
     "serve_engine_blocks_free", "KV pool blocks on the free list"
 )
+_M_KV_HANDOFF = _REG.histogram(
+    "serve_engine_kv_handoff_seconds",
+    "split engine: host wall time the owner waits for a request's K/V rows "
+    "after its first token arrived (the prefill-to-decode crossing)",
+)
 
 
 class NoFreeSlot(RuntimeError):
     """Every decode slot is occupied — the request should stay queued."""
+
+
+class _PrefillSplit:
+    """The ranks of a disaggregated engine (see the module docstring) and
+    its two channels: commands, tokens, first tokens and weights on a gloo
+    control channel, the K/V rows on the data handoff (the plane's route).
+    Every rank of ``mesh`` constructs it, collectively."""
+
+    PREFILL, PARAMS, STOP = 1, 2, 3
+    COMMAND, TOKENS, TOKEN0, WEIGHTS, KV = 1, 2, 3, 4, 5
+
+    def __init__(self, model, mesh, prefill_devices: int):
+        import torch.distributed as dist
+
+        from ..parallel.collectives import Handoff
+        from ..parallel.mesh import check_disjoint, mesh_ranks, split_mesh
+
+        pmesh, dmesh = split_mesh(mesh, prefill_devices)
+        if isinstance(mesh, dict):
+            raise TypeError("disaggregated prefill needs a DeviceMesh over the serving "
+                            "ranks (one process each), not axis sizes")
+        check_disjoint(dmesh, pmesh, what_a="decode mesh", what_b="--prefill_devices")
+        self.model = model
+        self.prefill_ranks = mesh_ranks(pmesh)
+        self.decode_ranks = mesh_ranks(dmesh)
+        self.owner = dist.get_rank() == self.decode_ranks[0]
+        self.rank = dist.get_rank()
+        self.prefill = self.rank in self.prefill_ranks
+        self.control = Handoff(model.device, backend="gloo", counted=False)
+        self.data = Handoff(model.device)
+        self._turn = 0
+        self._specs = [(tuple(t.shape), t.dtype) for t in model.state_dict().values()]
+
+    @property
+    def owner_rank(self) -> int:
+        return self.decode_ranks[0]
+
+    def next_rank(self) -> int:
+        r = self.prefill_ranks[self._turn % len(self.prefill_ranks)]
+        self._turn += 1
+        return r
+
+    def _send_command(self, r: int, cmd: int, *args: int) -> None:
+        args = (list(args) + [0, 0, 0])[:3]
+        self.control.send([torch.tensor([cmd, *args], dtype=torch.int64)], r, self.COMMAND)
+
+    def call(self, r: int, cmd: int, tp: int, lb: int, want_kv: int, toks) -> int:
+        """Owner: one prefill on rank ``r``; returns its first token."""
+        self._send_command(r, cmd, tp, lb, want_kv)
+        self.control.send([toks], r, self.TOKENS)
+        return int(self.control.recv([((1,), torch.int64)], r, self.TOKEN0, on_host=True)[0])
+
+    def command(self) -> list:
+        got = self.control.recv([((4,), torch.int64)], self.owner_rank, self.COMMAND,
+                                on_host=True)[0]
+        return got.tolist()  # mtlint: allow-host-sync(a host tensor: the command landed in host memory)
+
+    def send_params(self) -> None:
+        leaves = [t.detach() for t in self.model.state_dict().values()]
+        for r in self.prefill_ranks:
+            self._send_command(r, self.PARAMS)
+            self.control.send(leaves, r, self.WEIGHTS)
+
+    def recv_params(self) -> None:
+        got = self.control.recv(self._specs, self.owner_rank, self.WEIGHTS)
+        with torch.no_grad():
+            for t, x in zip(self.model.state_dict().values(), got):
+                t.copy_(x)
+
+    def stop(self) -> None:
+        for r in self.prefill_ranks + self.decode_ranks[1:]:
+            self._send_command(r, self.STOP)
+        self.close()
+
+    def close(self) -> None:
+        self.control.close()
+        self.data.close()
 
 
 class ContinuousBatchingEngine:
@@ -100,13 +196,11 @@ class ContinuousBatchingEngine:
                  max_prompt_len: Optional[int] = None,
                  eos_id: Optional[int] = None,
                  mesh=None, prefill_devices: int = 0):
+        self._split = None
         if mesh is not None and prefill_devices:
             # The JAX engine shards nothing but this split: a mesh alone, or
             # prefill_devices alone, is accepted and unused there too.
-            raise NotImplementedError(
-                "ContinuousBatchingEngine(mesh=, prefill_devices=): disaggregated "
-                "prefill over the Sebulba mesh split is not yet ported (slice 9c)"
-            )
+            self._split = _PrefillSplit(model, mesh, prefill_devices)
         self.model = model
         self.slots = int(slots)
         if self.slots < 1:
@@ -131,9 +225,16 @@ class ContinuousBatchingEngine:
         self._Hk = model.num_kv_heads or model.num_heads
         self._hd = model.d_model // model.num_heads
         if params is not None:
-            self.set_params(params)  # takes the casts
-        else:
-            self._casts = weight_casts(model)
+            self._load(params)  # every rank loads its own: nothing crosses
+        self._casts = weight_casts(model)
+        self._stats = {
+            "joins": 0, "retires": 0, "decode_tokens": 0,
+            "prefill_tokens": 0, "prefill_pad_tokens": 0, "steps": 0,
+        }
+        if self._split is not None:
+            self._stats.update(kv_handoff_bytes=0, remote_prefills=0)
+            if not self._split.owner:
+                return  # a prefill (or idle decode) rank: no pools, no slots
 
         S, MB, dev = self.slots, self.max_blocks_per_seq, self.device
         shape = (num_blocks, self.block_size, self._Hk, self._hd)
@@ -154,10 +255,10 @@ class ContinuousBatchingEngine:
         self._emitted: List[List[int]] = [[] for _ in range(S)]
         self._remaining_host = np.zeros(S, np.int64)
         self._active_host = np.zeros(S, bool)
-        self._stats = {
-            "joins": 0, "retires": 0, "decode_tokens": 0,
-            "prefill_tokens": 0, "prefill_pad_tokens": 0, "steps": 0,
-        }
+
+    def _load(self, params) -> None:
+        with torch.no_grad():
+            self.model.load_state_dict(as_state_dict(params))
 
     def set_params(self, params) -> None:
         """Load new weights into the model in place: a flax-layout tree of
@@ -165,10 +266,12 @@ class ContinuousBatchingEngine:
         Called between iterations by the service's hot-swap hook — the KV
         pools and slot state are untouched, so in-flight sequences continue
         under the new weights.  The layers' ``dtype`` casts are taken once
-        here, for every step of this version."""
-        with torch.no_grad():
-            self.model.load_state_dict(as_state_dict(params))
+        here, for every step of this version.  Split, the owner sends the
+        weights to every prefill rank too."""
+        self._load(params)
         self._casts = weight_casts(self.model)
+        if self._split is not None:
+            self._split.send_params()
 
     # ---------------------------------------------------------- device paths
     def _prefill(self, toks: torch.Tensor, tp: int) -> Tuple[list, int]:
@@ -180,6 +283,61 @@ class ContinuousBatchingEngine:
         # The host needs the first token: it answers a budget-1 request.
         tok0 = int(torch.argmax(logits[0, tp - 1], dim=-1))
         return kvs, tok0
+
+    def _remote_prefill(self, toks: np.ndarray, tp: int, want_kv: bool,
+                        rank: Optional[int] = None, warm: bool = False) -> Tuple[list, int]:
+        """:meth:`_prefill` on a prefill rank (the next in turn, or
+        ``rank``): the first token comes back, and the K/V rows too when
+        ``want_kv`` and the token does not end the request."""
+        sp = self._split
+        r = sp.next_rank() if rank is None else rank
+        lb = toks.shape[1]
+        tok0 = sp.call(r, sp.PREFILL, tp, lb, int(want_kv), torch.from_numpy(toks))
+        kvs = None
+        if want_kv and not (self.eos_id is not None and tok0 == self.eos_id):
+            spec = [((self._L, 2, lb, self._Hk, self._hd), self.model.dtype)]
+            if warm:
+                kv = sp.data.recv(spec, r, sp.KV)[0]
+            else:
+                with _M_KV_HANDOFF.time():
+                    kv = sp.data.recv(spec, r, sp.KV)[0]
+                self._stats["kv_handoff_bytes"] += kv.numel() * kv.element_size()
+            kvs = [(kv[i, 0][None], kv[i, 1][None]) for i in range(self._L)]
+        if not warm:
+            self._stats["remote_prefills"] += 1
+        return kvs, tok0
+
+    def follow(self) -> Dict[str, Any]:
+        """A rank other than the owner of a split engine: serve the owner's
+        prefill commands (and weights) until it closes.  Returns this rank's
+        counts."""
+        sp = self._split
+        prefills = 0
+        while True:
+            cmd, tp, lb, want_kv = sp.command()
+            if cmd == sp.STOP:
+                break
+            if cmd == sp.PARAMS:
+                sp.recv_params()
+                self._casts = weight_casts(self.model)
+                continue
+            toks = sp.control.recv([((1, lb), torch.int64)], sp.owner_rank, sp.TOKENS)[0]
+            with torch.no_grad(), use_weight_casts(self._casts):
+                kvs, tok0 = self._prefill(toks.to(self.device), tp)
+                sp.control.send([torch.tensor([tok0], dtype=torch.int64)], sp.owner_rank, sp.TOKEN0)
+                if want_kv and not (self.eos_id is not None and tok0 == self.eos_id):
+                    sp.data.send([torch.stack([torch.stack((k[0], v[0])) for k, v in kvs])],
+                                 sp.owner_rank, sp.KV)
+            prefills += 1
+        sp.close()
+        return {"rank": sp.rank, "role": "prefill" if sp.prefill else "decode",
+                "prefills": prefills}
+
+    def close(self) -> None:
+        """The owner of a split engine: release the other ranks (each
+        leaves :meth:`follow`).  A no-op otherwise."""
+        if self._split is not None and self._split.owner:
+            self._split.stop()
 
     def _join(self, slot: int, row: np.ndarray, tp: int, tok0: int, rem0: int,
               kvs: list, block_ids: List[int]) -> None:
@@ -289,7 +447,10 @@ class ContinuousBatchingEngine:
             self._stats["prefill_pad_tokens"] += pad
             _M_PAD_TOKENS.inc(pad)
         with torch.no_grad(), use_weight_casts(self._casts):
-            kvs, tok0 = self._prefill(torch.from_numpy(toks).to(self.device), tp)
+            if self._split is not None:
+                kvs, tok0 = self._remote_prefill(toks, tp, max_new > 1)
+            else:
+                kvs, tok0 = self._prefill(torch.from_numpy(toks).to(self.device), tp)
             self._stats["prefill_tokens"] += tp
             _M_PREFILL_TOKENS.inc(tp)
             emitted = [tok0]
@@ -361,12 +522,22 @@ class ContinuousBatchingEngine:
     def warmup(self) -> int:
         """Run every shape serving can hit before the first request: one
         prefill per prompt bucket and one decode step over the (all
-        inactive) slots, whose writes land in the null block.  Returns the
-        number of distinct shapes run."""
+        inactive) slots, whose writes land in the null block.  Split, each
+        prefill rank runs every bucket and the K/V cross once per block
+        count, as in the JAX engine.  Returns the number of distinct shapes
+        run."""
         shapes = sorted(set(bucket_shapes(self.max_prompt_len)))
+        crossed = set()  # block counts whose K/V have crossed
         with torch.no_grad(), use_weight_casts(self._casts):
             for lb in shapes:
-                self._prefill(torch.zeros((1, lb), dtype=torch.int64, device=self.device), lb)
+                toks = np.zeros((1, lb), np.int64)
+                if self._split is None:
+                    self._prefill(torch.from_numpy(toks).to(self.device), lb)
+                    continue
+                nbw = -(-lb // self.block_size)
+                for r in self._split.prefill_ranks:
+                    self._remote_prefill(toks, lb, nbw not in crossed, rank=r, warm=True)
+                    crossed.add(nbw)
             self._step_device()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

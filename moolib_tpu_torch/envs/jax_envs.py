@@ -195,11 +195,15 @@ class JaxProcCatch(JaxCatch):
 # --------------------------------------------------------------------------
 
 
-def batch_init(env: JaxEnv, key, batch_size: int) -> State:
+def batch_init(env: JaxEnv, key, batch_size: int, start: int = 0) -> State:
     """State of ``batch_size`` envs: env ``i`` is seeded with
-    ``fold_in(key, i)``, the per-env half of the seeding contract.  ``key``
-    is one raw key ``[2]``; the state lives on its device."""
-    return env.init(_threefry.fold_in(key, torch.arange(batch_size, device=key.device)))
+    ``fold_in(key, start + i)``, the per-env half of the seeding contract.
+    ``start`` is the global index of the first env: a rank holding envs
+    ``[start, start + batch_size)`` of a batch sharded over ranks seeds them
+    as the whole batch does.  ``key`` is one raw key ``[2]``; the state
+    lives on its device."""
+    idx = torch.arange(start, start + batch_size, device=key.device)
+    return env.init(_threefry.fold_in(key, idx))
 
 
 def batch_observe(env: JaxEnv, state) -> torch.Tensor:

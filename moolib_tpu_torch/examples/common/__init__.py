@@ -224,10 +224,12 @@ def mesh_flags_from_env():
     return None if spec is None else Config(json.loads(spec))
 
 
-def spawn_mesh_ranks(module: str, flags, world: int):
-    """Start ranks 1..world-1 of this host (the caller is rank 0): each runs
-    ``python -m module`` on the same flags (JSON in ``MOOLIB_MESH_FLAGS``)
-    with the ``torchrun`` variables set.  Returns (coordinator address,
+def spawn_mesh_ranks(module: str, flags, world: int, host_rank: int = 0):
+    """Start every rank of this host but ``host_rank``, the caller's: each
+    runs ``python -m module`` on the same flags (JSON in
+    ``MOOLIB_MESH_FLAGS``) with the ``torchrun`` variables set.  A host
+    whose ranks have roles (the Sebulba split's actor and learner ranks)
+    keeps the rank that owns its loop.  Returns (coordinator address,
     child processes)."""
     import json
     import socket
@@ -240,7 +242,9 @@ def spawn_mesh_ranks(module: str, flags, world: int):
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
     procs = []
-    for r in range(1, world):
+    for r in range(world):
+        if r == host_rank:
+            continue
         env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                    WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world), RANK=str(r),
                    LOCAL_RANK=str(r), PYTHONPATH=root + os.pathsep + os.environ.get(
@@ -249,16 +253,17 @@ def spawn_mesh_ranks(module: str, flags, world: int):
     return f"127.0.0.1:{port}", procs
 
 
-def run_mesh_host(train, module: str, flags, on_stats, world: int):
-    """Rank 0 of a self-spawned mesh host: spawn the other ranks, run
-    ``train(flags, on_stats, (coordinator, world, 0))``, then join them
-    (killed if rank 0 failed).  The process group ``train`` joined is torn
-    down before returning, so the calling process can host another mesh."""
+def run_mesh_host(train, module: str, flags, on_stats, world: int, host_rank: int = 0):
+    """The loop-owning rank (``host_rank``, 0 by default) of a self-spawned
+    mesh host: spawn the other ranks, run ``train(flags, on_stats,
+    (coordinator, world, host_rank))``, then join them (killed if this rank
+    failed).  The process group ``train`` joined is torn down before
+    returning, so the calling process can host another mesh."""
     import torch.distributed as dist
 
-    coordinator, children = spawn_mesh_ranks(module, flags, world)
+    coordinator, children = spawn_mesh_ranks(module, flags, world, host_rank)
     try:
-        out = train(flags, on_stats, (coordinator, world, 0))
+        out = train(flags, on_stats, (coordinator, world, host_rank))
     except BaseException:
         for c in children:
             c.kill()

@@ -45,9 +45,12 @@ rank processes: this one spawns ranks 1..N-1 (or all N run under
 the bucket padding and, for each batch, broadcasts one command and the
 padded prompts; every rank runs the sharded generate; rank 0 replies.
 ``--mesh`` with ``--engine`` or the resilient replica keeps the JAX
-meaning: those paths do not shard (the engine shards only its
-disaggregated prefill, ``--prefill_devices``, which needs the Sebulba mesh
-split and exits "not yet ported (slice 9c)").  With ``--localdir`` a
+meaning: those paths do not shard, but for the engine's disaggregated
+prefill: ``--engine --mesh dp=W --prefill_devices N`` runs W rank
+processes, the first N prefill and the rest decode
+(``engine.ContinuousBatchingEngine(mesh=, prefill_devices=)``); this
+process is the first decode rank and owns the Rpc queue and the slots, and
+spawns the others (or all W run under ``torchrun``).  With ``--localdir`` a
 serving replica watches the autoscaler's decommission flag there and
 leaves when it appears.
 """
@@ -293,20 +296,29 @@ async def _serve_until_decommissioned(loop, localdir, replica, rpc):
         return None
 
 
-def _unported(flags) -> list:
-    """(flag, slice) for every flag set to a path this slice does not port."""
-    found = []
-    if flags.prefill_devices and flags.mesh and flags.engine:
-        found.append(("--prefill_devices (disaggregated prefill over the Sebulba "
-                      "mesh split)", "9c"))
-    return found
+def _split_engine(flags) -> bool:
+    """``--engine --mesh ... --prefill_devices N``: disaggregated prefill."""
+    return bool(flags.engine and flags.mesh and flags.prefill_devices)
+
+
+def _owner_rank(flags) -> int:
+    """The rank that owns the Rpc queue: rank 0 of a tensor-parallel
+    server, the first decode rank of a split engine."""
+    return flags.prefill_devices if _split_engine(flags) else 0
 
 
 def _mesh_world(flags) -> int:
-    """Rank processes of a tensor-parallel server (0: none): ``--mesh`` on
-    the plain server; the engine and the resilient replica do not shard
-    (the JAX package's meaning)."""
+    """Rank processes of a sharded server (0: none): ``--mesh`` on the
+    plain server (tensor parallel), or on the engine with
+    ``--prefill_devices`` (a split engine: prefill ranks, then decode
+    ranks); the engine alone and the resilient replica do not shard (the
+    JAX package's meaning)."""
     axes = parallel.mesh.parse_axes(flags.mesh)
+    if axes and flags.listen is not None and _split_engine(flags):
+        if any(v == -1 for v in axes.values()):
+            raise ValueError("--prefill_devices needs every --mesh axis's size")
+        parallel.split_mesh(axes, flags.prefill_devices)  # the JAX package's errors
+        return math.prod(axes.values())
     if not axes or flags.listen is None or flags.engine or flags.broker or \
             flags.broker_addrs or flags.publisher:
         return 0
@@ -334,12 +346,17 @@ def _mesh_rank(flags, coordinator, world: int, rank):
 
 
 def _follow_main(flags) -> None:
-    """A rank other than 0 of a tensor-parallel server."""
+    """A rank of a sharded server other than the one that owns the Rpc
+    queue: a tensor-parallel rank, or a split engine's prefill (or other
+    decode) rank, serving the owner's commands until it closes."""
     import torch.distributed as dist
 
     mesh, model, _ = _mesh_rank(flags, None, _mesh_world(flags), None)
     try:
-        follow(model, flags.max_new_tokens, mesh)
+        if _split_engine(flags):
+            _make_engine(flags, model, mesh).follow()
+        else:
+            follow(model, flags.max_new_tokens, mesh)
     finally:
         dist.destroy_process_group()
 
@@ -386,17 +403,25 @@ def _replica(flags, rpc, model, broker_list):
     )
 
 
-def _engine_replica(flags, rpc, model, broker_list):
+def _make_engine(flags, model, mesh=None):
+    """The engine of every rank (collectively when split)."""
+    from ..engine import ContinuousBatchingEngine
+
+    return ContinuousBatchingEngine(
+        model, slots=flags.slots or flags.batch_size, block_size=flags.block_size,
+        max_prompt_len=flags.seq_len, mesh=mesh, prefill_devices=flags.prefill_devices,
+    )
+
+
+def _engine_replica(flags, rpc, model, broker_list, mesh=None):
     """The continuous-batching arm: slots over a paged KV pool under the
     same ServeService contract (``engine.EngineService``).  ``warmup()`` runs
-    every prefill bucket and the decode step before the readiness line."""
+    every prefill bucket and the decode step before the readiness line.
+    Returns the replica and its engine."""
     from .. import serving as serving_mod
-    from ..engine import ContinuousBatchingEngine, EngineService
+    from ..engine import EngineService
 
-    engine = ContinuousBatchingEngine(
-        model, slots=flags.slots or flags.batch_size, block_size=flags.block_size,
-        max_prompt_len=flags.seq_len,
-    )
+    engine = _make_engine(flags, model, mesh)
     engine.warmup()
     if flags.service_delay_ms > 0:
         _eng_step = engine.step
@@ -416,7 +441,7 @@ def _engine_replica(flags, rpc, model, broker_list):
         group=flags.group,
         publisher=flags.publisher,
         model_channel=flags.model_channel,
-    )
+    ), engine
 
 
 def _client(flags, broker_list) -> None:
@@ -526,7 +551,8 @@ def main(argv=None):
                    help="engine KV pool block size in tokens")
     p.add_argument("--prefill_devices", type=int, default=0,
                    help="with --engine and --mesh: disaggregated prefill on the first N "
-                   "mesh devices (not yet ported: slice 9c)")
+                   "mesh ranks; the rest decode, and this process is the first decode "
+                   "rank (it spawns the others unless torchrun started them)")
     p.add_argument("--service_delay_ms", type=float, default=0.0,
                    help="add this many milliseconds to every service iteration "
                    "(a load-testing hook that makes saturation deterministic)")
@@ -534,9 +560,6 @@ def main(argv=None):
                    help="per-replica scratch dir: the autoscaler's decommission "
                    "flag is polled here")
     flags = p.parse_args(argv)
-    unported = _unported(flags)
-    if unported:
-        raise SystemExit("; ".join(f"{f}: not yet ported (slice {n})" for f, n in unported))
     # One broker list everywhere below: --broker_addrs (HA) wins, --broker
     # stays as the single-address alias.
     broker_list = [a.strip() for a in (flags.broker_addrs or "").split(",") if a.strip()]
@@ -553,10 +576,10 @@ def main(argv=None):
     if world:
         import os
 
-        if os.environ.get("RANK", "0") != "0":  # under torchrun: not the Rpc owner
-            _follow_main(flags)
+        if int(os.environ.get("RANK", _owner_rank(flags))) != _owner_rank(flags):
+            _follow_main(flags)  # under torchrun: not the Rpc owner
             return
-        _serve_mesh(flags, world)
+        _serve_mesh(flags, world, broker_list)
         return
     device = resolve(flags.device)
     telemetry.init_from_env()
@@ -564,9 +587,11 @@ def main(argv=None):
     _serve_main(flags, model, device, broker_list)
 
 
-def _serve_mesh(flags, world: int) -> None:
-    """Rank 0 of a tensor-parallel server: spawn ranks 1..N-1 unless
-    ``torchrun`` started them, serve, then release and join them."""
+def _serve_mesh(flags, world: int, broker_list=()) -> None:
+    """The Rpc owner of a sharded server (rank 0 of a tensor-parallel
+    server, the first decode rank of a split engine): spawn the other
+    ranks unless ``torchrun`` started them, serve, then release and join
+    them."""
     import os
 
     import torch.distributed as dist
@@ -578,12 +603,13 @@ def _serve_mesh(flags, world: int) -> None:
     coordinator = None
     if "RANK" not in os.environ:
         coordinator, children = spawn_mesh_ranks(
-            "moolib_tpu_torch.examples.lm_serve", Config(vars(flags)), world)
+            "moolib_tpu_torch.examples.lm_serve", Config(vars(flags)), world,
+            host_rank=_owner_rank(flags))
     try:
         mesh, model, device = _mesh_rank(flags, coordinator, world,
-                                         None if "RANK" in os.environ else 0)
+                                         None if "RANK" in os.environ else _owner_rank(flags))
         telemetry.init_from_env()
-        _serve_main(flags, model, device, [], mesh=mesh)
+        _serve_main(flags, model, device, list(broker_list), mesh=mesh)
     except BaseException:
         for c in children:
             c.kill()
@@ -600,7 +626,7 @@ def _serve_main(flags, model, device, broker_list, mesh=None) -> None:
     rpc = Rpc()
     rpc.set_name(flags.name)
     rpc.listen(flags.listen)
-    replica = None
+    replica = engine = None
     try:
         # Every shape is run BEFORE the readiness line: clients arriving at
         # "serving" never queue behind a warm-up.  Harnesses key on both
@@ -613,7 +639,7 @@ def _serve_main(flags, model, device, broker_list, mesh=None) -> None:
             nbuckets = len(_bucket_shapes(flags.batch_size))
         print(f"precompiling {nbuckets} bucket shape(s) [device={device}]", flush=True)
         if flags.engine:
-            replica = _engine_replica(flags, rpc, model, broker_list)
+            replica, engine = _engine_replica(flags, rpc, model, broker_list, mesh=mesh)
             loop = replica.loop()
         elif broker_list or flags.publisher:
             replica = _replica(flags, rpc, model, broker_list)
@@ -630,6 +656,8 @@ def _serve_main(flags, model, device, broker_list, mesh=None) -> None:
     finally:
         if replica is not None:
             replica.close()
+        if engine is not None:
+            engine.close()  # a split engine's other ranks leave follow()
         rpc.close()
 
 

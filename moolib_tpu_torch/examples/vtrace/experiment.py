@@ -133,7 +133,9 @@ def make_flags(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--batcher_max_outstanding", type=int, default=None,
-                   help="bound the learn batcher's ready queue (default unbounded)")
+                   help="bound the learn batcher's ready queue (default unbounded); "
+                   "with --actor_mesh, the unrolls the actor ranks may run ahead "
+                   "of the learner (default 2)")
     p.add_argument(
         "--device_rollout", type=_bool_flag, default=True,
         help="device-resident actor pipeline: [T+1, B] rollout buffers on the "
@@ -171,9 +173,13 @@ def make_flags(argv=None):
     p.add_argument("--mesh", default=None,
                    help='learner mesh axes, e.g. "dp=2" or "dp=2,tp=2": one rank '
                    "process each (spawned by this process, or started by torchrun)")
-    # A flag of the JAX example whose plane the port has not yet;
-    # unported() names it and its slice.
-    p.add_argument("--actor_mesh", type=int, default=0, help="not yet ported")
+    p.add_argument("--actor_mesh", type=int, default=0,
+                   help="Sebulba split (needs --mesh and --env_backend jax): the first N "
+                   "ranks of the mesh run the on-device rollout as a dp actor mesh, the "
+                   "rest are the learner mesh; each completed unroll goes from the actor "
+                   "ranks to the learner ranks, each receiving its columns "
+                   "(batcher_d2d_bytes_total card to card, batcher_staged_bytes_total "
+                   "through host memory)")
     p.add_argument("--env_backend", default="envpool", choices=["envpool", "jax"],
                    help="envpool: host envs in worker processes; jax: batched "
                    "envs on the device inside the act step (envs.jax_envs: "
@@ -320,8 +326,6 @@ def unported(flags) -> list:
     """(flag, slice) for every flag set to a plane the port does not have
     yet."""
     out = []
-    if flags.get("actor_mesh"):
-        out.append(("--actor_mesh", "9c"))
     from ... import parallel
 
     other = [k for k, v in parallel.mesh.parse_axes(flags.get("mesh") or "").items()
@@ -351,7 +355,12 @@ class _MeshLearner:
     network and its optimizer state, which its actors, the Accumulator's
     model sync and the checkpoints read, and refreshes its blocks from it
     after every update (an elementwise update of a block is the block of
-    the whole update, bit for bit)."""
+    the whole update, bit for bit).
+
+    Under ``--actor_mesh`` this is the learner mesh of the split and rank 0
+    is its first rank; the batch is not broadcast: each rank takes its
+    ``dp`` block straight from the actor ranks (``feed``, the
+    ``parallel.collectives.UnrollHandoff``)."""
 
     LEARN, APPLY, STATE_IN, STOP = range(1, 5)
 
@@ -379,6 +388,7 @@ class _MeshLearner:
                 self.named = dict(model.named_parameters())
                 self.opt = make_optimizer(model.parameters(), flags)
         self.lnamed = dict(self.learner.named_parameters())
+        self.feed = None
         self.step = parallel.make_train_step(
             lambda p, b, r: compute_loss(b[0], b[1], self.learner, flags), mesh=mesh,
             grad_spec=layout, batch_spec=parallel.PartitionSpec())
@@ -408,6 +418,10 @@ class _MeshLearner:
         local = (nest.tree_map(lambda x: self._block(x, 1), batch),
                  nest.tree_map(lambda x: self._block(x, 0), initial_core))
         return self.step(self.lnamed, local, None)
+
+    def learn_local(self, batch, initial_core):
+        """:meth:`learn` on this rank's own block (``[T+1, B/dp, ...]``)."""
+        return self.step(self.lnamed, (batch, initial_core), None)
 
     def apply(self, grads=None) -> None:
         from ...parallel import broadcast_tree
@@ -452,14 +466,18 @@ class _MeshLearner:
         from ...parallel import gather_full
 
         while True:
-            cmd, _ = self.control.receive()
-            if cmd == self.LEARN:
+            cmd, arg = self.control.receive()
+            if cmd == self.LEARN and self.feed is not None:
+                gather_full(self.learn_local(*self.feed.take())[2], dst=0)
+            elif cmd == self.LEARN:
                 gather_full(self.learn()[2], dst=0)
             elif cmd == self.APPLY:
                 self.apply()
             elif cmd == self.STATE_IN:
                 self.load_state()
             elif cmd == self.STOP:
+                if self.feed is not None:
+                    self.feed.drain(arg)
                 break
             else:
                 raise RuntimeError(f"vtrace mesh rank {self.rank}: unknown command {cmd}")
@@ -481,10 +499,221 @@ class _MeshLearner:
             "rank": self.rank, "coords": coords, "params_sha256": sha(self.lnamed),
             "replicated_sha256": sha([k for k in self.lnamed if k not in self.held])})
 
-    def stop(self) -> list:
-        """Rank 0: release the other ranks; returns every rank's summary."""
-        self.command(self.STOP)
+    def stop(self, unrolls: int = 0) -> list:
+        """Rank 0: release the other ranks (under ``--actor_mesh`` each first
+        drains its pieces of the first ``unrolls`` unrolls); returns every
+        rank's summary."""
+        self.control.send(self.STOP, unrolls)
         return self._summaries()
+
+
+# Sebulba control-plane traffic: the bytes of parameters the actor ranks
+# take per learner version change (docs/TELEMETRY.md).
+_M_PARAM_SYNC = telemetry.get_registry().counter(
+    "actor_param_sync_bytes_total",
+    "Sebulba actor-submesh param refreshes (learner -> actor devices)",
+)
+# The boundary an actor rank must not cross per frame (the Anakin plane's
+# contract; the handoff counts its own bytes).
+BOUNDARY = ("actor_h2d_bytes_total", "actor_d2h_bytes_total", "batcher_h2d_bytes_total",
+            "batcher_d2h_bytes_total")
+HANDOFF_COUNTERS = ("batcher_d2d_bytes_total", "batcher_staged_bytes_total")
+
+
+def counters(names) -> dict:
+    """This process's totals of the counters ``names``."""
+    values = telemetry.get_registry().counter_values()
+    return {n: sum(v for k, v in values.items() if k.split("{")[0] == n) for n in names}
+
+
+def handoff_counted(since: dict) -> dict:
+    """The handoff bytes this rank received since the counters read
+    ``since``, by route."""
+    now = counters(HANDOFF_COUNTERS)
+    return {k: now[k] - since[k] for k in HANDOFF_COUNTERS}
+
+
+class _SebulbaFeed:
+    """The loop owner's side of ``--actor_mesh`` (learner rank 0).  Each
+    unroll an actor rank makes needs a ticket: ``(GO, version, refresh)``,
+    the parameters after it when the learner's version changed since the
+    last refresh (``actor_param_sync_bytes_total``, one replica each).  The
+    owner issues ticket ``u`` only once the learner has consumed unroll
+    ``u - window``, so the actors run at most ``window`` unrolls ahead
+    (``--batcher_max_outstanding``, default 2; at least the unrolls one
+    learner batch spans, plus one).  Actor rank 0 answers each unroll with
+    the mesh's cumulative frame and episode counts.  Tickets, parameters
+    and counts ride a gloo control channel; the unrolls ride the data
+    handoff."""
+
+    GO, STOP = 1, 2
+    TICKET, PARAMS, STATS = 1, 2, 4
+
+    def __init__(self, flags, handoff, control, actor_ranks, named):
+        self.uh, self.control, self.actors, self.named = handoff, control, actor_ranks, named
+        self.window = max(flags.batcher_max_outstanding or 2, -(-handoff.bs // handoff.Bt) + 1)
+        self.issued, self.sent_version, self.refreshes = 0, -1, 0
+        self.param_bytes = sum(p.numel() * p.element_size() for p in named.values())
+        self._sent: list = []
+        self._stats: list = []
+        self.frames = 0
+        self.snap = {"episodes": 0, "return_sum": 0.0, "len_sum": 0}
+        self.learn_s: list = []  # each learn section's seconds
+
+    def _ticket(self, cmd: int, version: int, refresh: bool) -> None:
+        t = torch.tensor([cmd, version, int(refresh)], dtype=torch.int64)
+        params = [p.detach() for p in self.named.values()]
+        sends = []
+        for r in self.actors:
+            sends.append(self.control.isend([t], r, self.TICKET))
+            if refresh:
+                sends.append(self.control.isend(params, r, self.PARAMS))
+        self._sent.append(sends)
+
+    def _read_stats(self, leaves) -> None:
+        frames, episodes, return_sum, len_sum = leaves[0].tolist()
+        self.frames = int(frames)
+        self.snap = {"episodes": int(episodes), "return_sum": return_sum,
+                     "len_sum": int(len_sum)}
+        # The actors acted on the oldest ticket: its sends have landed.
+        for w in self._sent.pop(0):
+            w.wait()
+
+    def pump(self, version: int) -> None:
+        """Issue the tickets the window allows, post the next batch's
+        receives once its unrolls are ticketed, and read the counts that
+        arrived."""
+        uh = self.uh
+        consumed = uh.taken * uh.bs // uh.Bt
+        while self.issued < consumed + self.window:
+            refresh = version != self.sent_version
+            self._ticket(self.GO, version, refresh)
+            if refresh:
+                self.sent_version = version
+                self.refreshes += 1
+                _M_PARAM_SYNC.inc(self.param_bytes)
+            self._stats.append(self.control.irecv([((4,), torch.float64)], self.actors[0],
+                                                  self.STATS, on_host=True))
+            self.issued += 1
+        if -(-(uh.taken + 1) * uh.bs // uh.Bt) <= self.issued:
+            uh.post()
+        while self._stats and self._stats[0].done():
+            self._read_stats(self._stats.pop(0).wait())
+
+    def ready(self) -> bool:
+        return self.uh.ready()
+
+    def take(self) -> tuple:
+        return self.uh.take()
+
+    def stop(self) -> None:
+        """Stop the actor ranks and receive what they were still sending."""
+        self._ticket(self.STOP, 0, False)
+        self.uh.drain(self.issued)
+        while self._stats:
+            self._read_stats(self._stats.pop(0).wait())
+        for sends in self._sent:
+            for w in sends:
+                w.wait()
+        self.control.close()
+        self.uh.handoff.close()
+
+
+def _sebulba_setup(flags, mesh, model, jax_env, device) -> tuple:
+    """Every rank of an ``--actor_mesh`` run, collectively: split ``mesh``,
+    check the halves disjoint, make the learner mesh's groups over several
+    axes (a rank outside a mesh takes part in making its groups) and the
+    two handoffs.  Returns ``(actor mesh, learner mesh, unroll handoff,
+    control)``."""
+    from ... import parallel
+    from ...parallel.collectives import Handoff, UnrollHandoff, axes_group
+
+    actor_mesh, learner = parallel.split_mesh(mesh, flags.actor_mesh)
+    parallel.check_disjoint(learner, actor_mesh, what_a="--mesh (learner remainder)",
+                            what_b="--actor_mesh")
+    sizes = parallel.mesh.axis_sizes(learner)
+    names = tuple(sizes)
+    live = tuple(a for a in names if sizes[a] > 1)
+    for axes in (names,) + ((live,) if live != names else ()):
+        if len(axes) > 1:
+            axes_group(learner, axes)
+    B = flags.actor_batch_size * flags.num_actor_batches
+    uh = UnrollHandoff(actor_mesh, learner, B // flags.actor_mesh, flags.batch_size,
+                       rollout.anakin_column_specs(jax_env, model, flags.unroll_length), device)
+    control = Handoff(device, backend="gloo", counted=False)
+    return actor_mesh, learner, uh, control
+
+
+def _sebulba_actor(flags, model, jax_env, actor_mesh, uh, control, owner: int,
+                   device) -> dict:
+    """An actor rank of an ``--actor_mesh`` run: its ``dp`` block of the
+    envs on the device (``AnakinRollout(mesh=)``, the JAX loop's keys),
+    one unroll per ticket from the owner, each sent to the learner ranks
+    as it completes.  Returns its summary."""
+    import torch.distributed as dist
+
+    rng = _threefry.split(_threefry.seed(flags.seed), 2)[0]
+    rng, env_rng, act_key = _threefry.split(rng, 3)
+    words = act_key.tolist()
+    roll = rollout.AnakinRollout(
+        model, jax_env, flags.actor_batch_size * flags.num_actor_batches,
+        flags.unroll_length, env_key=env_rng, act_seed=(words[0] << 32) | words[1],
+        mesh=actor_mesh)
+    named = dict(model.named_parameters())
+    pspecs = [(tuple(p.shape), p.dtype) for p in named.values()]
+    timer = StepTimer()
+    before = counters(BOUNDARY)
+    sync = uh.handoff.route == "staged"
+    sent, u, refreshes = [], 0, 0
+    seconds = {"act": [], "handoff": []}  # per unroll
+    while True:
+        cmd, _, refresh = control.recv([((3,), torch.int64)], owner, _SebulbaFeed.TICKET,
+                                       on_host=True)[0].tolist()
+        if cmd == _SebulbaFeed.STOP:
+            break
+        if refresh:
+            with timer.section("param_sync"):
+                got = control.recv(pspecs, owner, _SebulbaFeed.PARAMS)
+                with torch.no_grad():
+                    for p, x in zip(named.values(), got):
+                        p.copy_(x)
+            refreshes += 1
+        with timer.section("act"):
+            unroll = roll.unroll()
+            if sync:
+                # The staged send waits for the unroll anyway; waiting here
+                # gives the act section the unroll's own time.
+                torch.cuda.synchronize(device)
+        with timer.section("handoff"):
+            uh.send(u, unroll, roll.completed_initial_core)
+        for k, v in seconds.items():
+            v.append(timer.last[k])
+        snap = roll.stats()
+        if uh.actor_index == 0:
+            t = torch.tensor([roll.frames_done, snap["episodes"], snap["return_sum"],
+                              snap["len_sum"]], dtype=torch.float64)
+            sent.append(control.isend([t], owner, _SebulbaFeed.STATS))
+        u += 1
+    uh.wait_sent()
+    for w in sent:
+        w.wait()
+    control.close()
+    after = counters(BOUNDARY)
+    return {"role": "actor", "rank": dist.get_rank(), "unrolls": u,
+            "envs": roll.local_batch_size, "frames": roll.local_batch_size * (
+                u * flags.unroll_length + (1 if u else 0)),
+            "param_refreshes": refreshes, "sections": timer.summary(), "seconds": seconds,
+            "boundary_bytes": {k: after[k] - before[k] for k in BOUNDARY},
+            "digests": uh.handoff.digests()}
+
+
+def _gather_world(summary: dict) -> list:
+    """Every rank's summary, in rank order, on every rank."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, summary)
+    return out
 
 
 def _mesh_world(flags) -> int:
@@ -503,8 +732,19 @@ def _mesh_world(flags) -> int:
     if flags.coordinator:
         raise ValueError("--mesh and --coordinator both join a torch.distributed "
                          "process group; pass one")
+    if flags.actor_mesh:
+        # Sebulba: the learner is what the split leaves (the JAX example
+        # splits, then checks the learner mesh).
+        if any(v == -1 for v in axes.values()):
+            raise ValueError("--actor_mesh needs every --mesh axis's size")
+        B = flags.actor_batch_size * flags.num_actor_batches
+        if B % flags.actor_mesh:
+            raise ValueError(f"actor-mesh dp={flags.actor_mesh} must divide batch_size={B}")
+        axes = parallel.split_mesh(axes, flags.actor_mesh)[1]
     if flags.batch_size % axes.get("dp", 1):
         raise ValueError("the dp mesh axis size must divide --batch_size")
+    if flags.actor_mesh:
+        return flags.actor_mesh + math.prod(axes.values())
     if any(v == -1 for v in axes.values()):
         if "WORLD_SIZE" not in os.environ:
             raise ValueError("--mesh with a -1 axis needs the world size: start the "
@@ -566,6 +806,12 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
     missing = unported(flags)
     if missing:
         raise SystemExit("; ".join(f"{f}: not yet ported (slice {n})" for f, n in missing))
+    if flags.actor_mesh and (not flags.mesh or flags.env_backend != "jax"):
+        raise ValueError(
+            "--actor_mesh is the Sebulba split: it needs --mesh (devices to "
+            "split) and --env_backend jax (the actor submesh runs on-device "
+            "envs)"
+        )
     if flags.checkpoint_dir and not flags.shard_grads:
         raise ValueError(
             "--checkpoint_dir is the distributed checkpoint plane and "
@@ -576,10 +822,14 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
         world = _mesh_world(flags)
         if world and "RANK" not in os.environ:
             return common.run_mesh_host(train, "moolib_tpu_torch.examples.vtrace.experiment",
-                                        flags, on_stats, world)
+                                        flags, on_stats, world, host_rank=flags.actor_mesh)
         _dist_args = (None, world, None) if world else None
-    follower = _dist_args is not None and int(
-        _dist_args[2] if _dist_args[2] is not None else os.environ["RANK"]) != 0
+    # The loop's owner is the learner mesh's rank 0: global rank 0 without
+    # --actor_mesh, the first rank after the actor ranks with it.
+    rank = None if _dist_args is None else int(
+        _dist_args[2] if _dist_args[2] is not None else os.environ["RANK"])
+    actor = rank is not None and rank < flags.actor_mesh
+    follower = rank is not None and not actor and rank != flags.actor_mesh
     # Before the first kernel load (--compile_cache_dir /
     # MOOLIB_COMPILE_CACHE; no-op when neither is set).
     utils.init_compile_cache(flags.compile_cache_dir)
@@ -594,14 +844,17 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
     _faults.install_from_env()  # opt-in chaos (MOOLIB_FAULTS; no-op unset)
 
     jax_env = None
-    if follower:
-        # A mesh rank other than 0 runs no actors: rank 0 sends its batches.
+    if follower or actor or (flags.actor_mesh and flags.env_backend == "jax"):
+        # A learner rank other than the owner runs no actors: the owner (or,
+        # with --actor_mesh, the actor ranks) sends its batches.  Every rank
+        # of a split knows the env, for the columns the handoff carries.
         if flags.env_backend == "jax":
             from ...envs import make_jax_env
 
             jax_env = make_jax_env(flags.env)
             num_actions, obs_shape = jax_env.num_actions, tuple(jax_env.obs_spec[0])
-            jax_env = None
+            if not flags.actor_mesh:
+                jax_env = None
         else:
             _, num_actions, obs_shape = make_env_factory(flags)
         envs = []
@@ -638,13 +891,13 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
             rank=flags.process_id,
         )
 
-    mesh = host = None
+    mesh = host = feed = None
     if _dist_args is not None:
         # After the pools forked: a CUDA rank binds its card here.
         from ... import parallel
 
-        coordinator, world, rank = _dist_args
-        parallel.initialize_distributed(coordinator, world if coordinator else None, rank,
+        coordinator, world, _rank = _dist_args
+        parallel.initialize_distributed(coordinator, world if coordinator else None, _rank,
                                         device=device)
         mesh = parallel.parse_mesh_spec(flags.mesh, device_type=device.type)
         device = resolve(flags.device)
@@ -653,10 +906,30 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
     model = make_model(flags, num_actions, obs_shape, device=device, generator=gen)
     opt = make_optimizer(model.parameters(), flags)
     named = dict(model.named_parameters())
+    if mesh is not None and flags.actor_mesh:
+        actor_mesh, mesh, uh, control = _sebulba_setup(flags, mesh, model, jax_env, device)
+        handoff0 = counters(HANDOFF_COUNTERS)
+        owner = flags.actor_mesh
+        if actor:
+            summary = _sebulba_actor(flags, model, jax_env, actor_mesh, uh, control,
+                                     owner, device)
+            _gather_world(summary)
+            return summary
+        jax_env = None  # the learner ranks run no envs
     if mesh is not None:
         host = _MeshLearner(flags, mesh, model, opt, named, device)
+        if flags.actor_mesh:
+            host.feed = uh
+            if not follower:
+                feed = _SebulbaFeed(flags, uh, control, list(range(flags.actor_mesh)), named)
         if follower:
-            return host.follow()
+            summary = host.follow()
+            if flags.actor_mesh:
+                uh.handoff.close()
+                summary = dict(summary, digests=uh.handoff.digests(),
+                               handoff_bytes=handoff_counted(handoff0))
+                _gather_world(summary)
+            return summary
     B = flags.actor_batch_size
     T = flags.unroll_length
 
@@ -857,10 +1130,10 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
             model, jax_env, B * flags.num_actor_batches, T,
             env_key=env_rng, act_seed=(act_words[0] << 32) | act_words[1],
         )
-    env_states = [] if anakin is not None else [
+    env_states = [] if anakin is not None or feed is not None else [
         common.EnvBatchState(B, T, model) for _ in range(flags.num_actor_batches)]
     act_gen = torch.Generator(device=device).manual_seed(flags.seed + 1)
-    if flags.device_rollout and anakin is None:
+    if flags.device_rollout and env_states:
         # Rollout buffers on the card, sized from the pool's discovered spec
         # so the env's own dtype — uint8 for frames — is what crosses.
         env_obs_shape, env_obs_dtype = envs[0].obs_spec["state"]
@@ -885,9 +1158,9 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
         """Fold the device-side episode aggregates into the stats (the
         deltas since the last snapshot): the Anakin plane's only D2H, per
         stats/log tick, not per frame."""
-        if anakin is None:
+        if anakin is None and feed is None:
             return
-        snap = anakin.stats()
+        snap = anakin.stats() if anakin is not None else feed.snap
         de = snap["episodes"] - anakin_prev["episodes"]
         stats["mean_episode_return"] += common.StatMean(
             snap["return_sum"] - anakin_prev["return_sum"], de
@@ -980,6 +1253,11 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
                         host.load_state()
                     accumulator.set_parameters(named)
 
+            if feed is not None:
+                # Sebulba: tickets out, the actor ranks' counts in.
+                feed.pump(accumulator.model_version())
+                stats["steps_done"] += feed.frames - anakin_frames_seen
+                anakin_frames_seen = feed.frames
             if not accumulator.connected() or (
                     sgd_times and accumulator.cohort_size() < flags.min_cohort):
                 time.sleep(0.05)
@@ -1020,16 +1298,25 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
                     accumulator.zero_gradients()
                 stats["sgd_steps"] += 1
                 sgd_times.append((time.time(), anakin.frames_done if anakin is not None
+                                  else feed.frames if feed is not None
                                   else sum(e.step_count for e in env_states)))
-            elif not learn_batcher.empty() and accumulator.wants_gradients():
+            elif (feed.ready() if feed is not None else not learn_batcher.empty()) \
+                    and accumulator.wants_gradients():
                 with timer.section("learn"), wd.section("learn"):
-                    batch = _as_tensors(learn_batcher.get(), device)
-                    initial_core = (
-                        _as_tensors(core_batcher.get(), device)
-                        if core_batcher is not None else ()
-                    )
+                    if feed is not None:
+                        # This rank's block, straight from the actor ranks.
+                        batch, initial_core = feed.take()
+                    else:
+                        batch = _as_tensors(learn_batcher.get(), device)
+                        initial_core = (
+                            _as_tensors(core_batcher.get(), device)
+                            if core_batcher is not None else ()
+                        )
                     with telemetry.devmon.dispatch_span("vtrace.grad"):
-                        if host is not None:
+                        if feed is not None:
+                            host.command(host.LEARN)
+                            loss, aux, grads = host.learn_local(batch, initial_core)
+                        elif host is not None:
                             host.command(host.LEARN)
                             loss, aux, grads = host.learn(batch, initial_core)
                         else:
@@ -1040,6 +1327,8 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
                     # CUDA gradients go straight in: the Accumulator stages
                     # them into pinned memory with one event.
                     accumulator.reduce_gradients(flags.batch_size, grads)
+                if feed is not None:
+                    feed.learn_s.append(timer.last["learn"])
                 if "cost" not in devmon_cost:
                     # One count per geometry, outside the learn clock (a
                     # second forward+backward under FlopCounterMode; its
@@ -1047,6 +1336,9 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
                     devmon_cost["cost"] = telemetry.devmon.step_cost(
                         "vtrace.grad", learn_step, batch, initial_core
                     )
+            elif feed is not None:
+                # Sebulba: the actor ranks act; wait for their next unroll.
+                time.sleep(0.001)
             elif anakin is not None:
                 # --- act: Anakin -----------------------------------------
                 # One whole [T+1, B] unroll: env, model, auto-reset and the
@@ -1180,8 +1472,21 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
         h = hashlib.sha256()
         for k in sorted(named):
             h.update(named[k].detach().float().cpu().numpy().tobytes())
+        sebulba = None
+        if feed is not None:
+            feed.stop()
+            learners = host.stop(feed.issued)
+            world = _gather_world(dict(learners[0], digests=uh.handoff.digests(),
+                                       handoff_bytes=handoff_counted(handoff0)))
+            sebulba = {"actors": world[:flags.actor_mesh], "learners": world[flags.actor_mesh:],
+                       "unrolls": feed.issued, "param_refreshes": feed.refreshes,
+                       "learn_s": feed.learn_s,
+                       "param_bytes": feed.param_bytes, "window": feed.window,
+                       "route": uh.handoff.route, "unroll_bytes": uh.unroll_bytes(uh.Bt)}
         cohort_end = {
-            "ranks": host.stop() if host is not None else None,
+            "ranks": (sebulba["learners"] if sebulba is not None
+                      else host.stop() if host is not None else None),
+            "sebulba": sebulba,
             "model_version": accumulator.model_version(),
             "is_leader": accumulator.is_leader(),
             "params_sha256": h.hexdigest(),

@@ -5,8 +5,10 @@ pipeline over ``pp``.
 
 A mesh is a ``torch.distributed`` ``DeviceMesh`` over processes, one per
 rank; the elastic RPC stack (broker/group/accumulator) is the inter-host
-plane around it.  The Sebulba actor/learner split comes with ROADMAP
-slice 9c.  ``parallel.ring_attention`` stays the
+plane around it.  The Sebulba actor/learner split (``split_mesh``,
+``check_disjoint``) cuts one mesh into two, and
+``collectives.Handoff``/``UnrollHandoff`` carry tensors from one half's
+ranks to the other's.  ``parallel.ring_attention`` stays the
 module (its functions are not re-exported here, where the JAX package
 re-exports them), so ``from moolib_tpu_torch.parallel import
 ring_attention`` keeps giving the module it gave before the ring came.
@@ -20,6 +22,7 @@ from .mesh import (  # noqa: F401
     initialize_distributed,
     local_batch_size,
     make_mesh,
+    mesh_ranks,
     named,
     parse_mesh_spec,
     replicated,
@@ -28,6 +31,8 @@ from .mesh import (  # noqa: F401
     split_mesh,
 )
 from .collectives import (  # noqa: F401
+    Handoff,
+    UnrollHandoff,
     all_gather_axis,
     axes_group,
     axis_size,

@@ -58,6 +58,8 @@ the leaves' at the end of the step.
 from __future__ import annotations
 
 import math
+import queue
+import threading
 from typing import Any, List, Optional, Sequence
 
 import torch
@@ -212,7 +214,8 @@ def axes_group(mesh, axes: Sequence[str]):
     along those axes), and ``coords``: for each rank of that group, in
     group order, its index along each of ``axes``.  The first call for a
     given mesh and axes creates the groups of every coset, so every rank
-    of the world makes it, in the same order."""
+    of the world makes it, in the same order; a rank outside ``mesh`` (the
+    other half of a ``split_mesh``) gets ``(None, [])``."""
     axes = tuple(axes)
     key = (id(mesh), axes)
     if key not in _AXES_GROUPS:
@@ -228,9 +231,9 @@ def axes_group(mesh, axes: Sequence[str]):
                  else dist.new_group(row, use_local_synchronization=False))
             if me in row:
                 found = (g,)
-        group = found[0]
+        group = found[0] if found else None
         coords = []
-        for i in range(dist.get_world_size(group)):
+        for i in range(0 if group is None else dist.get_world_size(group)):
             r = dist.get_global_rank(group, i)
             pos = (grid == r).nonzero()[0].tolist()
             coords.append({a: pos[d] for a, d in zip(axes, dims)})
@@ -671,3 +674,341 @@ def broadcast_tree(tree: Optional[Any], mesh, device, axis_name: str = "dp",
             out[i] = buf[off:off + k].view(leaves[i].shape)
             off += k
     return treedef.unflatten(out)
+
+
+# --------------------------------------------------------------------------
+# The inter-mesh handoff (the Sebulba split, disaggregated prefill)
+# --------------------------------------------------------------------------
+
+
+def _as_bytes(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Every leaf's bytes, concatenated into one flat uint8 tensor on the
+    leaves' device."""
+    return torch.cat([x.contiguous().reshape(-1).view(torch.uint8) for x in leaves])
+
+
+def _spec_nbytes(spec) -> int:
+    shape, dtype = spec
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def _from_bytes(flat: torch.Tensor, specs) -> List[torch.Tensor]:
+    out, off = [], 0
+    for shape, dtype in specs:
+        n = _spec_nbytes((shape, dtype))
+        piece = flat[off:off + n]
+        if off % torch.empty((), dtype=dtype).element_size():
+            piece = piece.clone()  # a view must start on the dtype's alignment
+        out.append(piece.view(dtype).reshape(shape))
+        off += n
+    return out
+
+
+class _Sent:
+    """An ``isend`` in flight; holds its buffer until :meth:`wait`."""
+
+    __slots__ = ("work", "buf")
+
+    def __init__(self, work, buf):
+        self.work, self.buf = work, buf
+
+    def wait(self) -> None:
+        if self.buf is not None:
+            self.work.wait()
+            self.buf = None
+
+
+class _Pending:
+    """An ``irecv`` in flight: :meth:`wait` gives its leaves, counted by
+    route on arrival.  A gloo work reads as completed only once waited on,
+    and a wait that times out closes the link, so the handoff's watcher
+    thread waits on each receive in turn and :meth:`done` reads its
+    flag."""
+
+    __slots__ = ("handoff", "work", "buf", "specs", "key", "on_host", "leaves", "event",
+                 "error")
+
+    def __init__(self, handoff, work, buf, specs, key, on_host):
+        self.handoff, self.work, self.buf, self.specs = handoff, work, buf, specs
+        self.key, self.on_host, self.leaves = key, on_host, None
+        self.event, self.error = threading.Event(), None
+
+    def done(self) -> bool:
+        return self.event.is_set()
+
+    def wait(self) -> List[torch.Tensor]:
+        if self.leaves is None:
+            self.event.wait()
+            if self.error is not None:
+                raise self.error
+            h, buf = self.handoff, self.buf
+            if h.counted:
+                from ..batcher import count_handoff
+
+                count_handoff(buf.numel(), h.route == "direct")
+            h._digest(self.key, buf)
+            if not self.on_host and buf.device != h.device:
+                buf = buf.to(h.device, non_blocking=True)
+            self.leaves, self.buf = _from_bytes(buf, self.specs), None
+        return self.leaves
+
+
+class Handoff:
+    """Point-to-point crossings of tensor lists between ranks of two
+    meshes, one process per rank: the port's counterpart of the JAX
+    package's device-to-device ``device_put`` from one submesh's sharding to
+    another's (the Sebulba actor-to-learner unrolls, the engine's
+    prefill-to-decode K/V).  Nothing stops at a third rank.
+
+    A message is one list of tensors sent as one flat byte buffer; the
+    receiver names the ``(shape, dtype)`` of each leaf, and its leaves land
+    on ``device``.  The route follows the rest of the plane
+    (``mesh.choose_backend``, the backend the process group was made with,
+    or ``backend``): NCCL sends CUDA tensors card to card (``"direct"``,
+    counted in ``batcher_d2d_bytes_total``); gloo sends host buffers,
+    staging CUDA tensors through pinned memory where ranks share a card
+    (``"staged"``) or sending CPU tensors as they are (``"host"``), counted
+    in ``batcher_staged_bytes_total``.  The receiver counts, unless
+    ``counted=False`` (a control channel: tickets, commands, parameters).
+    Messages between two ranks under one ``tag`` arrive in the order they
+    were sent; NCCL matches in the order sent whatever the tag, so a
+    direct handoff carries one direction of one stream per pair of ranks.
+
+    ``digest=True`` on a send or receive folds its bytes into a running
+    sha256 per peer and direction (:meth:`digests`), so two ranks can show
+    that every byte of a stream arrived as sent (on the direct route that
+    costs a copy to the host).  Every rank of the world constructs the
+    handoff (its process group is created collectively)."""
+
+    def __init__(self, device, backend: Optional[str] = None, counted: bool = True):
+        self.device = torch.device(device)
+        backend = backend or dist.get_backend()
+        self.group = dist.new_group(backend=backend)
+        if backend == "nccl":
+            self.route = "direct"
+        else:
+            self.route = "staged" if self.device.type == "cuda" else "host"
+        self.counted = counted
+        self._digests: dict = {}
+        self._watch = None  # the watcher's queue of receives, once it runs
+
+    def _watcher(self, q) -> None:
+        while (p := q.get()) is not None:
+            try:
+                p.work.wait()
+            except BaseException as e:  # noqa: BLE001 - raised again by the receive's wait()
+                p.error = e
+            p.event.set()
+
+    def close(self) -> None:
+        """Stop the watcher thread (every receive posted has been waited)."""
+        if self._watch is not None:
+            self._watch.put(None)
+            self._watch = None
+
+    def _digest(self, key, buf: torch.Tensor) -> None:
+        if key is None:
+            return
+        import hashlib
+
+        h = self._digests.setdefault(key, hashlib.sha256())
+        h.update(buf.cpu().numpy().tobytes())
+
+    def digests(self) -> dict:
+        """``{"tx:<peer>" / "rx:<peer>": sha256 hex}`` of every stream sent or
+        received with ``digest=True``."""
+        return {f"{d}:{peer}": h.hexdigest() for (d, peer), h in sorted(self._digests.items())}
+
+    def isend(self, leaves: Sequence[torch.Tensor], dst: int, tag: int = 0,
+              digest: bool = False) -> _Sent:
+        buf = _as_bytes(leaves)
+        if self.route != "direct" and buf.device.type == "cuda":
+            host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(buf)
+            buf = host
+        self._digest(("tx", dst) if digest else None, buf)
+        return _Sent(dist.isend(buf, dst, group=self.group, tag=tag), buf)
+
+    def irecv(self, specs, src: int, tag: int = 0, digest: bool = False,
+              on_host: bool = False) -> _Pending:
+        """Post a receive; ``on_host`` keeps a gloo message's leaves in host
+        memory instead of copying them to ``device``."""
+        n = sum(_spec_nbytes(s) for s in specs)
+        if self.route == "direct":
+            buf = torch.empty((n,), dtype=torch.uint8, device=self.device)
+        else:
+            buf = torch.empty((n,), dtype=torch.uint8, pin_memory=self.route == "staged")
+        work = dist.irecv(buf, src, group=self.group, tag=tag)
+        pending = _Pending(self, work, buf, list(specs), ("rx", src) if digest else None,
+                           on_host)
+        if self._watch is None:
+            self._watch = queue.SimpleQueue()
+            threading.Thread(target=self._watcher, args=(self._watch,), daemon=True,
+                             name="handoff-watch").start()
+        self._watch.put(pending)
+        return pending
+
+    def send(self, leaves: Sequence[torch.Tensor], dst: int, tag: int = 0) -> None:
+        self.isend(leaves, dst, tag).wait()
+
+    def recv(self, specs, src: int, tag: int = 0, on_host: bool = False) -> List[torch.Tensor]:
+        return self.irecv(specs, src, tag, on_host=on_host).wait()
+
+
+class UnrollHandoff:
+    """The Sebulba stream of ``[T+1, B, ...]`` unrolls (with their
+    ``[B, ...]`` initial core states) from the ranks of an actor mesh to the
+    ranks of a learner mesh, each learner ``dp`` rank receiving only its
+    columns of each learner batch.
+
+    The actor ranks' unrolls, taken in actor-rank order, make one stream of
+    columns: unroll ``u`` of actor rank ``r`` holds stream columns ``u·Bt
+    + r·Ba`` onwards (``Ba`` columns each, ``Bt`` over all actor ranks), in
+    the global env order of the unsharded rollout.  Learner batch ``k`` is
+    stream columns ``[k·bs, (k+1)·bs)``, the batches the JAX package's
+    Batcher cuts from the same stream, and learner ``dp`` rank ``l`` takes
+    its block ``[k·bs + l·c, k·bs + (l+1)·c)``, ``c = bs / dp`` (every
+    ``tp`` rank of that ``dp`` index receives it).  Both sides enumerate
+    the pieces where a source run meets a destination block in stream
+    order, so each pair of ranks sends and receives the same pieces in the
+    same order with no message saying which.  On the host routes every
+    piece's bytes are digested on both sides (``handoff.digests()``), so
+    the ranks can show that the columns arrived as sent.
+
+    ``specs`` is ``((unroll leaf specs, treedef), (core leaf specs,
+    treedef))`` (``rollout.anakin_column_specs``): ``(shape, dtype)`` of one
+    column of each leaf.  Every rank of the world constructs it (it makes a
+    :class:`Handoff`)."""
+
+    TAG = 3
+
+    def __init__(self, actor_mesh, learner_mesh, unroll_width: int, batch_size: int, specs,
+                 device):
+        from .mesh import mesh_ranks
+
+        self.actor_ranks = mesh_ranks(actor_mesh)
+        self.Ba = unroll_width
+        self.Bt = unroll_width * len(self.actor_ranks)
+        self.bs = batch_size
+        sizes = axis_sizes(learner_mesh)
+        self.dp = sizes.get("dp", 1)
+        if batch_size % self.dp:
+            raise ValueError(f"learner dp={self.dp} must divide batch_size={batch_size}")
+        self.c = batch_size // self.dp
+        # Learner ranks by dp index (each tp rank of a dp index takes its block).
+        names = list(learner_mesh.mesh_dim_names)
+        grid = learner_mesh.mesh
+        if "dp" in names:
+            grid = grid.movedim(names.index("dp"), 0)
+        self.learners = [row.reshape(-1).tolist() for row in grid.reshape(self.dp, -1)]
+        (self.unroll_specs, self.unroll_def), (self.core_specs, self.core_def) = specs
+        self.handoff = Handoff(device)
+        self.digest = self.handoff.route != "direct"
+        me = dist.get_rank()
+        self.actor_index = self.actor_ranks.index(me) if me in self.actor_ranks else None
+        self.dp_index = next((l for l, rs in enumerate(self.learners) if me in rs), None)
+        self.taken = 0  # learner batches this rank has taken
+        self._pending = None  # the receives posted for the next batch
+        self._sent: list = []  # (unroll, sends) of this actor rank
+
+    # -- the piece schedule ------------------------------------------------
+    def _src_pieces(self, r: int, u: int):
+        """(dp index, first column, width) of actor rank r's unroll u."""
+        s, end = u * self.Bt + r * self.Ba, u * self.Bt + (r + 1) * self.Ba
+        while s < end:
+            k, off = divmod(s, self.bs)
+            l = off // self.c
+            e = min(end, k * self.bs + (l + 1) * self.c)
+            yield l, s - (u * self.Bt + r * self.Ba), e - s
+            s = e
+
+    def _dst_pieces(self, l: int, k: int, limit: Optional[int] = None):
+        """(actor index, unroll, width) of learner dp rank l's block of
+        batch k, stream columns below ``limit`` only."""
+        s, end = k * self.bs + l * self.c, k * self.bs + (l + 1) * self.c
+        if limit is not None:
+            end = min(end, limit)
+        while s < end:
+            u, off = divmod(s, self.Bt)
+            r = off // self.Ba
+            e = min(end, u * self.Bt + (r + 1) * self.Ba)
+            yield r, u, e - s
+            s = e
+
+    def unroll_bytes(self, width: int) -> int:
+        """The bytes of ``width`` columns of an unroll and its core state."""
+        return sum(_spec_nbytes(s) for s in self._piece_specs(width))
+
+    def _piece_specs(self, width: int) -> list:
+        return ([((shape[0], width, *shape[1:]), dt) for shape, dt in self.unroll_specs]
+                + [((width, *shape), dt) for shape, dt in self.core_specs])
+
+    # -- the actor side ----------------------------------------------------
+    def send(self, u: int, unroll, core) -> None:
+        """Actor rank: send unroll ``u`` (a tree of ``[T+1, Ba, ...]``
+        leaves) and its initial core state (``[Ba, ...]``), every learner
+        rank its pieces; returns once they are on their way.  The sends of
+        unroll ``u - 2`` and before are waited for and released: a caller
+        that runs at most two unrolls ahead of the learner finds them
+        done."""
+        for _, sends in [g for g in self._sent if g[0] <= u - 2]:
+            for w in sends:
+                w.wait()
+        self._sent = [g for g in self._sent if g[0] > u - 2]
+        unroll, core = nest.tree_flatten(unroll)[0], nest.tree_flatten(core)[0]
+        sends = []
+        for l, a, w in self._src_pieces(self.actor_index, u):
+            leaves = [x[:, a:a + w] for x in unroll] + [x[a:a + w] for x in core]
+            for dst in self.learners[l]:
+                sends.append(self.handoff.isend(leaves, dst, self.TAG, digest=self.digest))
+        self._sent.append((u, sends))
+
+    def wait_sent(self) -> None:
+        for _, sends in self._sent:
+            for w in sends:
+                w.wait()
+        self._sent = []
+
+    # -- the learner side --------------------------------------------------
+    def _post(self, limit: Optional[int] = None) -> list:
+        return [self.handoff.irecv(self._piece_specs(w), self.actor_ranks[r], self.TAG,
+                                   digest=self.digest)
+                for r, u, w in self._dst_pieces(self.dp_index, self.taken, limit)]
+
+    def post(self) -> None:
+        """Learner rank: post the receives of its block of the next batch
+        (once; the caller posts only batches whose unrolls are on their
+        way)."""
+        if self._pending is None:
+            self._pending = self._post()
+
+    def ready(self) -> bool:
+        """Whether the posted block of the next batch has arrived."""
+        return self._pending is not None and all(p.done() for p in self._pending)
+
+    def take(self) -> tuple:
+        """This rank's block of the next batch: ``(unroll tree [T+1, c,
+        ...], core tree [c, ...])``."""
+        self.post()
+        parts = [p.wait() for p in self._pending]
+        self._pending = None
+        self.taken += 1
+        leaves = [torch.cat([p[i] for p in parts], dim=1 if i < len(self.unroll_specs) else 0)
+                  if len(parts) > 1 else parts[0][i] for i in range(len(parts[0]))]
+        nu = len(self.unroll_specs)
+        return self.unroll_def.unflatten(leaves[:nu]), self.core_def.unflatten(leaves[nu:])
+
+    def drain(self, unrolls: int) -> None:
+        """Learner rank: receive and drop every piece of the first
+        ``unrolls`` unrolls this rank has not taken (the actors' last sends
+        must land before they leave)."""
+        if self._pending is not None:
+            for p in self._pending:
+                p.wait()
+            self._pending = None
+            self.taken += 1
+        limit = unrolls * self.Bt
+        while self.taken * self.bs < limit:
+            for p in self._post(limit):
+                p.wait()
+            self.taken += 1

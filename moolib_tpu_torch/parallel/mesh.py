@@ -43,10 +43,6 @@ from .._device import resolve
 AXES = ("dp", "tp", "sp", "ep")
 
 
-def _unported(what: str, slice_: str):
-    raise NotImplementedError(f"{what}: not yet ported (slice {slice_})")
-
-
 class PartitionSpec(tuple):
     """``jax.sharding.PartitionSpec``: one entry per tensor dimension, the
     mesh axis that shards it or ``None``.  Prints as JAX prints it, so a
@@ -277,15 +273,65 @@ def parse_mesh_spec(spec: str, device_type: Optional[str] = None) -> Optional[De
     return make_mesh(axes, ranks=range(need), device_type=device_type)
 
 
+def mesh_ranks(mesh) -> list:
+    """The global ranks of a ``DeviceMesh``, in mesh order."""
+    return mesh.mesh.flatten().tolist()
+
+
 def split_mesh(mesh, actor_devices: int):
-    """The Sebulba split: its device-to-device trajectory handoff crosses
-    processes here, which is a design of its own."""
-    _unported("split_mesh (the Sebulba actor/learner split)", "9c")
+    """Carve a Podracer "Sebulba" split out of one mesh: the first
+    ``actor_devices`` ranks become a pure-``dp`` **actor mesh**, the rest
+    the **learner mesh** (arXiv:2104.06272 § Sebulba: actors and learner on
+    disjoint sets, trajectories handed from one to the other).
+
+    Returns ``(actor_mesh, learner_mesh)``.  The learner keeps every axis
+    of ``mesh`` but ``dp`` whose sizes' product still divides the remaining
+    rank count, with ``dp`` taking the rest; otherwise it is pure ``dp``.
+    A mapping of axis sizes gives the two layouts as mappings (no process
+    group); a ``DeviceMesh`` gives two ``DeviceMesh``es, each over its own
+    process groups, built collectively: every rank of ``mesh`` calls this.
+    Where ranks share one card (gloo), the two meshes are disjoint in
+    processes only: their kernels still meet on that card.  The JAX
+    package's rules and message."""
+    sizes = axis_sizes(mesh)
+    n = math.prod(sizes.values())
+    if not (0 < actor_devices < n):
+        raise ValueError(
+            f"actor_devices must be in (0, {n}) to leave the learner at "
+            f"least one device; got {actor_devices}"
+        )
+    actor_axes = {"dp": actor_devices}
+    rest = n - actor_devices
+    non_dp = {k: v for k, v in sizes.items() if k != "dp" and v > 1}
+    tail = math.prod(non_dp.values()) if non_dp else 1
+    if non_dp and rest % tail == 0:
+        learner_axes = {"dp": rest // tail, **non_dp}
+    else:
+        learner_axes = {"dp": rest}
+    if isinstance(mesh, dict):
+        return actor_axes, learner_axes
+    ranks = mesh_ranks(mesh)
+    return (make_mesh(actor_axes, ranks=ranks[:actor_devices], device_type=mesh.device_type),
+            make_mesh(learner_axes, ranks=ranks[actor_devices:], device_type=mesh.device_type))
 
 
-def check_disjoint(mesh_a, mesh_b, what_a: str = "--mesh", what_b: str = "--actor_mesh"):
-    """Companion of :func:`split_mesh`."""
-    _unported("check_disjoint (the Sebulba actor/learner split)", "9c")
+def check_disjoint(mesh_a, mesh_b, what_a: str = "--mesh", what_b: str = "--actor_mesh") -> None:
+    """Raise a clear ``ValueError`` when two meshes share ranks.
+
+    Overlapping actor and learner meshes do not fail on their own: a rank in
+    both would wait in one mesh's collective while the other waits on it,
+    and the ranks hang at the first handoff instead of erroring.  The
+    examples call this when they parse their flags, so the operator sees
+    which ranks collide and which flags produced them."""
+    ids_a, ids_b = set(mesh_ranks(mesh_a)), set(mesh_ranks(mesh_b))
+    shared = sorted(ids_a & ids_b)
+    if shared:
+        raise ValueError(
+            f"{what_a} and {what_b} overlap on ranks {shared}: the two "
+            f"meshes must be disjoint ({what_a} spans {sorted(ids_a)}, "
+            f"{what_b} spans {sorted(ids_b)}). Use split_mesh() or shift one "
+            "spec onto different ranks."
+        )
 
 
 def named(mesh, *spec) -> NamedSharding:

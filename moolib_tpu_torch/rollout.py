@@ -379,6 +379,37 @@ def _build_anakin_fns(env, unroll_length: int):
     return _step, _unroll_first, _unroll_next
 
 
+def _unroll_fields(env) -> Dict[str, tuple]:
+    """Each leaf of an Anakin unroll: its per-env ``(shape, dtype)``."""
+    obs_shape, obs_dtype = env.obs_spec
+    obs_dtype = torch.from_numpy(np.empty(0, np.dtype(obs_dtype))).dtype
+    return {
+        "state": ((*obs_shape,), obs_dtype),
+        "reward": ((), torch.float32),
+        "done": ((), torch.bool),
+        "prev_action": ((), torch.int64),
+        "action": ((), torch.int64),
+        "policy_logits": ((env.num_actions,), torch.float32),
+    }
+
+
+def anakin_column_specs(env, model, unroll_length: int) -> tuple:
+    """One env column of an :class:`AnakinRollout` unroll and of its
+    initial core state: ``((unroll specs, unroll treedef), (core specs,
+    core treedef))``, each spec ``(shape, dtype)`` in ``nest.tree_flatten``
+    order, an unroll leaf's shape ``(T+1, ...)`` without its env axis.
+    What the learner ranks of a Sebulba split name to receive their
+    columns (``parallel.collectives.UnrollHandoff``)."""
+    from .utils import nest
+
+    fields = {k: ((unroll_length + 1, *shape), dtype)
+              for k, (shape, dtype) in _unroll_fields(env).items()}
+    keys, u_def = nest.tree_flatten({k: k for k in fields})
+    core, c_def = nest.tree_flatten(model.initial_state(1))
+    return (([fields[k] for k in keys], u_def),
+            ([(tuple(x.shape[1:]), x.dtype) for x in core], c_def))
+
+
 class AnakinRollout:
     """Fully on-device rollout: the batched env and the model on one
     device, zero crossings per frame.
@@ -401,10 +432,20 @@ class AnakinRollout:
     ``act_seed`` seeds the rollout's sampling generator on the model's
     device.  One instance is one mode: mixing :meth:`step` and
     :meth:`unroll` raises.
+
+    ``mesh=`` (the Sebulba actor mesh, ``parallel.split_mesh``): each rank
+    of its ``dp`` axis runs its block of the ``batch_size`` envs, ``[r·b,
+    (r+1)·b)`` with ``b = batch_size / dp``, seeded with those global
+    indices, so the union over the ranks is the unsharded batch;
+    ``batch_size`` stays the global count (``local_batch_size`` is the
+    rank's), ``frames_done`` counts the mesh's frames, as in JAX, and
+    :meth:`stats` gathers every rank's (each rank calls it at the same
+    point).  Rank r samples its actions from ``act_seed + r``: torch's
+    generator cannot split one stream over ranks as ``jax.random`` does.
     """
 
     def __init__(self, model, env, batch_size: int, unroll_length: int, *,
-                 env_key: torch.Tensor, act_seed: int):
+                 env_key: torch.Tensor, act_seed: int, mesh=None):
         from .envs import jax_envs
 
         self.model = model
@@ -413,15 +454,23 @@ class AnakinRollout:
         self.unroll_length = unroll_length
         self.env = env
         self.frames_done = 0
+        self._mesh = mesh
+        dp, rank = 1, 0
+        if mesh is not None:
+            from .parallel.mesh import axis_sizes
+
+            dp = axis_sizes(mesh).get("dp", 1)
+            if batch_size % dp:
+                raise ValueError(f"actor-mesh dp={dp} must divide batch_size={batch_size}")
+            rank = mesh.get_local_rank("dp") if "dp" in axis_sizes(mesh) else 0
+        self.local_batch_size = batch_size // dp
         self._inflight: list = []
         self._step_fn, self._unroll_first_fn, self._unroll_next_fn = \
             _build_anakin_fns(env, unroll_length)
-        self._generator = torch.Generator(device=self.device).manual_seed(int(act_seed))
+        self._generator = torch.Generator(device=self.device).manual_seed(int(act_seed) + rank)
 
-        B, dev = batch_size, self.device
-        obs_shape, obs_dtype = env.obs_spec
-        obs_dtype = torch.from_numpy(np.empty(0, np.dtype(obs_dtype))).dtype
-        env_state = jax_envs.batch_init(env, env_key.to(dev), B)
+        B, dev = self.local_batch_size, self.device
+        env_state = jax_envs.batch_init(env, env_key.to(dev), B, start=rank * B)
         self._carry = {
             "env": env_state,
             "obs": jax_envs.batch_observe(env, env_state),
@@ -439,14 +488,7 @@ class AnakinRollout:
                 "episodes": torch.zeros((), dtype=torch.int64, device=dev),
             },
         }
-        self._shapes = {
-            "state": ((*obs_shape,), obs_dtype),
-            "reward": ((), torch.float32),
-            "done": ((), torch.bool),
-            "prev_action": ((), torch.int64),
-            "action": ((), torch.int64),
-            "policy_logits": ((env.num_actions,), torch.float32),
-        }
+        self._shapes = _unroll_fields(env)
         self._buf = self._new_buffer()
         # Pinned landing zone of stats(): [ep_return, ep_len, return_sum,
         # len_sum, episodes] packed as float64 (exact for these counts).
@@ -460,7 +502,7 @@ class AnakinRollout:
         self.completed_initial_core = None
 
     def _new_buffer(self) -> Dict[str, torch.Tensor]:
-        T1, B = self.unroll_length + 1, self.batch_size
+        T1, B = self.unroll_length + 1, self.local_batch_size
         return {k: torch.empty((T1, B, *shape), dtype=dtype, device=self.device)
                 for k, (shape, dtype) in self._shapes.items()}
 
@@ -484,7 +526,7 @@ class AnakinRollout:
         core_before = self._carry["core"]
         self._carry = self._step_fn(self.model, self._buf, self._t, self._carry,
                                     self._generator)
-        _M_FRAMES.inc(self.batch_size)
+        _M_FRAMES.inc(self.local_batch_size)
         self.frames_done += self.batch_size
         if self._t == self.unroll_length:
             # Row T written: hand the unroll over and start a fresh buffer
@@ -530,7 +572,7 @@ class AnakinRollout:
             while len(self._inflight) > _MAX_INFLIGHT:
                 # mtlint: allow-host-sync(backpressure: wait for the oldest enqueued unroll so the host stays within _MAX_INFLIGHT unrolls of the card)
                 self._inflight.pop(0).synchronize()
-        _M_FRAMES.inc(self.batch_size * steps)
+        _M_FRAMES.inc(self.local_batch_size * steps)
         self.frames_done += self.batch_size * steps
         _M_UNROLLS.inc()
         _M_DISPATCH.observe(time.monotonic() - t0)
@@ -540,8 +582,11 @@ class AnakinRollout:
     def stats(self) -> Dict[str, Any]:
         """Snapshot the device-side episode aggregates (cumulative): the
         plane's only D2H, one pinned copy counted on its own counter so the
-        per-frame boundary reads a measured zero."""
-        st, B = self._carry["stats"], self.batch_size
+        per-frame boundary reads a measured zero.  With ``mesh=``, every
+        rank's snapshot, gathered over the actor mesh: the sums are the
+        mesh's and the per-env arrays cover all ``batch_size`` envs in
+        global order."""
+        st, B = self._carry["stats"], self.local_batch_size
         packed = torch.cat([st["ep_return"].double(), st["ep_len"].double(),
                             torch.stack([st["return_sum"].double(), st["len_sum"].double(),
                                          st["episodes"].double()])])
@@ -552,11 +597,21 @@ class AnakinRollout:
             # mtlint: allow-host-sync(the documented sole D2H of the Anakin plane, counted on actor_stats_d2h_bytes_total)
             copied.synchronize()
         _M_STATS_D2H.inc(self._stats_host.nbytes)
-        host = self._stats_host.numpy()  # mtlint: allow-host-sync(a view of the pinned snapshot the copy above already landed)
+        host = self._stats_host.numpy()[None]  # mtlint: allow-host-sync(a view of the pinned snapshot the copy above already landed)
+        if self._mesh is not None:
+            import torch.distributed as dist
+
+            from .parallel.collectives import all_gather_axis
+
+            # gloo gathers the host snapshot; NCCL the card's, then one copy.
+            on_host = dist.get_backend(self._mesh.get_group("dp")) == "gloo"
+            rows = all_gather_axis(self._stats_host if on_host else packed, "dp", self._mesh)
+            host = rows.reshape(-1, 2 * B + 3).cpu().numpy()  # mtlint: allow-host-sync(the gathered snapshot, the mesh form of the one D2H above)
+        sums = host[:, 2 * B:].sum(axis=0)  # mtlint: allow-host-sync(numpy: the snapshot is on the host)
         return {
-            "episodes": int(host[2 * B + 2]),
-            "return_sum": float(host[2 * B]),
-            "len_sum": int(host[2 * B + 1]),
-            "ep_return": host[:B].astype(np.float32),
-            "ep_len": host[B:2 * B].astype(np.int64),
+            "episodes": int(sums[2]),
+            "return_sum": float(sums[0]),
+            "len_sum": int(sums[1]),
+            "ep_return": host[:, :B].reshape(-1).astype(np.float32),
+            "ep_len": host[:, B:2 * B].reshape(-1).astype(np.int64),
         }

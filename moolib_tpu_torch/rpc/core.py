@@ -134,6 +134,13 @@ _CONN_DEAD = 16.0
 # _RESEND_BLIND — the fallback for lost control frames.
 _POKE_AFTER = 0.75
 _RESEND_BLIND = 9.0
+# A connection whose peer has not greeted it this long after it opened is
+# half-open: the greeting was lost (each side sends its own once, on open).
+# The side without the greeting has no peer entry for it, while the other
+# side holds it as that peer's live connection and keeps it over every later
+# dial by the duplicate tie-break.  It is closed, so the other side drops it
+# too and the next dial wins.  The JAX package keeps such links open.
+_GREET_DEADLINE = 4.0
 # Frames at least this large ride the memfd zero-copy path on ipc://
 # connections between fd-passing-capable native peers.
 _MEMFD_MIN = 1024 * 1024
@@ -2304,6 +2311,12 @@ class Rpc:
                             conn.last_recv = now2
                         conn.rx_seen = rx
                         conn.tx_seen = tx
+                    if conn.peer_name is None and now2 - conn.created > _GREET_DEADLINE:
+                        utils.log_verbose(
+                            "rpc: closing %s connection the peer never greeted", conn.transport)
+                        conn.close()
+                        self._detach_conn(conn)
+                        continue
                     idle = now2 - conn.last_recv
                     if idle > _CONN_DEAD:
                         utils.log_verbose(

@@ -181,9 +181,10 @@ def test_engine_rejects_oversized_and_reports_capacity():
     assert not eng.can_accept(4, 8)   # 12 tokens -> 3 blocks: pool-bound
     assert eng.active_count() == 0 and eng.stats()["prefill_tokens"] == 0
     # The JAX engine's rule: a mesh, or prefill_devices, alone shards
-    # nothing; the two together are disaggregated prefill (slice 9c).
-    with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9c\)"):
-        ContinuousBatchingEngine(model, mesh={"tp": 2}, prefill_devices=1)
+    # nothing; the two together split the mesh, and JAX's split refuses a
+    # prefill count that leaves no decode device.
+    with pytest.raises(ValueError, match="actor_devices must be in"):
+        ContinuousBatchingEngine(model, mesh={"tp": 2}, prefill_devices=2)
     assert ContinuousBatchingEngine(model, slots=2, block_size=4, max_seq_len=16,
                                     mesh={"tp": 2}).slots == 2
 

@@ -135,10 +135,11 @@ def test_flag_rules_follow_the_jax_example():
         lm.train(lm.make_flags(["--mesh", "dp=3", "--attention", "dense", "--device", "cpu"]))
 
 
-def test_static_dp_mesh_spawns_its_ranks_and_trains():
+def test_static_dp_mesh_spawns_its_ranks_and_trains(monkeypatch):
     """``--mesh dp=2`` without a cohort: this process is rank 0 and spawns
     rank 1; both run the same loop (the gradients averaged over dp) and
     learn the copy task."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the spawned rank shares the cores
     out = lm.train(lm.make_flags([
         "--mesh", "dp=2", "--attention", "dense", "--seq_len", "32", "--batch_size", "16",
         "--steps", "60", "--quiet", "--device", "cpu", "--learning_rate", "3e-3"]))

@@ -148,13 +148,14 @@ def test_unported_paths_say_so(monkeypatch):
     from moolib_tpu_torch.examples import lm_serve
     from moolib_tpu_torch.models import transformer
 
-    # Tensor-parallel serving is ported: its flags meet the JAX example's
-    # errors; disaggregated prefill (--engine --mesh --prefill_devices)
-    # needs the Sebulba split.
+    # Tensor-parallel serving and disaggregated prefill (--engine --mesh
+    # --prefill_devices) are ported: their flags meet the JAX package's
+    # errors (a prefill count that leaves no decode rank), before any rank
+    # is spawned.
     with pytest.raises(SystemExit, match="--listen and --connect are mutually exclusive"):
         lm_serve.main(["--listen", "x", "--connect", "y", "--localdir", "x", "--mesh", "tp=2"])
-    with pytest.raises(SystemExit, match=r"not yet ported \(slice 9c\)"):
-        lm_serve.main(["--listen", "x", "--engine", "--mesh", "tp=2", "--prefill_devices", "1"])
+    with pytest.raises(ValueError, match=re.escape("actor_devices must be in (0, 2)")):
+        lm_serve.main(["--listen", "x", "--engine", "--mesh", "dp=2", "--prefill_devices", "2"])
     monkeypatch.setenv("WORLD_SIZE", "8")
     with pytest.raises(ValueError, match="8 devices not divisible by 3"):
         lm_serve.main(["--listen", "x", "--mesh", "dp=3,tp=-1"])
@@ -205,12 +206,14 @@ MESH_9E = "--mesh axes ['sp']: not yet ported (slice 9e)"
 @pytest.mark.parametrize("argv,exc,named", [
     # --mesh dp=N,tp=M is ported: the JAX example's flag errors.
     (["--mesh", "dp=3,tp=2"], ValueError, "the dp mesh axis size must divide --batch_size"),
-    (["--actor_mesh", "1"], SystemExit, "--actor_mesh: not yet ported (slice 9c)"),
-    # --mesh dp=N, tp=M, --shard_grads and --overlap_grads are ported; sp
-    # and the Sebulba split are not.
+    # The Sebulba split is ported: the JAX example's flag rule.
+    (["--actor_mesh", "1"], ValueError, "--actor_mesh is the Sebulba split: it needs --mesh"),
+    # --mesh dp=N, tp=M, --shard_grads, --overlap_grads and --actor_mesh are
+    # ported; sp is not.
     (["--mesh", "tp=2", "--overlap_grads"], ValueError,
      "--overlap_grads is the unmeshed learner's overlap plane"),
-    (["--actor_mesh", "1", "--shard_grads"], SystemExit, "--actor_mesh: not yet ported (slice 9c)"),
+    (["--actor_mesh", "1", "--mesh", "dp=2", "--shard_grads"], ValueError,
+     "and --env_backend jax (the actor submesh runs on-device envs)"),
     # --checkpoint_dir is the distributed plane of --shard_grads cohorts.
     (["--checkpoint_dir", "d", "--shard_grads", "--mesh", "dp=2,sp=2"], SystemExit, MESH_9E),
 ])
@@ -228,7 +231,7 @@ def test_unported_rl_paths_say_so(argv, exc, named):
 def test_env_backend_jax_runs_and_actor_mesh_still_says_so(free_port):
     """``--env_backend jax`` is ported: the Anakin loop runs on the CPU (no
     EnvPool workers) and counts every frame; the Sebulba split on top of it
-    (``--actor_mesh``) needs ``--mesh`` and still exits with slice 9."""
+    (``--actor_mesh``, ported) needs ``--mesh``, as in the JAX example."""
     from moolib_tpu_torch.examples.vtrace import experiment
 
     flags = experiment.make_flags([
@@ -237,7 +240,7 @@ def test_env_backend_jax_runs_and_actor_mesh_still_says_so(free_port):
         "--batch_size", "4", "--virtual_batch_size", "4", "--address", f"127.0.0.1:{free_port}"])
     out = experiment.train(flags)
     assert out["steps"] >= 2000 and out["sgd_steps"] > 0 and out["episodes"] > 0
-    with pytest.raises(SystemExit, match=re.escape("--actor_mesh: not yet ported (slice 9c)")):
+    with pytest.raises(ValueError, match=re.escape("it needs --mesh (devices to split)")):
         experiment.train(experiment.make_flags(["--env_backend", "jax", "--actor_mesh", "1"]))
 
 

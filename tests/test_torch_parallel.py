@@ -17,6 +17,7 @@
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -63,8 +64,11 @@ def test_partition_spec_prints_as_jax():
 
 
 def test_unported_mesh_paths_say_so():
-    with pytest.raises(NotImplementedError, match=r"not yet ported \(slice 9c\)"):
-        tpar.split_mesh(None, 1)
+    # split_mesh is ported: over axis sizes it gives JAX's layouts and
+    # JAX's error for a count that leaves the learner nothing.
+    with pytest.raises(ValueError, match=re.escape("actor_devices must be in (0, 4)")):
+        tpar.split_mesh({"dp": 2, "tp": 2}, 4)
+    assert tpar.split_mesh({"dp": 2, "tp": 2}, 2) == ({"dp": 2}, {"dp": 1, "tp": 2})
     # auto_shardings over tp is ported: JAX's spec (tp on a kernel's last
     # axis from tp_min up, FSDP over dp on the largest other axis).
     got = tpar.auto_shardings({"w": torch.zeros(4, 4), "k": torch.zeros(256, 32),

@@ -38,11 +38,12 @@ def test_impala_sharded_streamed_and_checkpointed_improves(free_port, tmp_path):
     assert DistributedCheckpointer(str(tmp_path / "ckpt")).latest_committed_step() is not None
 
 
-def test_impala_dp2_mesh_learner_keeps_its_ranks_equal(free_port):
+def test_impala_dp2_mesh_learner_keeps_its_ranks_equal(free_port, monkeypatch):
     """``--mesh dp=2``: this process is rank 0 (actors, Batcher,
     Accumulator) and spawns rank 1; every learn broadcasts the batch, each
     rank reduces its dp block's gradients into the mesh, and both ranks
     apply the cohort mean, ending with one parameter sha."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the spawned rank shares the cores
     flags = make_flags(
         [
             "--env", "catch",
