@@ -249,17 +249,23 @@ exits non-zero, and no result line is printed):
    parameters.  Prints each actor rank's unroll and handoff ms, the learn
    step ms, acting frames/s and sps beside the anakin phase's.
 22. sharded_lm — the hierarchical learner: two elastic hosts through
-   examples.lm.train() --mesh dp=2 --shard_grads, each host 2 rank
-   processes (it spawns its second itself) sharing the card over gloo, the
-   d=1024 LM cut to 4 blocks (B 4 x T 1024 a rank), host 0 one step alone, then 2
-   cohort steps; arm (a) --overlap_grads (the hook-streamed backward),
-   arm (b) the barrier step.  Checks: both hosts and every rank end with
-   the same params sha, and both arms; the joiner host ships (N-1)/N of
-   the flat payload a round (within half a bucket); every rank launches
-   each flash kernel at least 4 x its learn steps.  Prints each arm's
-   step seconds, exposed comm (step returned -> result ready) per round,
-   accum_psum_seconds and host-staged collective bytes and peak memory
-   per rank, and the phase's wall_s.
+   examples.lm.train() --shard_grads, each host 2 rank processes sharing
+   the card over gloo (four processes, started once for the three arms),
+   the d=1024 LM cut to 4 blocks (B 8 x T 1024 a host), host 0 one step
+   alone, then 2 cohort steps; arm (a) --mesh dp=2 --overlap_grads (the
+   hook-streamed backward), arm (b) --mesh dp=2 and the barrier step, arm
+   (c) sp_overlap: --mesh sp=2 --attention ring --overlap_grads (the
+   three flash kernels on each rank's ring chunks, [8, 512, 8, 128]).
+   Checks: both hosts and every rank end with the same params sha, and
+   the two dp arms too; the joiner host received the model and ships
+   (N-1)/N of the flat payload a round (within half a bucket); every dp
+   rank launches each flash kernel at least 4 x its learn steps, every sp
+   rank exactly 4 x (sp rank + 1) x (learn steps + the warm-up); host 0's
+   first loss, taken alone before the cohort forms, is the dp arms'
+   within MP_LOSS_TOL relative.  Prints each arm's step seconds, exposed
+   comm (step returned -> result ready) per round, accum_psum_seconds and
+   host-staged collective bytes and peak memory per rank, and the phase's
+   wall_s.
 23. mp_lm — model parallelism (slice 9b's training half): three arms of
    examples.lm.train() at LM_WIDTHS (learned positions, bf16 compute, f32
    parameters, AdamW 1e-4), a warm-up step plus 2 steps, 4 rank processes
@@ -297,7 +303,7 @@ exits non-zero, and no result line is printed):
    launched exactly 12 times a step per rank; every rank's peak memory
    below one process's.  The kernels phase also holds every kernel against
    its plain version at tp_lm's per-rank shapes, [4, 1024, 2, 128] and
-   [4, 1024, 4, 128].
+   [4, 1024, 4, 128], and at sharded_lm's sp ring chunk, [8, 512, 8, 128].
 
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
@@ -357,13 +363,16 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 KERNEL_SHAPES = [(1, 128, 2, 64), (4, 1024, 8, 128), (16, 1024, 8, 128), (2, 1000, 8, 128),
-                 (1, 4096, 8, 128), (4, 1024, 2, 128), (4, 1024, 4, 128)]
+                 (1, 4096, 8, 128), (4, 1024, 2, 128), (4, 1024, 4, 128), (8, 512, 8, 128)]
 SERVE_SHAPE = (4, 1024, 8, 128)  # the serving prefill: 4 prompts x 1024, 8 heads of 128
 TRAIN_SHAPE = (16, 1024, 8, 128)  # the training step: 16 x 1024, 8 heads of 128
 # tp_lm's shapes: a tp=4 rank's prefill (8 heads / 4), a dp=2 x tp=2 rank's
 # training step (B 8 / 2, 8 heads / 2).
 TP_SERVE_SHAPE = (4, 1024, 2, 128)
 TP_TRAIN_SHAPE = (4, 1024, 4, 128)
+# sharded_lm's sp_overlap arm: a ring chunk of an sp=2 rank (B 8, T 1024 / 2),
+# causal on the diagonal chunk and not on the past one.
+SP_CHUNK_SHAPE = (8, 512, 8, 128)
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}  # fwd (out, lse) atol
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # backward, x max(1, max|ref|)
 TRAIN_STEPS = 20
@@ -670,8 +679,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
                                    (("flash_fwd", ms), ("flash_bwd_dq", dq_ms),
                                     ("flash_bwd_dkv", dkv_ms))}}
                 log(case)
-                if causal and dtype == torch.bfloat16:
-                    cases[(B, T, H, D)] = case
+                if dtype == torch.bfloat16 and (causal or (B, T, H, D) == SP_CHUNK_SHAPE):
+                    cases[(B, T, H, D, causal)] = case
                 del q, k, v, g, out, lse, ops, dq, dk, dv
 
         # A differentiable lse: its cotangent folds into delta.
@@ -685,8 +694,11 @@ def phase_kernels(gen: torch.Generator) -> dict:
             raise AssertionError(f"flash_bwd {B, T, H, D} with g_lse: rel errs {rels}")
         log({"case": "flash_bwd_g_lse", "shape": [B, T, H, D], "rel_errs": rels})
         del q, k, v, g, g_lse, out, lse, got, want
-    return {"worst": worst, "serve": cases[SERVE_SHAPE], "train": cases[TRAIN_SHAPE],
-            "tp_serve": cases[TP_SERVE_SHAPE], "tp_train": cases[TP_TRAIN_SHAPE]}
+    return {"worst": worst, "serve": cases[(*SERVE_SHAPE, True)],
+            "train": cases[(*TRAIN_SHAPE, True)], "tp_serve": cases[(*TP_SERVE_SHAPE, True)],
+            "tp_train": cases[(*TP_TRAIN_SHAPE, True)],
+            "sp_diagonal": cases[(*SP_CHUNK_SHAPE, True)],
+            "sp_past": cases[(*SP_CHUNK_SHAPE, False)]}
 
 
 def _model_grads(model, tokens):
@@ -2211,35 +2223,101 @@ SHARDED_LM_ARGS = ["--vocab", "32768", "--d_model", "1024", "--layers",
                    "--seq_len", "1024", "--batch_size", "8", "--attention", "flash",
                    "--mesh", "dp=2", "--shard_grads", "--learning_rate", "1e-4"]
 SHARDED_LM_STEPS = 3  # one step of host 0 alone, then 2 of the cohort
+# The sp_overlap arm (slice 9e): each host an sp=2 mesh, ring attention on the
+# flash kernels, the hook-streamed gradients into the sharded rounds.
+SHARDED_SP = 2
 
 
-def _sharded_arm(seed: int, device: str, args: list, steps: int, overlap: bool,
+def _sp_args(args: list) -> list:
+    """``args`` (a dp arm's) with ``--mesh sp=SHARDED_SP --attention ring``
+    and ``--overlap_grads``."""
+    out = list(args)
+    out[out.index("--mesh") + 1] = f"sp={SHARDED_SP}"
+    out[out.index("--attention") + 1] = "ring"
+    return out + ["--overlap_grads"]
+
+
+def _ring_launches(layers: int, sp_rank: int, learns: int) -> int:
+    """Each flash kernel's launches on ``sp`` rank ``sp_rank`` of a causal
+    ring for ``learns`` forward + backward passes: a chunk from a later rank
+    launches nothing, so rank r runs r + 1 chunks a layer."""
+    return layers * (sp_rank + 1) * learns
+
+
+def _arm_delta(rank_summary: dict, before: dict) -> None:
+    """A rank's counters in its summary as this arm's share: less their
+    readings from before the arm (a rank process runs several arms)."""
+    for k, v in before.items():
+        if k in rank_summary:
+            rank_summary[k] -= v
+
+
+def _sharded_rank(proc: int, world: int, tasks, out, notes) -> None:
+    """sharded_lm's rank process ``proc``, started once for every arm: mesh
+    rank ``proc % 2`` of host ``proc // 2`` (``_mp_rank``'s loop over its
+    host's two-rank group; a host's rank 0 notes its first applied step)."""
+    _mp_rank(proc % 2, 2, tasks, out, notes, report_as=proc)
+
+
+def _sharded_arm(ranks, seed: int, device: str, args: list, steps: int,
                  timeout: float) -> list:
+    """One arm on the phase's four rank processes: host 0's ranks start,
+    host 1's once host 0 has applied a step (it joins a running cohort).
+    Returns the two hosts' summaries, each rank's counters read as the
+    arm's delta."""
     port = free_port()
     common = list(args) + ["--device", device, "--seed", str(seed), "--steps", str(steps),
                            "--min_cohort", "2", "--quiet", "--log_interval", "1"]
-    if overlap:
-        common.append("--overlap_grads")
     argvs = [common + ["--address", f"127.0.0.1:{port}", "--local_name", "host0"],
              common + ["--connect", f"127.0.0.1:{port}", "--local_name", "host1"]]
-    return _run_cohort("lm", argvs, timeout, wait_first=True)
+    for host in (0, 1):
+        mesh_port = free_port()
+        for local in (0, 1):
+            ranks.tasks[2 * host + local].put((argvs[host], mesh_port))
+        if host == 0 and ranks.note(timeout)[:2] != ("stepped", 0):
+            raise AssertionError("sharded_lm: host 0 did not step first")
+    reps = ranks.reports(timeout)
+    while not ranks.notes.empty():  # host 1's first step
+        ranks.notes.get_nowait()
+    hosts = []
+    for host in (0, 1):
+        summary = dict(reps[2 * host]["summary"], rank=host)
+        for x in summary["ranks"]:
+            _arm_delta(x, reps[2 * host + x["rank"]]["before"])
+        hosts.append(summary)
+    return hosts
 
 
 def phase_sharded_lm(seed: int, device="cuda", args=None, steps: int = SHARDED_LM_STEPS,
-                     layers: int = SHARDED_LM_LAYERS, timeout: float = 400) -> dict:
-    """Two hosts x dp=2 ranks through examples.lm.train() (each host spawns
-    its second rank), arm (a) --overlap_grads, arm (b) the barrier step,
-    from the same seed.  Checks: both hosts and every rank end with equal
-    params sha, and the two arms too (two terms per sum: exact in any
-    order); the joiner host's scatter bytes per round are (N-1)/N of the
-    flat payload within half a bucket (the range cut sits on the bucket
-    grid); every rank launched each flash kernel at least layers x its
-    learn steps times."""
+                     layers: int = SHARDED_LM_LAYERS, timeout: float = 400,
+                     loss_tol: float = None) -> dict:
+    """Two hosts x two ranks through examples.lm.train() (four rank
+    processes, started once for the three arms), from the same seed: arm (a) dp=2 --overlap_grads, arm
+    (b) dp=2 and the barrier step, arm (c) ``sp_overlap``: sp=2 ring
+    attention with --overlap_grads.  Checks: both hosts and every rank end
+    with equal params sha, and the two dp arms too (two terms per sum:
+    exact in any order); the joiner host received the model and its
+    scatter bytes per round are (N-1)/N of the flat payload within half a
+    bucket (the range cut sits on the bucket grid); every dp rank launched
+    each flash kernel at least layers x its learn steps times, every sp
+    rank exactly as often as the causal ring's schedule gives (the warm-up
+    included); host 0's first loss, computed alone before the cohort
+    forms, is the dp arms' within ``loss_tol`` (relative; both arms see the
+    same batch and weights)."""
     t_phase = time.perf_counter()
     args = SHARDED_LM_ARGS if args is None else args
+    loss_tol = MP_LOSS_TOL if loss_tol is None else loss_tol
     arms = {}
-    for name, overlap in (("overlap", True), ("barrier", False)):
-        reps = _sharded_arm(seed, device, args, steps, overlap, timeout)
+    ranks = _MpRanks(world=4, target=_sharded_rank, name="sharded_lm")
+    failed = True
+    try:
+        for name, argv in (("overlap", list(args) + ["--overlap_grads"]),
+                           ("barrier", list(args)), ("sp_overlap", _sp_args(args))):
+            arms[name] = _sharded_arm(ranks, seed, device, argv, steps, timeout)
+        failed = False
+    finally:
+        ranks.close(failed)
+    for name, reps in arms.items():
         if len({r["model_version"] for r in reps}) != 1:
             raise AssertionError(f"sharded_lm {name}: versions "
                                  f"{[r['model_version'] for r in reps]}")
@@ -2254,19 +2332,26 @@ def phase_sharded_lm(seed: int, device="cuda", args=None, steps: int = SHARDED_L
         joiner = reps[1]
         if joiner["recovery"]["model_sync_bytes_rx"] <= 0:
             raise AssertionError(f"sharded_lm {name}: the joiner host received no model")
-        arms[name] = reps
     if arms["overlap"][0]["params_sha256"] != arms["barrier"][0]["params_sha256"]:
         raise AssertionError("sharded_lm: the overlap and barrier arms end with "
                              "different parameters")
+    dp_loss, sp_loss = arms["barrier"][0]["first_loss"], arms["sp_overlap"][0]["first_loss"]
+    loss_rel = abs(sp_loss - dp_loss) / abs(dp_loss)
+    if not loss_rel <= loss_tol:
+        raise AssertionError(f"sharded_lm sp_overlap: host 0's first loss {sp_loss} against "
+                             f"the dp arms' {dp_loss}: {loss_rel:.3g} relative > {loss_tol}")
     payload = 4 * arms["barrier"][0]["n_params"]  # the f32 flat payload
     half_bucket = buckets.bucket_bytes() / 2
-    out = {"phase": "sharded_lm", "hosts": 2, "dp": 2, "steps": steps,
+    out = {"phase": "sharded_lm", "hosts": 2, "dp": 2, "sp": SHARDED_SP, "steps": steps,
            "model": f"TransformerLM vocab=32768 d=1024 L={layers} H=8x128 max_len 1024, learned "
            "positions, bf16 compute, f32 parameters, flash attention" if args is SHARDED_LM_ARGS
            else f"TransformerLM {args}",
            "batch_per_rank": [4, 1024] if args is SHARDED_LM_ARGS else None,
-           "params_sha256_equal": True, "payload_bytes": payload, "arms": {}}
+           "params_sha256_equal": True, "payload_bytes": payload,
+           "first_loss": {"dp": dp_loss, "sp_overlap": sp_loss, "rel_err": loss_rel},
+           "arms": {}}
     launches_total = {k: 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    sp_launches = dict(launches_total)
     for name, reps in arms.items():
         hosts = []
         for r in reps:
@@ -2279,17 +2364,28 @@ def phase_sharded_lm(seed: int, device="cuda", args=None, steps: int = SHARDED_L
             if abs(per_round - payload / 2) > half_bucket:
                 raise AssertionError(f"sharded_lm {name}: host {r['rank']} shipped "
                                      f"{per_round} B a round, want {payload / 2} +- {half_bucket}")
-            learns = info["rpc_reduces"]
+            learns = r["learns"]
             for x in r["ranks"]:
+                want = (_ring_launches(layers, x["coords"]["sp"], learns + 1)
+                        if name == "sp_overlap" else None)
+                x["launches_expected"] = want
                 for k, v in x["launches"].items():
-                    launches_total[k] += v
-                    if device != "cpu" and v < layers * learns:
+                    (sp_launches if name == "sp_overlap" else launches_total)[k] += v
+                    if device == "cpu":
+                        continue
+                    if want is not None and v != want:
+                        raise AssertionError(f"sharded_lm {name}: host {r['rank']} rank "
+                                             f"{x['rank']} launched {k} {v} times, the ring's "
+                                             f"schedule gives {want} ({learns} learn steps "
+                                             "and the warm-up)")
+                    if want is None and v < layers * learns:
                         raise AssertionError(f"sharded_lm {name}: host {r['rank']} rank "
                                              f"{x['rank']} launched {k} {v} times for "
                                              f"{learns} learn steps")
             exposed = r["exposed_comm_s"]
             hosts.append({
                 "host": r["rank"], "leader": r["is_leader"], "loss": r["loss"],
+                "first_loss": r["first_loss"], "learns": learns,
                 "step_s": r["step_s"], "rounds": info["rpc_reduces"],
                 "scatter_bytes_per_round": per_round,
                 "scatter_share_of_payload": per_round / payload,
@@ -2297,13 +2393,17 @@ def phase_sharded_lm(seed: int, device="cuda", args=None, steps: int = SHARDED_L
                 "exposed_comm_s": exposed,
                 "launch_leads_max_s": max(info["last_launch_leads"], default=None),
                 "model_sync_bytes_rx": r["recovery"]["model_sync_bytes_rx"],
-                "ranks": [{"rank": x["rank"], "max_memory_allocated": x["max_memory_allocated"],
+                "ranks": [{"rank": x["rank"], "coords": x["coords"],
+                           "max_memory_allocated": x["max_memory_allocated"],
                            "host_staged_bytes": x["host_staged_bytes"],
-                           "psum_seconds": x["psum_seconds"], "launches": x["launches"]}
+                           "psum_seconds": x["psum_seconds"], "launches": x["launches"],
+                           "launches_expected": x["launches_expected"]}
                           for x in r["ranks"]],
                 "wall_s": r["wall_s"]})
-        out["arms"][name] = {"step_s": [h["step_s"] for h in hosts], "hosts": hosts}
+        out["arms"][name] = {"step_s": [h["step_s"] for h in hosts], "hosts": hosts,
+                             "wall_s": max(h["wall_s"] for h in hosts)}
     out["launches"] = launches_total
+    out["sp_launches"] = sp_launches
     out["wall_s"] = time.perf_counter() - t_phase
     log(out)
     return out
@@ -2333,13 +2433,15 @@ MP_LM_RANKS = 4  # every arm's mesh has 4 ranks; one set of rank processes runs 
 MP_LOSS_TOL, MP_GRAD_TOL = 1e-4, 5e-2
 
 
-def _mp_rank(rank: int, world: int, tasks, out, notes=None) -> None:
+def _mp_rank(rank: int, world: int, tasks, out, notes=None, report_as=None) -> None:
     """One rank process of every mp_lm arm.  For each task ``(argv, port)``
     it joins that arm's process group as ``rank`` (torchrun's environment,
     so examples.lm.train() spawns nothing), counts the kernels' launches
     from 0, trains, leaves the group and reports its summary (rank 0's
     carries every rank's) with its counters' readings from before the arm.
-    ``None`` ends it."""
+    ``None`` ends it.  With ``report_as`` it reports under that number, and
+    as rank 0 notes ``("stepped", report_as, step)`` at its first applied
+    step (an elastic host)."""
     import gc
 
     import torch.distributed as dist
@@ -2350,20 +2452,30 @@ def _mp_rank(rank: int, world: int, tasks, out, notes=None) -> None:
     while (task := tasks.get()) is not None:
         argv, port = task
         os.environ["MASTER_PORT"] = str(port)
+        me = rank if report_as is None else report_as
+        stepped = []
+
+        def on_stats(s):
+            if not stepped:
+                stepped.append(s["step"])
+                notes.put(("stepped", me, s["step"]))
+
         try:
             before = {"host_staged_bytes": lm._counter(reg, "collectives_host_staged_bytes_total"),
-                      "ring_hop_seconds": lm._hist_sum(reg, "ring_hop_seconds")}
+                      "ring_hop_seconds": lm._hist_sum(reg, "ring_hop_seconds"),
+                      "psum_seconds": lm._hist_sum(reg, "accum_psum_seconds")}
             if torch.cuda.is_initialized():
                 torch.cuda.reset_peak_memory_stats()
             fa.reset_launches()
             t0 = time.time()
-            summary = lm.train(lm.make_flags(argv))
+            summary = lm.train(lm.make_flags(argv), on_stats=on_stats
+                               if report_as is not None and rank == 0 else None)
             summary["wall_s"] = time.time() - t0
-            out.put({"rank": rank, "summary": summary, "before": before})
+            out.put({"rank": me, "summary": summary, "before": before})
         except BaseException as e:  # reported to the parent, which fails, then re-raised
             import traceback
 
-            out.put({"rank": rank, "error": f"{e!r}\n{traceback.format_exc()}"})
+            out.put({"rank": me, "error": f"{e!r}\n{traceback.format_exc()}"})
             raise
         finally:
             if dist.is_initialized():
@@ -2531,9 +2643,8 @@ def phase_mp_lm(seed: int, device="cuda", arms=None, steps: int = MP_LM_STEPS,
                 shutil.rmtree(probe, ignore_errors=True)
             rep = reps[0]["summary"]
             ranks = rep["ranks"]
-            for r in ranks:  # this arm's share of each rank's counters
-                for k, v in reps[r["rank"]]["before"].items():
-                    r[k] -= v
+            for r in ranks:
+                _arm_delta(r, reps[r["rank"]]["before"])
             if len({r["params_sha256"] for r in ranks}) != 1:
                 raise AssertionError(f"mp_lm {name}: replicated parameters differ across ranks")
             if flags.moe_experts and any("ep" in r["coords"] for r in ranks):
@@ -4469,7 +4580,8 @@ def main(argv=None) -> None:
                              "r2d2": r2[name],
                              **{path: fleet[path]["launches"][name] for path in fleet},
                              "anakin": anakin[name],
-                             "sharded_lm": sharded[name],
+                             "sharded_lm": sharded["launches"][name],
+                             "sharded_lm_sp_overlap": sharded["sp_launches"][name],
                              **{path: mp_lm[path][name] for path in mp_lm},
                              **{path: tp_lm[path][name] for path in tp_lm},
                              "sebulba": sebulba[name],
@@ -4486,20 +4598,24 @@ def main(argv=None) -> None:
         "tensor_core_instructions": sum(sass[instance[name]].values()),
         "tflops": case["tflops"][name],
         "share_of_bound": case["bound_ms"][name] / times[name][0],
-        "tp_shapes": _tp_shape_rows(kern, name),
+        "tp_shapes": _shape_rows(kern, name, ("tp_serve", "tp_train") if name == "flash_fwd"
+                                 else ("tp_train",)),
+        "sp_shapes": _shape_rows(kern, name, ("sp_diagonal", "sp_past")),
     } for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
 
 
-def _tp_shape_rows(kern: dict, name: str) -> dict:
-    """A kernel's times at tp_lm's per-rank shapes (bf16, causal): the
-    forward at both, the backward passes at the training one."""
+def _shape_rows(kern: dict, name: str, arms: tuple) -> dict:
+    """A kernel's times at the per-rank shapes of the kernels phase's cases
+    ``arms`` (bf16): tp_lm's (causal; the forward at both, the backward
+    passes at the training one) and sharded_lm's sp_overlap ring chunks
+    (the causal diagonal and the non-causal past chunk)."""
     rows = {}
-    for arm in (("tp_serve", "tp_train") if name == "flash_fwd" else ("tp_train",)):
+    for arm in arms:
         c = kern[arm]
         ms = {"flash_fwd": c["ms"], "flash_bwd_dq": c["dq_ms"], "flash_bwd_dkv": c["dkv_ms"]}[name]
-        rows[arm] = {"shape": c["shape"], "ms": ms,
+        rows[arm] = {"shape": c["shape"], "causal": c["causal"], "ms": ms,
                      "plain_ms": c["plain_ms"] if name == "flash_fwd" else c["plain_bwd_ms"],
                      "library_ms": c["sdpa_ms"] if name == "flash_fwd" else c["sdpa_bwd_ms"],
                      "bound_ms": c["bound_ms"][name], "bound_by": c["bound_by"][name],
@@ -4578,7 +4694,7 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     torch.cuda.empty_cache()
     # The sharded_lm path: every rank process counts from 0 (each host's
     # rank 0 resets in _cohort_child, its other rank starts fresh).
-    sharded = timed("sharded_lm", phase_sharded_lm, seed)["launches"]
+    sharded = timed("sharded_lm", phase_sharded_lm, seed)
     torch.cuda.empty_cache()
     # The mp_lm paths: every rank process counts from 0 before each arm
     # (_mp_rank).

@@ -47,6 +47,9 @@ host's batch; each rank takes its ``dp`` block.
   gradients from the backward's hooks into the sharded rounds
   (``parallel.make_train_step``).  With ``--checkpoint_dir`` the cohort
   writes distributed checkpoints (``checkpoint.DistributedCheckpointer``).
+  The host runs every model axis below (``_MeshHost``): each rank holds
+  its ``ep`` experts and ``tp`` blocks, mesh rank 0 also the whole model
+  for its Accumulator peer.
 - ``--shard_grads`` and ``--overlap_grads`` work without a mesh too.
 
 Model parallelism on the static mesh (each rank holds ``[B/dp, T/sp]``
@@ -89,15 +92,11 @@ Durability and the fleet (docs/RESILIENCE.md):
   telemetry (``autoscaler``); ``--localdir``: the directory whose
   decommission flag drains this peer and leaves the cohort.
 
-- ``--mesh ...,tp=M``: the JAX example's meaning, parameters replicated
-  over ``tp`` (``lm.py``'s static mesh places them so): the ``tp`` ranks
-  hold replicas of the tokens and the step reduces over them.  The
-  tensor-parallel LM (``parallel.tensor_parallel``) is the layer below,
-  for ``make_train_step(params_sharding=auto_shardings(...))`` callers.
-
-Model-parallel axes inside the elastic cohort (``--shard_grads`` with any
-axis but ``dp``) come with ROADMAP slice 9e; their flags exit with a
-message.
+- ``--mesh ...,tp=M``: on the static mesh the JAX example's meaning,
+  parameters replicated over ``tp`` (``lm.py``'s static mesh places them
+  so): the ``tp`` ranks hold replicas of the tokens and the step reduces
+  over them.  A ``--shard_grads`` host cuts its model to the ``tp`` blocks
+  of ``parallel.tensor_parallel.shard_model``.
 """
 
 from __future__ import annotations
@@ -220,17 +219,6 @@ def make_flags(argv=None):
     return common.finalize_flags(p, argv)
 
 
-def _unported(flags) -> list:
-    """(flag, slice) for every flag set to a path this slice does not port."""
-    found = []
-    axes = parallel.mesh.parse_axes(flags.mesh)
-    other = [k for k, v in axes.items() if k != "dp" and v != 1]
-    if other and flags.shard_grads:
-        found.append((f"--mesh axes {other} with --shard_grads (model-parallel axes "
-                       "inside the elastic cohort)", "9e"))
-    return found
-
-
 def make_batch(rng: np.random.Generator, flags):
     """[B, T] int32: random prefix + its repetition (tokens 2.. so 0/1 can
     serve as pad/sep if anyone extends this)."""
@@ -311,7 +299,7 @@ def _mesh_world(flags) -> int:
 
 
 def _check_flags(flags) -> None:
-    """The JAX example's flag rules, then the planes this port lacks."""
+    """The JAX example's flag rules."""
     elastic = bool(flags.address or flags.connect or flags.broker_addrs)
     if flags.shard_grads and not elastic:
         raise ValueError(
@@ -335,12 +323,6 @@ def _check_flags(flags) -> None:
                 "static cohort (use the vtrace agent's --mesh for that "
                 "shape, or pass --shard_grads for the hierarchical plane)"
             )
-    unported = _unported(flags)
-    if unported:
-        raise SystemExit(
-            "; ".join(f"{f}: not yet ported (slice {n})" for f, n in unported)
-            + ". This port trains over dp, tp, sp, ep and pp mesh axes, and over "
-            "dp alone in an elastic cohort")
     _check_model_parallel_flags(flags)
     if flags.publish_every and not elastic:
         raise SystemExit("--publish_every: the leader of an elastic cohort publishes; "
@@ -508,10 +490,16 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
     # flash kernels are not aten ops, so attention is not counted on the
     # card — comparable to the 6·N·tokens count).  A mesh with a pp axis
     # reports no MFU (_StaticMesh.warmup).
+    host = None
     if mp is not None:
         step_cost = mp.warmup(tokens0)
         if flags.probe_dir:
             mp.probe(flags.probe_dir, rank0)
+    elif elastic and mesh is not None:
+        host = _MeshHost(flags, mesh, model, rng, device)
+        if restored_opt is not None:
+            host.load_opt_local(restored_opt)
+        step_cost = host.warmup(tokens0)
     else:
         step_cost = telemetry.devmon.step_cost("lm.step", fwd_bwd, tokens0)
     opt.zero_grad(set_to_none=True)
@@ -519,13 +507,8 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
         torch.cuda.synchronize(device)
 
     if elastic:
-        host = None
-        if mesh is not None:
-            host = _MeshHost(flags, mesh, model, rng, device)
-            if restored_opt is not None:
-                host.load_opt_local(restored_opt)
-            if host.rank != 0:
-                return host.follow()
+        if host is not None and host.rank != 0:
+            return host.follow()
         # A failing rank 0 leaves its other ranks waiting on a command: the
         # host that spawned them kills them (torchrun tears its group down).
         return _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
@@ -681,31 +664,35 @@ class _StaticMesh:
 
         return step
 
-    def warmup(self, tokens):
-        """Forward, backward and the in-mesh reduction without the update:
-        the reduced gradients stay in ``.grad`` (the probe reads them).
-        Without a ``pp`` axis it runs under devmon's FLOP counter and
-        returns this rank's step cost (the MFU's); the counter's module
-        hooks break the pipeline's per-tick ``autograd.grad``.  The counter
-        swallows errors, so a failure is raised here: a rank that went on
-        would leave its collectives out of step with the others'."""
+    def warmup(self, tokens, run=None):
+        """Forward, backward and the in-mesh reduction without the update
+        (``run(tokens)``, by default the step's ``grads``): the reduced
+        gradients stay in ``.grad`` (the probe reads them).  Without a
+        ``pp`` axis it runs under devmon's FLOP counter and returns this
+        rank's step cost (the MFU's); the counter's module hooks break the
+        pipeline's per-tick ``autograd.grad``.  The counter swallows
+        errors, so a failure is raised here: a rank that went on would
+        leave its collectives out of step with the others'."""
+        if run is None:
+            def run(t):
+                return self.mstep.grads(self.named, self.batch(t), None)
         if self.pp > 1:
-            self.warm = self.mstep.grads(self.named, self.batch(tokens), None)
+            self.warm = run(tokens)
             return None
         failed = []
 
-        def run(t):
+        def counted(t):
             try:
-                self.warm = self.mstep.grads(self.named, self.batch(t), None)
+                self.warm = run(t)
             except BaseException as e:
                 failed.append(e)
                 raise
 
-        cost = telemetry.devmon.step_cost("lm.step", run, tokens)
+        cost = telemetry.devmon.step_cost("lm.step", counted, tokens)
         if failed:
             raise failed[0]
         if self.warm is None:  # the count was cached: the warm-up still runs
-            self.warm = self.mstep.grads(self.named, self.batch(tokens), None)
+            self.warm = run(tokens)
         return cost
 
     def _full(self, tree: dict) -> dict:
@@ -849,61 +836,117 @@ class _MeshHost:
     ranks, in :meth:`follow`, run the same method.  Every method below is
     entered by every rank in the same order (its collectives are matched).
 
-    Parameters stay whole on every rank (the forward needs them whole).
-    The gradients and the AdamW moments are sharded over ``dp`` in the
-    fsdp layout (``parallel.param_shardings(..., "fsdp")``): the optimizer
-    runs over this rank's blocks (views into the parameters), ZeRO-style,
-    and ``parallel.redistribute`` gathers the updated blocks."""
+    The ranks run the static mesh's model (:class:`_StaticMesh`: ring
+    attention over ``sp``, experts cut over ``ep``, the pipeline over
+    ``pp``) and its loss, with the ``tp`` blocks of
+    ``parallel.tensor_parallel.shard_model`` over ``tp``.  A rank holds its
+    ``ep`` and ``tp`` blocks and the other parameters whole; rank 0 also
+    keeps the whole model (``model``), which its Accumulator peer, model
+    sync, checkpoints and publisher read, and refreshes it after every
+    update.  The gradients and the AdamW moments are laid out in
+    :func:`host_layout`: the held axes, and FSDP over ``dp``.  The
+    optimizer runs over this rank's blocks of that layout (views into its
+    parameters), ZeRO-style, and ``parallel.redistribute`` brings the
+    updated blocks back to the layout the ranks hold."""
 
     LEARN, APPLY, OPT_OUT, STATE_IN, STOP = range(1, 6)
 
     def __init__(self, flags, mesh, model, rng, device):
+        import copy
+
+        from ..parallel import tensor_parallel
+
         self.flags, self.mesh, self.model, self.rng, self.device = flags, mesh, model, rng, device
-        self.control = common.MeshControl(mesh, device)
+        self.control = common.MeshControl(mesh, device, axes=tuple(mesh.mesh_dim_names))
         self.rank = self.control.rank
-        self.named = dict(model.named_parameters())  # model order: AdamW's indices
-        self.shardings = parallel.param_shardings(self.named, mesh, "fsdp")
+        sizes = parallel.mesh.axis_sizes(mesh)
+        cut = sizes.get("tp", 1) > 1 or (flags.moe_experts and sizes.get("ep", 1) > 1)
+        # Rank 0's Accumulator keeps the whole model; the ranks' learners hold blocks.
+        learner = copy.deepcopy(model) if cut and self.rank == 0 else model
+        self.full_shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        if sizes.get("tp", 1) > 1:
+            tensor_parallel.shard_model(learner, mesh)
+        self.mp = _StaticMesh(flags, mesh, learner)
+        self.named = self.mp.named  # model order: AdamW's indices
+        self.shardings = host_layout(self.named, self.full_shapes, mesh, self.mp.shardings)
+        # The layout the ranks hold each cut parameter in (its ep or tp axis).
+        self.held = {k: _only(sh, ("ep", "tp")) for k, sh in self.shardings.items()
+                     if {"ep", "tp"} & set(sh.spec)}
         self._flat_sh = nest.tree_leaves(self.shardings)
+        self._template = {k: p.new_empty(()).expand(self.full_shapes[k])
+                          for k, p in self.named.items()}
         with torch.no_grad():
-            self.blocks = {k: parallel.shard_of(p.detach(), self.shardings[k])
-                           for k, p in self.named.items()}
+            self.blocks = {k: self._block(k, p.detach()) for k, p in self.named.items()}
         self.opt = make_optimizer(self.blocks.values(), flags.learning_rate)
-        half = flags.seq_len // 2
+        ring = self.mp.ring
         self.step = parallel.make_train_step(
-            lambda p, b, r: copy_task_loss(model(b), b, half), mesh=mesh,
-            params_sharding="fsdp", grad_spec="params",
-            batch_spec=parallel.PartitionSpec("dp", None), overlap_grads=flags.overlap_grads)
+            self.mp.loss_fn, mesh=mesh, params_sharding=self.shardings, grad_spec="params",
+            batch_spec=parallel.PartitionSpec("dp", "sp" if ring else None),
+            overlap_grads=flags.overlap_grads)
+
+    def _block(self, k: str, p):
+        """This rank's block of leaf ``k`` in the layout, from the part of
+        it the rank holds (a view)."""
+        return parallel.shard_of(p, _only(self.shardings[k], ("dp",)))
 
     def command(self, cmd: int, arg: int = 0) -> None:
         """Rank 0: tell the other ranks what comes next."""
         self.control.send(cmd, arg)
 
     # -------------------------------------------------------------- work
+    def _run(self, tokens):
+        return self.step(self.named, self.mp.batch(tokens), None)
+
+    def warmup(self, tokens):
+        """The first forward/backward and in-mesh reduction, outside the
+        clock, on every rank (its gradients are dropped); returns the step
+        cost (:meth:`_StaticMesh.warmup`)."""
+        cost = self.mp.warmup(tokens, run=self._run)
+        for p in self.named.values():
+            p.grad = None
+        return cost
+
     def learn(self):
         """One forward/backward on this rank's block of the host batch (every
         rank draws the same host batch from the same seeded stream).
-        Returns (loss, acc, grads): ``grads`` is a tree of DTensors, or the
-        GradientStream on rank 0 under ``--overlap_grads`` (None on the
-        others, whose part ended inside the backward's hooks)."""
-        tokens = torch.from_numpy(make_batch(self.rng, self.flags)).to(self.device)
-        return self.step(self.named, tokens, None)
+        Returns (loss, acc, grads): the host's loss and accuracy, ``grads``
+        a tree of DTensors, or the GradientStream on rank 0 under
+        ``--overlap_grads`` (None on the others, whose part ended inside the
+        backward's hooks)."""
+        return self._run(torch.from_numpy(make_batch(self.rng, self.flags)).to(self.device))
 
     def apply(self, grads) -> None:
         """ZeRO-style apply of the cohort mean ``grads`` (full, on rank 0;
         None elsewhere): rank 0 scatters each rank its blocks, every rank
-        runs AdamW on them, and the updated blocks are gathered back into
-        the whole parameters."""
-        blocks = parallel.scatter_shards(grads, self.named, self._flat_sh, self.mesh)
+        runs AdamW on them, the updated blocks go back to the layout the
+        ranks hold, and rank 0 refreshes its whole model."""
+        blocks = parallel.scatter_shards(grads, self._template, self._flat_sh, self.mesh)
         for k, g in zip(sorted(self.named), blocks):
             self.blocks[k].grad = g
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
-        sharded = {k: parallel.collectives._dtensor(self.blocks[k], sh, tuple(self.named[k].shape))
-                   for k, sh in self.shardings.items() if any(s is not None for s in sh.spec)}
-        full = parallel.redistribute(sharded, parallel.replicated(self.mesh))
+        whole = parallel.replicated(self.mesh)
+        # The leaves cut over dp gather back; the others were updated in place.
+        sharded = {k: parallel.collectives._dtensor(self.blocks[k], sh, self.full_shapes[k])
+                   for k, sh in self.shardings.items() if "dp" in sh.spec}
+        got = parallel.redistribute(sharded, {k: self.held.get(k, whole) for k in sharded})
         with torch.no_grad():
-            for k, t in full.items():
+            for k, t in got.items():
                 self.named[k].copy_(t.to_local())
+        self._refresh()
+
+    def _refresh(self) -> None:
+        """Rank 0's whole model from the blocks the ranks hold (a gather of
+        the held leaves; the rest are whole on rank 0)."""
+        if not self.held:
+            return
+        wholes = parallel.gather_full({k: parallel.collectives._dtensor(
+            self.named[k].detach(), sh, self.full_shapes[k]) for k, sh in self.held.items()})
+        if self.rank != 0:
+            return
+        with torch.no_grad():
+            for k, p in self.model.named_parameters():
+                p.copy_(wholes[k] if k in wholes else self.named[k])
 
     def _dtensor_moments(self):
         """This rank's AdamW moments as DTensors, per param index."""
@@ -912,7 +955,7 @@ class _MeshHost:
         for i, st in self.opt.state_dict()["state"].items():
             k = names[i]
             out[i] = {m: parallel.collectives._dtensor(st[m], self.shardings[k],
-                                                       tuple(self.named[k].shape))
+                                                       self.full_shapes[k])
                       for m in ("exp_avg", "exp_avg_sq")}
         return out
 
@@ -921,7 +964,7 @@ class _MeshHost:
         rank 0 (None elsewhere): the shape a one-device peer sends."""
         sd = self.opt.state_dict()
         moments = parallel.gather_full(self._dtensor_moments(), dst=0)
-        if moments is None:
+        if moments is None or self.rank != 0:
             return None
         for i, m in moments.items():
             sd["state"][i] = dict(sd["state"][i], **m)
@@ -941,11 +984,14 @@ class _MeshHost:
 
     def load_state(self, params, sd, n_state: int) -> None:
         """Rank 0 received the leader's model and AdamW state (``params``,
-        ``sd``; None elsewhere): every rank takes the whole parameters and
-        its blocks of the moments."""
-        whole = parallel.scatter_shards(params, self.named, [None] * len(self.named), self.mesh)
+        ``sd``; None elsewhere): rank 0 takes the whole model, every rank
+        the parts of the parameters it holds and its blocks of the moments."""
+        if self.rank == 0 and self.held:
+            common.copy_into(dict(self.model.named_parameters()), params)
+        got = parallel.scatter_shards(params, self._template,
+                                      [self.held.get(k) for k in sorted(self.named)], self.mesh)
         with torch.no_grad():
-            for k, t in zip(sorted(self.named), whole):
+            for k, t in zip(sorted(self.named), got):
                 self.named[k].copy_(t)
         names = list(self.named)
         state = {}
@@ -954,11 +1000,12 @@ class _MeshHost:
             src = sd["state"][i] if sd is not None else None
             got = parallel.scatter_shards(
                 None if src is None else {"a": src["exp_avg"], "b": src["exp_avg_sq"]},
-                {"a": self.named[k], "b": self.named[k]}, [self.shardings[k]] * 2, self.mesh)
+                {"a": self._template[k], "b": self._template[k]}, [self.shardings[k]] * 2,
+                self.mesh)
             steps = parallel.scatter_shards(
                 None if src is None else {"s": torch.as_tensor(src["step"], dtype=torch.float32)
-                                          .reshape(1).to(self.named[k].device)},
-                {"s": torch.zeros(1, device=self.named[k].device)}, [None], self.mesh)[0]
+                                          .reshape(1).to(self.device)},
+                {"s": torch.zeros(1, device=self.device)}, [None], self.mesh)[0]
             state[i] = {"step": steps.reshape(()).cpu(), "exp_avg": got[0],
                         "exp_avg_sq": got[1]}
         groups = self.opt.state_dict()["param_groups"]
@@ -987,11 +1034,15 @@ class _MeshHost:
         return self.stop(summary=self.summary())
 
     def summary(self) -> dict:
+        """This rank's launches, memory, staged bytes, psum seconds, the
+        sha256 of the parameters it holds whole (``params_sha256``, equal on
+        every rank and host) and of its blocks (``held_sha256``)."""
         from ..ops import flash_attention as fa
 
         reg = telemetry.get_registry()
         return {
             "rank": self.rank,
+            "coords": {a: self.mesh.get_local_rank(a) for a in self.mesh.mesh_dim_names},
             "launches": {"flash_fwd": fa.flash_fwd_launches(),
                          "flash_bwd_dq": fa.flash_bwd_dq_launches(),
                          "flash_bwd_dkv": fa.flash_bwd_dkv_launches()},
@@ -999,7 +1050,10 @@ class _MeshHost:
                                      if self.device.type == "cuda" else 0),
             "host_staged_bytes": _counter(reg, "collectives_host_staged_bytes_total"),
             "psum_seconds": _hist_sum(reg, "accum_psum_seconds"),
-            "params_sha256": params_sha256(self.named),
+            "params_sha256": params_sha256({k: v for k, v in self.named.items()
+                                            if k not in self.held}),
+            "held_sha256": params_sha256({k: self.named[k] for k in self.held})
+            if self.held else None,
         }
 
     def stop(self, summary=None):
@@ -1009,6 +1063,34 @@ class _MeshHost:
             self.command(self.STOP)
         out = self.control.gather_objects(summary if summary is not None else self.summary())
         return out if self.rank == 0 else out[self.rank]
+
+
+def _only(sh, axes):
+    """``sh`` with only the mesh axes ``axes`` left in its spec."""
+    return parallel.mesh.NamedSharding(sh.mesh, parallel.PartitionSpec(
+        *(a if a in axes else None for a in sh.spec)), sh.dims)
+
+
+def host_layout(named: dict, full_shapes: dict, mesh, shardings=None) -> dict:
+    """The layout of a mesh host's gradients and AdamW moments, per
+    parameter name: the axes the parameter is held over (its ``tp`` tag
+    from ``shard_model``, ``ep`` for experts from ``shardings``), and FSDP
+    over ``dp`` on a dim they leave free (``parallel.param_shardings``).
+    Decided on the whole shapes, so it is the same on every rank."""
+    from ..parallel.tensor_parallel import held_sharding
+
+    held = {}
+    for k, p in named.items():
+        tag = held_sharding(p)
+        base = tag if tag is not None else (shardings or {}).get(k)
+        spec = [s if s in ("ep", "tp") else None for s in (base.spec if base is not None else ())]
+        spec += [None] * (len(full_shapes[k]) - len(spec))
+        held[k] = parallel.mesh.NamedSharding(mesh, parallel.PartitionSpec(*spec),
+                                              base.dims if base is not None else None)
+    if parallel.mesh.axis_sizes(mesh).get("dp", 1) == 1:
+        return held
+    whole = {k: p.new_empty(()).expand(full_shapes[k]) for k, p in named.items()}
+    return parallel.param_shardings(whole, mesh, "fsdp", held=held)
 
 
 def _counter(reg, name: str) -> float:
@@ -1125,8 +1207,8 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
             lambda p, b, r: copy_task_loss(model(b), b, half), overlap_grads=True)
 
     steps_done = start_step
-    applied = 0
-    loss_v = acc_v = None
+    applied = learns = 0
+    loss_v = acc_v = first_loss = None
     exposed = []  # per round: step returned -> result ready (s)
     t_grads = None
     start = time.time()
@@ -1275,6 +1357,8 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
                     t_grads = time.perf_counter()
                     acc.reduce_gradients(flags.batch_size, grads)
                     loss_v, acc_v = float(loss), float(a)
+                    first_loss = loss_v if first_loss is None else first_loss
+                    learns += 1
             else:
                 time.sleep(0.002)
         # Leave together: a peer that applied the last result first (and may
@@ -1321,6 +1405,8 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
     return {
         "steps": steps_done,
         "loss": loss_v,
+        "first_loss": first_loss,
+        "learns": learns,
         "acc": acc_v,
         "mfu": mfu_v,
         "tokens_per_s": applied * flags.batch_size * flags.seq_len / max(elapsed, 1e-6),

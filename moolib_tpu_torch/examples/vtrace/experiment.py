@@ -27,8 +27,7 @@ a ``torch.profiler`` window over the first 30 s of training;
 ``--autoscale`` / ``--localdir`` supervise and drain worker peers
 (``autoscaler``); ``--compile_cache_dir`` shares the kernel build
 directory.  ``--checkpoint_dir`` is the distributed checkpoint plane of
-``--shard_grads`` cohorts, as in the JAX package.  Flags of planes the
-port does not have yet exit with their slice (:func:`unported`).
+``--shard_grads`` cohorts, as in the JAX package.
 
 Run: ``python -m moolib_tpu_torch.examples.vtrace.experiment --env catch``
 (``--device cpu`` without a card).
@@ -322,21 +321,8 @@ def make_optimizer(params, flags) -> common.OptaxOptimizer:
     )
 
 
-def unported(flags) -> list:
-    """(flag, slice) for every flag set to a plane the port does not have
-    yet."""
-    out = []
-    from ... import parallel
-
-    other = [k for k, v in parallel.mesh.parse_axes(flags.get("mesh") or "").items()
-             if k not in ("dp", "tp") and v != 1]
-    if other:
-        out.append((f"--mesh axes {other}", "9e"))
-    return out
-
-
 class _MeshLearner:
-    """The rank processes of a ``--mesh dp=N[,tp=M]`` learner.  Rank 0 runs
+    """The rank processes of a ``--mesh dp=N[,tp=M][,sp=S]`` learner.  Rank 0 runs
     the whole loop (actors, Batcher, Accumulator); before each learn, apply
     or model sync it broadcasts one command, and the other ranks, in
     :meth:`follow`, take the same step with it.  A learn broadcasts the
@@ -356,6 +342,17 @@ class _MeshLearner:
     model sync and the checkpoints read, and refreshes its blocks from it
     after every update (an elementwise update of a block is the block of
     the whole update, bit for bit).
+
+    With an ``sp`` axis the learner batch's time is cut over ``sp`` for the
+    encoder (``P("sp", "dp")``, the JAX example's batch sharding): each
+    ``sp`` rank runs the convs and ``Dense_0`` on its block of the
+    ``[T+1]`` steps, and their outputs are gathered over ``sp``
+    (``ImpalaNet.sp``).  V-trace runs backward over time, the LSTM core
+    forward over it, and the bootstrap is the last step's, so the core, the
+    heads and the loss run on the whole unroll on every ``sp`` rank, and
+    the step weighs each rank's loss by one over the ranks that hold it
+    (``parallel.train``).  Rank 0 keeps a learner copy of the network, as
+    with ``tp``: its actors run the whole network on their own steps.
 
     Under ``--actor_mesh`` this is the learner mesh of the split and rank 0
     is its first rank; the batch is not broadcast: each rank takes its
@@ -377,16 +374,19 @@ class _MeshLearner:
         self._dp_rank = mesh.get_local_rank("dp") if "dp" in sizes else 0
         layout = parallel.auto_shardings(named, mesh)
         self.learner, self.held = model, {}
-        if sizes.get("tp", 1) > 1:
+        if sizes.get("tp", 1) > 1 or sizes.get("sp", 1) > 1:
             import copy
 
             # Rank 0's actors and Accumulator keep the whole network; the
             # other ranks keep only their blocks.
             self.learner = copy.deepcopy(model) if self.rank == 0 else model
+        if sizes.get("tp", 1) > 1:
             self.held = tensor_parallel.shard_model(self.learner, mesh, layout)
             if self.rank != 0:
                 self.named = dict(model.named_parameters())
                 self.opt = make_optimizer(model.parameters(), flags)
+        if sizes.get("sp", 1) > 1:
+            self.learner.sp = tensor_parallel.TPShard(mesh, "sp")
         self.lnamed = dict(self.learner.named_parameters())
         self.feed = None
         self.step = parallel.make_train_step(
@@ -743,6 +743,8 @@ def _mesh_world(flags) -> int:
         axes = parallel.split_mesh(axes, flags.actor_mesh)[1]
     if flags.batch_size % axes.get("dp", 1):
         raise ValueError("the dp mesh axis size must divide --batch_size")
+    if (flags.unroll_length + 1) % max(1, axes.get("sp", 1)):
+        raise ValueError("the sp mesh axis size must divide unroll_length+1")
     if flags.actor_mesh:
         return flags.actor_mesh + math.prod(axes.values())
     if any(v == -1 for v in axes.values()):
@@ -803,9 +805,6 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
     (``_MeshLearner``); started without ``RANK`` this process is rank 0
     and spawns the others (``_dist_args``: this rank's ``(coordinator,
     world, rank)``)."""
-    missing = unported(flags)
-    if missing:
-        raise SystemExit("; ".join(f"{f}: not yet ported (slice {n})" for f, n in missing))
     if flags.actor_mesh and (not flags.mesh or flags.env_backend != "jax"):
         raise ValueError(
             "--actor_mesh is the Sebulba split: it needs --mesh (devices to "

@@ -44,6 +44,7 @@ class ActorCriticNet(nn.Module):
         self.core = LSTMCore(core_size, core_size, dev) if use_lstm else None
         self.policy = Dense(core_size, num_actions, torch.float32, dev)
         self.baseline = Dense(core_size, 1, torch.float32, dev)
+        self.sp = None  # as ImpalaNet.sp: a learner's time block over an sp axis
         init_flax_defaults(self, generator)
 
     @property
@@ -59,9 +60,14 @@ class ActorCriticNet(nn.Module):
     def forward(self, inputs, core_state=(), sample_generator: Optional[torch.Generator] = None):
         x = inputs["state"]
         T, B = x.shape[0], x.shape[1]
-        x = x.reshape(T * B, -1).to(self.dtype)
+        if self.sp is not None:
+            x = self.sp.local(x, dim=0)
+        Tl = x.shape[0]
+        x = x.reshape(Tl * B, -1).to(self.dtype)
         x = torch.tanh(self.Dense_0(x))
         x = torch.tanh(self.Dense_1(x))
+        if self.sp is not None:
+            x = self.sp.gather(x.reshape(Tl, B, -1), dim=0).reshape(T * B, -1)
         if self.use_lstm:
             notdone = (~inputs["done"]).to(torch.float32)
             x, core_state = self.core(x.reshape(T, B, -1).to(torch.float32), notdone,

@@ -227,6 +227,9 @@ class ImpalaNet(nn.Module):
         # flax's Dense_1 (policy) and Dense_2 (baseline), in f32.
         self.policy = Dense(d_head, num_actions, torch.float32, dev)
         self.baseline = Dense(d_head, 1, torch.float32, dev)
+        # A learner's place on an sp mesh axis (parallel.tensor_parallel.TPShard
+        # over "sp"): its encoder takes this rank's time block.
+        self.sp = None
         init_flax_defaults(self, generator)
 
     @property
@@ -242,12 +245,21 @@ class ImpalaNet(nn.Module):
     def forward(self, inputs, core_state=(), sample_generator: Optional[torch.Generator] = None):
         x = inputs["state"]
         T, B = x.shape[0], x.shape[1]
+        if self.sp is not None:
+            # Sequence parallelism: the frames of this rank's time block go
+            # through the encoder and Dense_0, whose outputs are gathered
+            # over sp (backward: the reduce-scatter); the core, the heads
+            # and the loss see the whole unroll.
+            x = self.sp.local(x, dim=0)
+        Tl = x.shape[0]
         # NHWC frames viewed as NCHW: channels_last in memory, no copy.
-        x = x.reshape(T * B, *x.shape[2:]).permute(0, 3, 1, 2)
+        x = x.reshape(Tl * B, *x.shape[2:]).permute(0, 3, 1, 2)
         x = x.to(self.dtype) / 255.0
         x = self.ImpalaEncoder_0(x)
-        x = x.permute(0, 2, 3, 1).reshape(T * B, -1)  # flax's (h, w, c) flatten
+        x = x.permute(0, 2, 3, 1).reshape(Tl * B, -1)  # flax's (h, w, c) flatten
         x = F.relu(self.Dense_0(x))
+        if self.sp is not None:
+            x = self.sp.gather(x.reshape(Tl, B, -1), dim=0).reshape(T * B, -1)
 
         one_hot_prev = F.one_hot(inputs["prev_action"].reshape(T * B).long(),
                                  self.num_actions).to(self.dtype)

@@ -564,31 +564,38 @@ def gather_full(tree: Any, dst: int = 0) -> Optional[Any]:
 
 
 def scatter_shards(full: Optional[Any], template: Any, shardings: Sequence, mesh,
-                   axis_name: str = "dp", src: int = 0) -> List[torch.Tensor]:
+                   src: int = 0) -> List[torch.Tensor]:
     """Each rank's block of the full tree that mesh rank ``src`` holds.
     ``full`` is that tree on ``src`` (ignored elsewhere), ``template`` a
-    tree of the same shapes and dtypes on every rank (e.g. the params),
-    ``shardings`` the flat list of per-leaf :class:`NamedSharding` (None:
-    replicated, broadcast whole over ``axis_name``).  One scatter per axis
-    and dtype for the sharded leaves, one broadcast per dtype for the
-    replicated ones; leaves sharded over several axes are broadcast whole
+    tree of the same shapes and dtypes on every rank (e.g. the params; its
+    values are not read), ``shardings`` the flat list of per-leaf
+    :class:`NamedSharding` (None: replicated, broadcast whole over the
+    mesh).  On a mesh with one axis of more than one rank: one scatter per
+    dtype for the sharded leaves, one broadcast per dtype for the
+    replicated ones.  Where several axes have more than one rank, or a leaf
+    is sharded over several axes, the sharded leaves are broadcast whole
     over the mesh and cut.  Returns the flat list of blocks."""
     tleaves = nest.tree_leaves(template)
     fleaves = nest.tree_leaves(full) if full is not None else [None] * len(tleaves)
     out: List[Optional[torch.Tensor]] = [None] * len(tleaves)
-    multi = [i for i, sh in enumerate(shardings) if _multi(sh)]
+    sizes = axis_sizes(mesh)
+    names = tuple(mesh.mesh_dim_names)
+    live = [a for a in names if sizes[a] > 1]
+    whole_mesh = len(live) > 1
+    multi = [i for i, sh in enumerate(shardings) if _multi(sh) or (whole_mesh and _shard_dims(sh))]
     if multi:
         # Leaves sharded over several axes: broadcast whole over the whole
         # mesh, each rank keeps its block.
         whole = broadcast_tree({str(i): fleaves[i] for i in multi} if full is not None
                                else None, mesh, tleaves[multi[0]].device,
-                               axis_name=tuple(mesh.mesh_dim_names), src=src)
+                               axis_name=names, src=src)
         for i in multi:
             out[i] = shard_of(whole[str(i)], shardings[i])
     hits = [None if i in multi else _shard_dim(sh) for i, sh in enumerate(shardings)]
     for (name, _), idx in _groups([i for i in range(len(tleaves)) if i not in multi], lambda i: (
             hits[i][0] if hits[i] is not None else None, tleaves[i].dtype)):
-        group = _group(mesh, name if name is not None else axis_name)
+        group = (_group(mesh, name) if name is not None
+                 else axes_group(mesh, names)[0] if len(names) > 1 else _group(mesh, names[0]))
         me = dist.get_rank(group)
         root = dist.get_global_rank(group, src)
         like = tleaves[idx[0]]

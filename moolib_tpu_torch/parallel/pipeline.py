@@ -27,7 +27,8 @@ wraps each stage in ``torch.utils.checkpoint`` (``remat_policy`` as the
 model's ``REMAT_POLICIES``): the stage's activations are recomputed in the
 backward.  Gradients follow the package's convention
 (``parallel.collectives``): the outputs' sum over ``pp`` takes a sum in the
-backward, and a rank's parameter gradients cover only the stages it runs.
+backward, and a rank's parameter gradients cover only the stages it runs
+(zeros for the others).
 """
 
 from __future__ import annotations
@@ -133,6 +134,11 @@ class _Pipeline(torch.autograd.Function):
                 g_xs[m] += grads[0]
             else:
                 g_carry = grads[0]
+        # Zeros for the stages this rank does not run: every rank's
+        # parameters then take a gradient from this node, so the leaves'
+        # hooks fire alike on every rank (parallel.train's overlap step).
+        g_params = [torch.zeros_like(p) if g is None and p.requires_grad else g
+                    for p, g in zip(params, g_params)]
         return (None, g_xs, *g_params)
 
 

@@ -45,13 +45,28 @@ summed over every axis, ``tp`` blocks over every axis but ``tp``, experts
 over every axis but ``ep``.  The loss and the aux it returns are the global
 ones.
 
-``grad_spec=`` on a ``dp`` x ``tp`` mesh (the vtrace learner's
-``--mesh dp=N,tp=M``) reduces the same way into the ``auto_shardings``
-layout: a leaf sharded over ``dp`` and ``tp`` comes back as a ``DTensor``
-with two ``Shard`` placements.  Other model-parallel axes inside the
-elastic cohort (``grad_spec=`` with ``sp``/``ep``/``pp``, and
-``overlap_grads=`` on any model-parallel axis) are not yet ported
-(slice 9e).
+``grad_spec=`` (the elastic cohort's mesh hosts) weighs the loss and
+reduces every leaf the same way, through the same helper
+(:class:`_Reduction`), then lays the gradients out in the target layout:
+a leaf sharded over ``dp`` and ``tp`` comes back as a ``DTensor`` with two
+``Shard`` placements.  There a sum over several axes runs one axis at a
+time (the model axes in mesh order, ``dp`` last), so two ranks an axis add
+in one order whatever the leaves' grouping: the barrier and the overlap
+stream agree bit for bit.  The optimizer path sums each group of leaves
+in one all-reduce over all its axes, which moves fewer bytes; it agrees
+with them up to the order of the additions, and bit for bit where a
+leaf's sum runs over one axis.
+
+The hooks of ``overlap_grads=True`` reduce from inside the backward, where
+ring attention, the MoE and the pipeline make their own collectives.  Every
+rank of a reduction group must post the same collectives in the same
+order, so every rank must reach the same leaves in the same order: the
+ranks run one graph (the same modules, the same autograd nodes; a ring's
+hops and a pipeline's ticks are each inside one node, ``_Ring`` and
+``_Pipeline``), and every leaf gets a gradient on every rank (the
+pipeline returns zeros for the stages a rank does not run, the MoE runs
+every expert it holds).  A leaf the backward reaches on no rank goes out
+after it, on every rank alike.
 """
 
 from __future__ import annotations
@@ -70,7 +85,7 @@ from ..utils import nest
 from .collectives import (_all_reduce, _dtensor, _groups, _pack, _unpack_block, axes_group,
                           gather_full, reduce_scatter_axis, shard_of)
 from .mesh import (NamedSharding, PartitionSpec as P, axis_sizes, flax_shape, layout_dims,
-                   replicated)
+                   mesh_ranks, replicated)
 
 _REG = telemetry.get_registry()
 _M_STEPS = _REG.counter("train_steps_total", "train-step invocations")
@@ -101,10 +116,6 @@ def _instrument_step(fn, name: Optional[str] = None):
     return timed_step
 
 
-def _model_parallel_axes(mesh) -> List[str]:
-    return [k for k, v in axis_sizes(mesh).items() if k != "dp" and v > 1]
-
-
 def _spec_axes(spec) -> set:
     """The mesh axes a PartitionSpec names."""
     out = set()
@@ -126,37 +137,73 @@ def _held_axes(p, sharding) -> set:
     return _spec_axes(sharding.spec if sharding is not None else ()) - {"dp", "tp"}
 
 
-def _optimizer_step(loss_fn, optimizer, mesh, params_sharding, batch_spec):
+class _Reduction:
+    """How a step on a mesh weighs its loss and reduces its gradients (the
+    module docstring), for the optimizer path, the ``grad_spec`` barrier
+    and the overlap hooks alike: ``n_tok`` token shards from the axes
+    ``batch_spec`` names, ``n_rep`` replicas of each; per leaf, the live
+    axes its parameter is not held over, in summing order."""
+
+    def __init__(self, mesh, params_sharding, batch_spec):
+        sizes = axis_sizes(mesh) if mesh is not None else {}
+        self.mesh = mesh
+        self.live = [a for a, n in sizes.items() if n > 1]
+        tok = [a for a in self.live if a in _spec_axes(batch_spec)]
+        self.n_tok = int(np.prod([sizes[a] for a in tok])) if tok else 1
+        self.n_rep = int(np.prod([sizes[a] for a in self.live])) // self.n_tok
+        self._params_sharding = params_sharding
+        self._resolved: Optional[tuple] = None
+
+    def weigh(self, loss):
+        """The loss a rank takes the backward of: its share over the ranks
+        that hold the same tokens."""
+        return loss / self.n_rep if self.n_rep > 1 else loss
+
+    def _resolve(self, params) -> tuple:
+        if self._resolved is None:
+            leaves = nest.tree_leaves(params)
+            ps = self._params_sharding
+            shs = ([None] * len(leaves) if ps is None or isinstance(ps, str)
+                   else nest.tree_leaves(ps))
+            helds = [_held_axes(p, sh) for p, sh in zip(leaves, shs)]
+            axes = [tuple(a for a in self.live if a != "dp" and a not in held)
+                    + (("dp",) if "dp" in self.live and "dp" not in held else ())
+                    for held in helds]
+            self._resolved = (helds, axes)
+        return self._resolved
+
+    def helds(self, params) -> List[set]:
+        """Per leaf (flatten order): the mesh axes its parameter is cut over."""
+        return self._resolve(params)[0]
+
+    def axes(self, params) -> List[tuple]:
+        """Per leaf (flatten order): the axes its gradient is summed over,
+        the model axes first, ``dp`` last."""
+        return self._resolve(params)[1]
+
+    def global_mean(self, x):
+        """A rank's local loss or aux value as the global one."""
+        if not isinstance(x, torch.Tensor) or not self.live:
+            return x
+        return _all_reduce(x.detach().to(torch.float32) / self.n_rep,
+                           axes_group(self.mesh, tuple(self.live))[0]) / self.n_tok
+
+
+def _sum_axes(flat: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The sum of ``flat`` over ``axes``, one axis's group at a time."""
+    for a in axes:
+        flat = _all_reduce(flat, mesh.get_group(a))
+    return flat
+
+
+def _optimizer_step(loss_fn, optimizer, mesh, red: _Reduction, batch_spec):
     """The step with an optimizer, on any mesh or none (see the module
     docstring): ``step(params, opt_state, batch, rng) -> (params,
     opt_state, loss, aux)`` with the global loss and aux.
     ``step.grads(params, batch, rng) -> (loss, aux)`` runs the same forward,
     backward and reduction and leaves the reduced gradients in the leaves'
     ``.grad``, without the update (a warm-up or a probe)."""
-    sizes = axis_sizes(mesh) if mesh is not None else {}
-    live = [a for a, n in sizes.items() if n > 1]
-    tok_axes = [a for a in live if a in _spec_axes(batch_spec)]
-    n_tok = int(np.prod([sizes[a] for a in tok_axes])) if tok_axes else 1
-    n_rep = int(np.prod([sizes[a] for a in live])) // n_tok
-    resolved: dict = {}
-
-    def reduce_axes(params) -> list:
-        """Per leaf (flatten order): the axes its gradient is summed over."""
-        if "axes" not in resolved:
-            leaves = nest.tree_leaves(params)
-            if params_sharding is None or params_sharding == "replicated":
-                shs = [None] * len(leaves)
-            else:
-                shs = nest.tree_leaves(params_sharding)
-            resolved["axes"] = [tuple(a for a in live if a not in _held_axes(p, sh))
-                                for p, sh in zip(leaves, shs)]
-        return resolved["axes"]
-
-    def global_mean(x):
-        if not isinstance(x, torch.Tensor) or not live:
-            return x
-        return _all_reduce(x.detach().to(torch.float32) / n_rep,
-                           axes_group(mesh, tuple(live))[0]) / n_tok
+    n_tok = red.n_tok
 
     def grads(params, batch, rng):
         leaves = nest.tree_leaves(params)
@@ -165,21 +212,21 @@ def _optimizer_step(loss_fn, optimizer, mesh, params_sharding, batch_spec):
         if mesh is not None:
             batch = _slice_batch(batch, mesh, batch_spec)
         loss, aux = loss_fn(params, batch, rng)
-        (loss / n_rep if n_rep > 1 else loss).backward()
-        axes = reduce_axes(params)
+        red.weigh(loss).backward()
+        axes = red.axes(params)
         gs = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
         for (ax, _), idx in _groups(range(len(leaves)), lambda i: (axes[i], gs[i].dtype)):
             if not ax and n_tok == 1:
                 continue
             flat = torch.cat([gs[i].reshape(-1) for i in idx])
-            if ax:
-                flat = _all_reduce(flat, axes_group(mesh, ax)[0])
+            if ax:  # one all-reduce over the group of all of them
+                flat = _all_reduce(flat, axes_group(mesh, [a for a in red.live if a in ax])[0])
             flat = flat.div_(n_tok)
             off = 0
             for i in idx:
                 leaves[i].grad = flat[off:off + gs[i].numel()].view(gs[i].shape)
                 off += gs[i].numel()
-        return global_mean(loss.detach()), nest.tree_map(global_mean, aux)
+        return red.global_mean(loss.detach()), nest.tree_map(red.global_mean, aux)
 
     def step(params, opt_state, batch, rng):
         loss, aux = grads(params, batch, rng)
@@ -190,34 +237,46 @@ def _optimizer_step(loss_fn, optimizer, mesh, params_sharding, batch_spec):
     return step
 
 
-def fsdp_spec(x, axis: str = "dp", min_size: int = 2**16) -> P:
-    """ZeRO-3-style spec: shard the largest divisible axis of big params."""
+def fsdp_spec(x, axis: str = "dp", min_size: int = 2**16, held=None) -> P:
+    """ZeRO-3-style spec: shard the largest axis of big params.  ``held``
+    (a :class:`NamedSharding`, for ``x`` of the whole shape): the
+    model-parallel axes the parameter is cut over, whose spec is kept (one
+    entry per dim) while ``axis`` takes the largest dim they leave free."""
     shape = tuple(x.shape)
-    if not shape or int(np.prod(shape)) < min_size:
-        return P()
-    best = max(range(len(shape)), key=lambda i: shape[i])
-    spec = [None] * len(shape)
-    spec[best] = axis
+    if held is None:
+        spec, order = [None] * len(shape), list(range(len(shape)))
+    else:
+        spec = list(held.spec) + [None] * (len(shape) - len(held.spec))
+        order = list(held.dims) if held.dims is not None else list(range(len(shape)))
+    free = [d for d in range(len(shape)) if spec[order.index(d)] is None]
+    if not free or int(np.prod(shape)) < min_size:
+        return P(*spec) if held is not None else P()
+    spec[order.index(max(free, key=lambda d: shape[d]))] = axis
     return P(*spec)
 
 
-def param_shardings(params, mesh, mode: str = "replicated", axis: str = "dp"):
+def param_shardings(params, mesh, mode: str = "replicated", axis: str = "dp", held=None):
     """Tree of :class:`NamedSharding` for the params: "replicated" (pure DP)
-    or "fsdp" (largest-axis sharding for big leaves)."""
+    or "fsdp" (largest-axis sharding for big leaves, where ``axis``
+    divides that dim).  ``held`` ("fsdp"; a tree like ``params``): each
+    leaf's :class:`NamedSharding` of the model-parallel axes it is cut over
+    (``fsdp_spec``), ``params`` then leaves of the whole shapes."""
     if mode == "replicated":
         return nest.tree_map(lambda _: replicated(mesh), params)
     if mode == "fsdp":
         sizes = axis_sizes(mesh)
 
-        def spec_of(x):
-            s = fsdp_spec(x, axis)
-            # Only keep the sharding if the axis divides evenly.
-            for dim, name in zip(x.shape, s):
-                if name is not None and dim % sizes[name]:
-                    return replicated(mesh)
-            return NamedSharding(mesh, s)
+        def spec_of(x, h=None):
+            spec = fsdp_spec(x, axis, held=h)
+            sh = NamedSharding(mesh, spec, None if h is None else h.dims)
+            if any(a == axis and x.shape[d] % sizes[a] for a, d in sh.hits()):
+                # Only keep the sharding if the axis divides evenly.
+                sh = replicated(mesh) if h is None else NamedSharding(
+                    mesh, P(*(None if a == axis else a for a in spec)), h.dims)
+            return sh
 
-        return nest.tree_map(spec_of, params)
+        return nest.tree_map(spec_of, params) if held is None else nest.tree_map(
+            spec_of, params, held)
     raise ValueError(f"unknown mode {mode!r}")
 
 
@@ -266,33 +325,28 @@ def _slice_batch(batch, mesh, spec: P):
 
 
 def _reduce_leaves(grads: List[torch.Tensor], shardings: List[NamedSharding], n: int,
-                   helds: Optional[List[set]] = None) -> list:
-    """The dp-mean of gradient leaves, each in its target sharding's layout,
-    as DTensors.  ``grads`` are the leaves' local gradients: whole, or the
+                   helds: List[set], axes: List[tuple]) -> list:
+    """Gradient leaves reduced into their target shardings' layouts, as
+    DTensors.  ``grads`` are the leaves' local gradients: whole, or the
     block of the axes ``helds[i]`` their parameter is cut over (a ``tp``
-    block), which must be among the target's.  Per leaf: one all-reduce
-    over the axes that hold a replica of it and that the target does not
-    scatter; its block of the target's other model-parallel axes; and,
-    where the target shards it over ``dp``, one reduce-scatter of the
-    blocks packed rank-major (each rank keeps its block of every leaf).
-    One collective per group of leaves that share those axes and a
-    dtype."""
+    block, an ``ep`` expert block), which must be among the target's;
+    ``axes[i]`` the axes they are summed over (:class:`_Reduction`), ``n``
+    the token shards they are divided by.  Per leaf: a sum over those axes
+    but ``dp`` where the target scatters it over ``dp``; its block of the
+    target's other model-parallel axes; and, where the target shards it
+    over ``dp``, one reduce-scatter of the blocks packed rank-major (each
+    rank keeps its block of every leaf).  One collective per group of
+    leaves that share those axes and a dtype."""
     mesh = shardings[0].mesh
     sizes = axis_sizes(mesh)
-    live = [a for a, k in sizes.items() if k > 1]
-    helds = helds if helds is not None else [set()] * len(grads)
     full_shapes, scatter, sums = [], [], []
-    for g, sh, held in zip(grads, shardings, helds):
-        axes = _spec_axes(sh.spec)
-        if not held <= axes:
+    for g, sh, held, ax in zip(grads, shardings, helds, axes):
+        target = _spec_axes(sh.spec)
+        if not held <= target:
             raise ValueError(f"a gradient held over {sorted(held)} cannot take the layout {sh!r}")
-        shape = list(g.shape)
-        for a, d in sh.hits():
-            if a in held:
-                shape[d] *= sizes[a]
-        full_shapes.append(tuple(shape))
-        scatter.append("dp" in axes and sizes.get("dp", 1) > 1)
-        sums.append(tuple(a for a in live if a not in held and not (a == "dp" and "dp" in axes)))
+        full_shapes.append(_full_shape(g.shape, sh, held))
+        scatter.append("dp" in target and "dp" in ax)
+        sums.append(tuple(a for a in ax if not (a == "dp" and scatter[-1])))
     out: list = [None] * len(grads)
     red: list = [None] * len(grads)
     for (ax, _), idx in _groups(range(len(grads)), lambda i: (sums[i], grads[i].dtype)):
@@ -300,8 +354,7 @@ def _reduce_leaves(grads: List[torch.Tensor], shardings: List[NamedSharding], n:
             for i in idx:
                 red[i] = grads[i]
             continue
-        flat = _all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
-                           axes_group(mesh, ax)[0])
+        flat = _sum_axes(torch.cat([grads[i].reshape(-1) for i in idx]), ax, mesh)
         off = 0
         for i in idx:
             red[i] = flat[off:off + grads[i].numel()].view(grads[i].shape)
@@ -313,13 +366,25 @@ def _reduce_leaves(grads: List[torch.Tensor], shardings: List[NamedSharding], n:
     for (sharded, _), idx in _groups(range(len(grads)), lambda i: (scatter[i], red[i].dtype)):
         if sharded:
             dims = [dict(shardings[i].hits())["dp"] for i in idx]
-            flat = reduce_scatter_axis(_pack([red[i] for i in idx], dims, n), "dp", mesh)
-            locals_ = _unpack_block(flat.div_(n), [red[i] for i in idx], dims, n)
+            flat = reduce_scatter_axis(_pack([red[i] for i in idx], dims, sizes["dp"]), "dp",
+                                       mesh)
+            locals_ = _unpack_block(flat.div_(n), [red[i] for i in idx], dims, sizes["dp"])
         else:
             locals_ = [red[i] / n if n > 1 else red[i] for i in idx]
         for i, local in zip(idx, locals_):
             out[i] = _dtensor(local, shardings[i], full_shapes[i])
     return out
+
+
+def _full_shape(shape, sharding: NamedSharding, held: set) -> tuple:
+    """The whole shape of a leaf held as a block of ``held`` axes, whose
+    target layout ``sharding`` names the dims they cut."""
+    sizes = axis_sizes(sharding.mesh)
+    out = list(shape)
+    for a, d in sharding.hits():
+        if a in held:
+            out[d] *= sizes[a]
+    return tuple(out)
 
 
 def _hits_sharding(mesh, hits, ndim: int) -> NamedSharding:
@@ -366,7 +431,8 @@ def make_train_step(
       ``aux`` are the global ones.  ``step.grads(params, batch, rng) ->
       (loss, aux)`` stops before the update.
     - With ``grad_spec=`` (needs ``mesh=``): ``step(params, batch, rng) ->
-      (loss, aux, grads)``, the hierarchical learner's in-mesh half.
+      (loss, aux, grads)`` with the global loss and aux, the hierarchical
+      learner's in-mesh half.
       ``grad_spec`` is "replicated", "fsdp", "params" (mirror
       ``params_sharding``) or a tree of :class:`NamedSharding`; ``grads``
       is a tree of ``DTensor``s in that layout.
@@ -396,22 +462,16 @@ def make_train_step(
         raise ValueError("overlap_grads=True with mesh= requires grad_spec=")
     if grad_spec is None and optimizer is None and not overlap_grads:
         raise ValueError("make_train_step needs an optimizer unless grad_spec= is given")
-    mp_axes = _model_parallel_axes(mesh) if mesh is not None else []
-    cohort_mp = [a for a in mp_axes if a != "tp" or overlap_grads]
-    if cohort_mp and (grad_spec is not None or overlap_grads):
-        raise NotImplementedError(
-            f"mesh axes {cohort_mp} inside the elastic cohort (grad_spec=, "
-            "overlap_grads=): not yet ported (slice 9e)")
     if isinstance(grad_spec, str) and grad_spec not in ("replicated", "fsdp", "params"):
         raise ValueError(
             f"unknown grad_spec {grad_spec!r} (expected 'replicated', 'fsdp', "
             "'params', or a sharding pytree)"
         )
 
-    n_dp = axis_sizes(mesh).get("dp", 1) if mesh is not None else 1
     bspec = batch_spec if batch_spec is not None else P(None, "dp")
+    red = _Reduction(mesh, params_sharding, bspec)
     if optimizer is not None:
-        ostep = _optimizer_step(loss_fn, optimizer, mesh, params_sharding, bspec)
+        ostep = _optimizer_step(loss_fn, optimizer, mesh, red, bspec)
         timed = _instrument_step(ostep)
         timed.grads = ostep.grads
         return timed
@@ -431,15 +491,11 @@ def make_train_step(
     def local_batch(batch):
         return _slice_batch(batch, mesh, bspec) if mesh is not None else batch
 
-    # Ranks of a tp group hold the same tokens: each weighs its loss by
-    # one over the group (the gradient convention of parallel.collectives).
-    n_tp = axis_sizes(mesh).get("tp", 1) if mesh is not None else 1
-
     def forward_backward(leaves, batch, rng, params):
         for p in leaves:
             p.grad = None
         loss, aux = loss_fn(params, local_batch(batch), rng)
-        (loss / n_tp if n_tp > 1 else loss).backward()
+        red.weigh(loss).backward()
         return loss.detach(), aux
 
     def zero_missing(leaves):
@@ -449,14 +505,14 @@ def make_train_step(
         def sharded_grad_step(params, batch, rng):
             leaves, treedef = nest.tree_flatten(params)
             loss, aux = forward_backward(leaves, batch, rng, params)
-            shs = grad_shardings(params)
-            helds = [_held_axes(p, None) for p in leaves]
-            grads = _reduce_leaves(zero_missing(leaves), shs, n_dp, helds)
-            return loss, aux, treedef.unflatten(grads)
+            grads = _reduce_leaves(zero_missing(leaves), grad_shardings(params), red.n_tok,
+                                   red.helds(params), red.axes(params))
+            return red.global_mean(loss), nest.tree_map(red.global_mean, aux), \
+                treedef.unflatten(grads)
 
         return _instrument_step(sharded_grad_step)
 
-    return _instrument_step(_OverlapStep(forward_backward, mesh, n_dp, grad_shardings))
+    return _instrument_step(_OverlapStep(forward_backward, mesh, red, grad_shardings))
 
 
 class _OverlapStep:
@@ -465,10 +521,10 @@ class _OverlapStep:
     ``log`` records each delivery of the last call: ``(lo, hi, in_backward,
     t_ns)``."""
 
-    def __init__(self, forward_backward, mesh, n_dp, grad_shardings):
+    def __init__(self, forward_backward, mesh, red: _Reduction, grad_shardings):
         self._fb = forward_backward
         self._mesh = mesh
-        self._n = n_dp
+        self._red = red
         self._grad_shardings = grad_shardings
         self._lock = threading.Lock()
         self._leaves: Optional[list] = None
@@ -504,8 +560,10 @@ class _OverlapStep:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self._leaves[lo:hi]]
         if self._mesh is not None:
-            shs = call["shardings"][lo:hi]
-            grads = gather_full(_reduce_leaves(grads, shs, self._n))
+            red = self._red
+            grads = gather_full(_reduce_leaves(
+                grads, call["shardings"][lo:hi], red.n_tok, call["helds"][lo:hi],
+                call["axes"][lo:hi]))
         call["fired"][r] = True
         # mtlint: allow-bare-timer(a delivery timestamp for the hook-order log, not a timed block)
         self.log.append((lo, hi, in_backward, time.perf_counter_ns()))
@@ -518,14 +576,17 @@ class _OverlapStep:
                 a is not b for a, b in zip(leaves, self._leaves)):
             self._install(leaves)
         shardings = self._grad_shardings(params) if self._mesh is not None else None
-        on_root = self._mesh is None or self._mesh.get_local_rank("dp") == 0
+        on_root = self._mesh is None or torch.distributed.get_rank() == mesh_ranks(self._mesh)[0]
         stream = None
         if on_root:
-            stream = buckets.GradientStream(
-                treedef, [tuple(p.shape) for p in leaves], [p.dtype for p in leaves],
-                shardings=shardings)
+            shapes = ([tuple(p.shape) for p in leaves] if shardings is None else
+                      [_full_shape(p.shape, sh, held)
+                       for p, sh, held in zip(leaves, shardings, self._red.helds(params))])
+            stream = buckets.GradientStream(treedef, shapes, [p.dtype for p in leaves],
+                                            shardings=shardings)
         call = {"left": [hi - lo for lo, hi in self._runs], "fired": [False] * len(self._runs),
-                "stream": stream, "shardings": shardings}
+                "stream": stream, "shardings": shardings,
+                "helds": self._red.helds(params), "axes": self._red.axes(params)}
         self.log = []
         self._call = call
         try:
@@ -541,4 +602,6 @@ class _OverlapStep:
         for r, fired in enumerate(call["fired"]):
             if not fired:
                 self._fire(call, r, in_backward=False)
+        if self._mesh is not None:
+            loss, aux = self._red.global_mean(loss), nest.tree_map(self._red.global_mean, aux)
         return loss, aux, stream

@@ -7,8 +7,10 @@ port policies decide alike on the same samples, ``example_spawn`` launches
 a port worker without any JAX environment, and ``CohortAggregator.
 peer_samples`` turns a scrape into rows."""
 
+import contextlib
 import json
 import os
+import threading
 import time
 
 import numpy as np
@@ -416,6 +418,33 @@ def test_graceful_decommission_no_eviction_wait(free_port):
         close_all(broker, accs)
 
 
+@contextlib.contextmanager
+def running(fn, interval=0.01):
+    """Call ``fn`` on a helper thread every ``interval`` seconds for the
+    length of the block (the other peers' loops during a blocking call)."""
+    stop = threading.Event()
+    errors = []
+
+    def loop():
+        while not stop.is_set():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 - re-raised on exit
+                errors.append(e)
+                return
+            time.sleep(interval)
+
+    t = threading.Thread(target=loop, daemon=True)
+    t.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        t.join()
+    if errors:
+        raise errors[0]
+
+
 def test_vbatch_stable_across_grow_shrink(free_port):
     """The semantic contract: every APPLIED result carries at least the
     configured virtual batch, through a grow (3rd peer joins) and a shrink
@@ -426,22 +455,26 @@ def test_vbatch_stable_across_grow_shrink(free_port):
                                broker_timeout=60.0)
     applied = []
 
+    def tick(accs):
+        """One pass of every peer's training loop."""
+        broker.update()
+        for a in accs:
+            a.update()
+            if a.wants_state():
+                a.set_state({"opt": a._rpc.get_name()})
+            if not a.connected():
+                continue
+            if a.has_gradients():
+                if a is accs[0]:
+                    applied.append(a.get_gradient_stats())
+                a.zero_gradients()
+            elif a.wants_gradients():
+                a.reduce_gradients(2, {"w": torch.ones(2, 2)})
+
     def drive(accs, n_results, seconds=60):
         deadline = time.time() + seconds
         while time.time() < deadline and len(applied) < n_results:
-            broker.update()
-            for a in accs:
-                a.update()
-                if a.wants_state():
-                    a.set_state({"opt": a._rpc.get_name()})
-                if not a.connected():
-                    continue
-                if a.has_gradients():
-                    if a is accs[0]:
-                        applied.append(a.get_gradient_stats())
-                    a.zero_gradients()
-                elif a.wants_gradients():
-                    a.reduce_gradients(2, {"w": torch.ones(2, 2)})
+            tick(accs)
             time.sleep(0.01)
         return len(applied) >= n_results
 
@@ -454,7 +487,11 @@ def test_vbatch_stable_across_grow_shrink(free_port):
         assert drive(accs, len(applied) + 2), "no results after grow"
         # Shrink: the newcomer decommissions gracefully.
         victim = accs.pop()
-        assert victim.decommission(timeout=10.0)
+        # The survivors keep training while the victim drains, as their own
+        # loops would: a round the victim joined settles only once every
+        # member has contributed to it.
+        with running(lambda: tick(accs)):
+            assert victim.decommission(timeout=10.0)
         victim.close()
         assert pump(
             broker, accs, 30,

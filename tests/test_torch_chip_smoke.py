@@ -264,24 +264,35 @@ def test_accumulator_lm_phase_rehearsal(capsys, monkeypatch):
 
 def test_sharded_lm_phase_rehearsal(capsys, monkeypatch):
     """Two elastic hosts of two gloo rank processes each (d_model 64, 2
-    layers): both arms end with one params sha across hosts, ranks and
-    arms; the joiner ships half the flat payload a round; the overlap arm
-    streamed (its buckets launched before the last)."""
+    layers): every arm ends with one params sha across hosts and ranks, the
+    dp arms with one between them; the joiner ships half the flat payload a
+    round; the overlap arms streamed (their buckets launched before the
+    last); the sp_overlap arm's host 0 first loss is the dp arms' (the
+    rehearsal's bf16 limit), and its ranks report the ring's expected
+    launches (the CPU launches none)."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     res = chip_smoke.phase_sharded_lm(
-        0, device="cpu", steps=3, layers=2, timeout=300,
+        0, device="cpu", steps=3, layers=2, timeout=300, loss_tol=MP_REHEARSAL_TOLS[0],
         args=["--vocab", "64", "--d_model", "64", "--layers", "2", "--heads", "2",
               "--seq_len", "32", "--batch_size", "8", "--attention", "flash",
               "--mesh", "dp=2", "--shard_grads", "--learning_rate", "1e-3"])
-    assert res["params_sha256_equal"] and set(res["arms"]) == {"overlap", "barrier"}
+    assert res["params_sha256_equal"] and set(res["arms"]) == {"overlap", "barrier",
+                                                               "sp_overlap"}
     for arm in res["arms"].values():
         for host in arm["hosts"]:
             assert host["scatter_share_of_payload"] == 0.5
             assert [r["rank"] for r in host["ranks"]] == [0, 1]
             assert all(r["psum_seconds"] > 0 for r in host["ranks"])
-    joiner = res["arms"]["overlap"]["hosts"][1]
-    assert joiner["model_sync_bytes_rx"] > 0 and joiner["exposed_comm_s"]
+    for name in ("overlap", "sp_overlap"):
+        joiner = res["arms"][name]["hosts"][1]
+        assert joiner["model_sync_bytes_rx"] > 0 and joiner["exposed_comm_s"]
+    for host in res["arms"]["sp_overlap"]["hosts"]:
+        assert [r["coords"] for r in host["ranks"]] == [{"sp": 0}, {"sp": 1}]
+        assert [r["launches_expected"] for r in host["ranks"]] == [
+            2 * (sp + 1) * (host["learns"] + 1) for sp in (0, 1)]
+    assert res["first_loss"]["rel_err"] <= MP_REHEARSAL_TOLS[0]
     assert res["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert res["sp_launches"] == res["launches"]
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["phase"] == "sharded_lm"
 
 

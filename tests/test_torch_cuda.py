@@ -914,3 +914,97 @@ def test_collectives_on_cuda_tensors_over_two_gloo_ranks_match_cpu(card):
                 continue
             assert cuda[r][k][0] == "cuda", k
             assert cuda[r][k][1] == v[1], k
+
+
+_VTRACE_SP_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from moolib_tpu_torch import parallel as par
+from moolib_tpu_torch.examples.vtrace import experiment
+from moolib_tpu_torch.models.impala import ImpalaNet
+
+rank, port, T1, B, SP = (int(a) for a in sys.argv[1:6])
+par.initialize_distributed(f"127.0.0.1:{port}", SP, rank, device="cuda")
+mesh = par.make_mesh({"sp": SP}, device_type="cuda")
+dev = torch.device("cuda")
+A, OBS = 6, (84, 84, 4)
+flags = experiment.make_flags(["--mesh", f"sp={SP}", "--unroll_length", str(T1 - 1),
+                               "--batch_size", str(B)])
+
+
+def net():
+    return ImpalaNet(A, obs_shape=OBS, dtype=torch.float32, device=dev,
+                     generator=torch.Generator().manual_seed(4))
+
+
+rng = np.random.default_rng(5)
+batch = {"state": torch.from_numpy(rng.integers(0, 256, (T1, B, *OBS)).astype(np.uint8)),
+         "reward": torch.from_numpy(rng.normal(size=(T1, B)).astype(np.float32)),
+         "done": torch.from_numpy(rng.random((T1, B)) < 0.05),
+         "prev_action": torch.from_numpy(rng.integers(0, A, (T1, B))),
+         "action": torch.from_numpy(rng.integers(0, A, (T1, B))),
+         "policy_logits": torch.from_numpy(rng.normal(size=(T1, B, A)).astype(np.float32))}
+batch = {k: v.to(dev) for k, v in batch.items()}
+model = net()
+named = dict(model.named_parameters())
+host = experiment._MeshLearner(flags, mesh, model, experiment.make_optimizer(
+    model.parameters(), flags), named, dev)
+seconds = []
+for i in range(3):  # the first builds the cuDNN plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = host.learn(batch if rank == 0 else None, () if rank == 0 else None)
+    full = par.gather_full(grads, dst=0)
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - t0)
+out = {"rank": rank, "step_s": seconds}
+if rank == 0:
+    ref = net()
+    ref_seconds = []
+    for i in range(3):
+        ref.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        experiment.compute_loss(batch, (), ref, flags)[0].backward()
+        torch.cuda.synchronize()
+        ref_seconds.append(time.perf_counter() - t0)
+    out["one_process_step_s"] = ref_seconds
+    out["rel_err"] = {k: float((full[k].double() - p.grad.double()).norm()
+                               / p.grad.double().norm()) for k, p in ref.named_parameters()}
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def test_vtrace_sp_learner_on_the_card_matches_one_process(card):
+    """The vtrace mesh learner's sp axis at Atari width on the one card:
+    three gloo ranks (sp=3) cut T+1=21 steps of a B=32 batch of 84x84x4
+    frames for the encoder, f32 and TF32 off; one learn step's gradients,
+    gathered on rank 0, are within 1e-5 of one process's step (relative,
+    per leaf).  Prints the learn step's seconds beside one process's."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, "-c", _VTRACE_SP_CHILD, str(r), str(port), "21",
+                               "32", "3"], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(3)]
+    outs = []
+    for p in procs:
+        o, _ = p.communicate(timeout=300)
+        assert p.returncode == 0, o[-3000:]
+        outs.append(json.loads([ln for ln in o.splitlines() if ln.startswith("RESULT ")][-1][7:]))
+    worst = max(outs[0]["rel_err"].items(), key=lambda kv: kv[1])
+    print(f"vtrace_sp_learner_card: sp=3 learn step s {[o['step_s'] for o in outs]}, "
+          f"one process {outs[0]['one_process_step_s']}, worst leaf {worst}")
+    assert worst[1] <= 1e-5, outs[0]["rel_err"]

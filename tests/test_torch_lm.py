@@ -108,14 +108,16 @@ def test_lm_trains_with_remat_on_cpu():
      "pipeline (pp) needs identical blocks (no --moe_experts)"),
     (["--mesh", "pp=2", "--attention", "dense", "--layers", "3"], ValueError,
      "--layers must be pp_repeats*pp = 2"),
-    # A tp axis is ported (the JAX example's rules); model-parallel axes
-    # inside the elastic cohort are not.
+    # A tp axis is ported (the JAX example's rules), and so are the
+    # model-parallel axes inside the elastic cohort: a --shard_grads host
+    # keeps the same rules and wording, before it spawns a rank.
     (["--mesh", "dp=3,tp=2", "--attention", "dense"], ValueError,
      "the dp axis size must divide --batch_size"),
     (["--mesh", "dp=2,tp=2", "--attention", "dense", "--checkpoint_dir", "x",
-      "--shard_grads", "--connect", "127.0.0.1:1"], SystemExit, "not yet ported (slice 9e)"),
-    (["--mesh", "dp=2,sp=2", "--attention", "ring", "--shard_grads", "--connect",
-      "127.0.0.1:1"], SystemExit, "not yet ported (slice 9e)"),
+      "--shard_grads", "--connect", "127.0.0.1:1", "--batch_size", "3"], ValueError,
+     "the dp axis size must divide --batch_size"),
+    (["--mesh", "sp=2,pp=2", "--attention", "ring", "--shard_grads", "--connect",
+      "127.0.0.1:1"], ValueError, "pipeline (pp) composes with dense/flash, not ring"),
 ])
 def test_unported_flags_exit_with_a_message(argv, exc, match):
     with pytest.raises(exc, match=re.escape(match)):

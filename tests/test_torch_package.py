@@ -200,22 +200,21 @@ def test_unported_paths_say_so(monkeypatch):
         transformer.generate(model, torch.zeros((1, 2), dtype=torch.int64), 2)
 
 
-MESH_9E = "--mesh axes ['sp']: not yet ported (slice 9e)"
-
-
 @pytest.mark.parametrize("argv,exc,named", [
     # --mesh dp=N,tp=M is ported: the JAX example's flag errors.
     (["--mesh", "dp=3,tp=2"], ValueError, "the dp mesh axis size must divide --batch_size"),
     # The Sebulba split is ported: the JAX example's flag rule.
     (["--actor_mesh", "1"], ValueError, "--actor_mesh is the Sebulba split: it needs --mesh"),
-    # --mesh dp=N, tp=M, --shard_grads, --overlap_grads and --actor_mesh are
-    # ported; sp is not.
+    # --mesh dp=N, tp=M, sp=S, --shard_grads, --overlap_grads and
+    # --actor_mesh are ported.
     (["--mesh", "tp=2", "--overlap_grads"], ValueError,
      "--overlap_grads is the unmeshed learner's overlap plane"),
     (["--actor_mesh", "1", "--mesh", "dp=2", "--shard_grads"], ValueError,
      "and --env_backend jax (the actor submesh runs on-device envs)"),
-    # --checkpoint_dir is the distributed plane of --shard_grads cohorts.
-    (["--checkpoint_dir", "d", "--shard_grads", "--mesh", "dp=2,sp=2"], SystemExit, MESH_9E),
+    # --checkpoint_dir is the distributed plane of --shard_grads cohorts;
+    # the sp axis cuts the unroll's T+1 steps (the JAX example's rule).
+    (["--checkpoint_dir", "d", "--shard_grads", "--mesh", "dp=2,sp=2"], ValueError,
+     "the sp mesh axis size must divide unroll_length+1"),
 ])
 def test_unported_rl_paths_say_so(argv, exc, named):
     from moolib_tpu_torch.examples.vtrace import experiment

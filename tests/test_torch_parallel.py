@@ -77,6 +77,13 @@ def test_unported_mesh_paths_say_so():
     want = jpar.auto_shardings({"w": np.zeros((4, 4)), "k": np.zeros((256, 32)),
                                 "b": np.zeros(32)}, jmesh)
     assert {k: tuple(v.spec) for k, v in got.items()} == {k: tuple(v.spec) for k, v in want.items()}
+    # The hierarchical step (grad_spec=, overlap_grads=) builds over every
+    # model-parallel axis, as JAX's make_train_step does.
+    loss_fn = lambda p, b, r: (p["w"].sum(), {})
+    for axes in ({"sp": 2}, {"dp": 2, "ep": 2}, {"pp": 2}, {"dp": 2, "tp": 2}):
+        for overlap in (False, True):
+            assert tpar.make_train_step(loss_fn, mesh=axes, grad_spec="params",
+                                        overlap_grads=overlap) is not None
 
 
 def _lm_tree():
