@@ -304,6 +304,33 @@ exits non-zero, and no result line is printed):
    below one process's.  The kernels phase also holds every kernel against
    its plain version at tp_lm's per-rank shapes, [4, 1024, 2, 128] and
    [4, 1024, 4, 128], and at sharded_lm's sp ring chunk, [8, 512, 8, 128].
+25. serve_soak — the port's serving-plane soak (moolib_tpu_torch.scripts.
+   serve_soak, its --engine arm) at the engine phase's LM (vocab 32768,
+   d 1024, 12 x 8 heads of 128, bf16, flash attention; 8 slots of 16-token
+   blocks): two lm_serve --engine replica processes on the card behind a
+   broker, 512-token prompts with 16 new tokens for a 20 s window at 8
+   requests/s (or half of what one replica sustains, measured during the
+   warm-up, when that is less), one replica SIGKILLed at the seeded time
+   and the full-width weights hot-swapped at 0.8 of the window.  Checks:
+   every soak gate (zero lost requests, the swap installed, no admission
+   rejects across it); the survivor's flash_fwd launches, counted from 0
+   after its warm-up, exactly 12 x the prefills it ran, and no backward
+   launch.  Prints the verdict's rate, latency, swap seconds and the card's
+   free memory before and after.
+26. chaos_soak — the port's seeded chaos soak (moolib_tpu_torch.scripts.
+   chaos_soak --smoke), all four phases, its LM peers on the card at d 256,
+   2 heads of 128, 2 blocks, vocab 4096, T 256, B 2, flash attention,
+   --steps 30.  Its main() runs in a process of its own that never touches
+   CUDA (so the EnvPool of its first phase forks its workers), started
+   before mp_lm and running beside mp_lm, tp_lm and serve_soak.
+   Checks: every soak gate (the EnvPool respawn; the respawned peer's
+   recovery within its bound and the peer's seeded frame faults under
+   MOOLIB_FAULTS; the resume from the newest intact checkpoint; no torn
+   checkpoint eligible, the 1-host resume from the newest commit and the
+   capture stall under 10% of a step); the resumed peer of phase 4 and the
+   broker-hosting peer of phase 2 launched each kernel exactly 2 x (their
+   learns + the warm-up).  The kernels phase also holds the kernels at the
+   two soaks' shapes, [1, 512, 8, 128] and [2, 256, 2, 128].
 
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
@@ -322,6 +349,7 @@ import json
 import os
 import queue
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -363,7 +391,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 KERNEL_SHAPES = [(1, 128, 2, 64), (4, 1024, 8, 128), (16, 1024, 8, 128), (2, 1000, 8, 128),
-                 (1, 4096, 8, 128), (4, 1024, 2, 128), (4, 1024, 4, 128), (8, 512, 8, 128)]
+                 (1, 4096, 8, 128), (4, 1024, 2, 128), (4, 1024, 4, 128), (8, 512, 8, 128),
+                 (1, 512, 8, 128), (2, 256, 2, 128)]
 SERVE_SHAPE = (4, 1024, 8, 128)  # the serving prefill: 4 prompts x 1024, 8 heads of 128
 TRAIN_SHAPE = (16, 1024, 8, 128)  # the training step: 16 x 1024, 8 heads of 128
 # tp_lm's shapes: a tp=4 rank's prefill (8 heads / 4), a dp=2 x tp=2 rank's
@@ -373,6 +402,10 @@ TP_TRAIN_SHAPE = (4, 1024, 4, 128)
 # sharded_lm's sp_overlap arm: a ring chunk of an sp=2 rank (B 8, T 1024 / 2),
 # causal on the diagonal chunk and not on the past one.
 SP_CHUNK_SHAPE = (8, 512, 8, 128)
+# The fleet soaks' shapes: serve_soak's prefill of one 512-token prompt,
+# chaos_soak's LM peers' learn (B 2, T 256, 2 heads of 128).
+SERVE_SOAK_SHAPE = (1, 512, 8, 128)
+CHAOS_SOAK_SHAPE = (2, 256, 2, 128)
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}  # fwd (out, lse) atol
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # backward, x max(1, max|ref|)
 TRAIN_STEPS = 20
@@ -698,7 +731,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
             "train": cases[(*TRAIN_SHAPE, True)], "tp_serve": cases[(*TP_SERVE_SHAPE, True)],
             "tp_train": cases[(*TP_TRAIN_SHAPE, True)],
             "sp_diagonal": cases[(*SP_CHUNK_SHAPE, True)],
-            "sp_past": cases[(*SP_CHUNK_SHAPE, False)]}
+            "sp_past": cases[(*SP_CHUNK_SHAPE, False)],
+            "serve_soak": cases[(*SERVE_SOAK_SHAPE, True)],
+            "chaos_soak": cases[(*CHAOS_SOAK_SHAPE, True)]}
 
 
 def _model_grads(model, tokens):
@@ -4540,6 +4575,148 @@ def phase_disagg_engine(seed: int, device="cuda", engine=None, lm_cfg=None, engi
     return res
 
 
+# ------------------------------------------------------------- fleet soaks
+# The port's soaks (moolib_tpu_torch.scripts) at the card's widths, called
+# through their own main().  serve_soak: the engine phase's LM behind two
+# replica processes; chaos_soak: LM peers narrower than the LM, since its
+# step targets and 1 s checkpoint cadence would take minutes at d 1024,
+# and its --steps cut from the smoke profile's 60 to 30 for the script's
+# time (PERF.md section 4).
+SERVE_SOAK_ARGS = ["--engine", "--vocab", "32768", "--d_model", "1024", "--layers", "12",
+                   "--heads", "8", "--attention", "flash", "--dtype", "bfloat16",
+                   "--batch_size", "8", "--seq_len", "512", "--max_new_tokens", "16",
+                   "--window_s", "20", "--qps", "8", "--fit_qps"]
+CHAOS_SOAK_ARGS = ["--smoke", "--steps", "30", "--vocab", "4096", "--d_model", "256",
+                   "--layers", "2", "--heads", "2", "--seq_len", "256", "--batch_size", "2",
+                   "--attention", "flash"]
+
+
+def _free_memory(device) -> dict:
+    """The card's free and total bytes (``torch.cuda.mem_get_info``)."""
+    if torch.device(device).type != "cuda":
+        return {}
+    free, total = torch.cuda.mem_get_info()
+    return {"free_bytes": free, "total_bytes": total}
+
+
+def _soak_argv(module, args: list, seed: int, device) -> tuple:
+    """A soak's argv with its seed, device, a fresh work directory and its
+    verdict file there: ``(argv, workdir, verdict path)``."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix=module.__name__.rsplit(".", 1)[1] + "_")
+    out = os.path.join(work, "verdict.json")
+    return ([*args, "--seed", str(seed), "--device", str(torch.device(device)),
+             "--workdir", work, "--out", out], work, out)
+
+
+def _soak_verdict(name: str, rc: int, work: str, out: str) -> dict:
+    """The verdict a soak wrote; fails the phase on a non-zero exit."""
+    verdict = None
+    if os.path.exists(out):
+        with open(out) as f:
+            verdict = json.load(f)
+    if rc != 0:
+        raise AssertionError(f"{name}: exit code {rc} (logs under {work}), verdict {verdict}")
+    return verdict
+
+
+def start_chaos_soak(seed: int, device="cuda", args=None) -> dict:
+    """Start the chaos soak's main() in a process of its own (``python -m``)
+    that never touches CUDA, so the EnvPool of its first phase forks its
+    workers there rather than from a forkserver."""
+    from moolib_tpu_torch.scripts import _soak, chaos_soak
+
+    args = list(CHAOS_SOAK_ARGS if args is None else args)
+    argv, work, out = _soak_argv(chaos_soak, args, seed, device)
+    before = _free_memory(device)
+    proc = subprocess.Popen([sys.executable, "-m", chaos_soak.__name__, *argv],
+                            env=_soak.child_env(), cwd=ROOT)
+    return {"proc": proc, "args": args, "work": work, "out": out, "device": device,
+            "memory_before": before, "t0": time.perf_counter()}
+
+
+def _layers(args: list) -> int:
+    return int(args[args.index("--layers") + 1])
+
+
+def stop_soak(proc) -> None:
+    """Stop a soak's process: SIGINT first, so its cleanup kills the peers it
+    started in sessions of their own, then :func:`stop_process`."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass
+    stop_process(proc)
+
+
+def phase_serve_soak(seed: int, device="cuda", args=None) -> dict:
+    from moolib_tpu_torch.scripts import serve_soak
+
+    args = list(SERVE_SOAK_ARGS if args is None else args)
+    before = _free_memory(device)
+    argv, work, out = _soak_argv(serve_soak, args, seed, device)
+    v = _soak_verdict("serve_soak", serve_soak.main(argv), work, out)
+    after = _free_memory(device)
+    k = v["survivor_kernel_launches"]
+    if k is None:
+        raise AssertionError("serve_soak: the survivor printed no kernel_launches line")
+    want = _layers(args) * k["prefills"] if torch.device(device).type == "cuda" else 0
+    if k["flash_fwd"] != want or k["flash_bwd_dq"] or k["flash_bwd_dkv"] or not k["prefills"]:
+        raise AssertionError(f"serve_soak: survivor launches {k}, flash_fwd must be exactly "
+                             f"{want} ({_layers(args)} x its prefills) and no backward")
+    launches = {n: k[n] for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    res = {"phase": "serve_soak", "args": args, "replica_rate_rps": v.get("replica_rate_rps"),
+           "qps": v["qps"], "window_s": v["window_s"], "requests": v["requests"],
+           "ok": v["ok"], "lost_requests": v["lost_requests"], "rejects": v["rejects"],
+           "p50_ms": v["p50_ms"], "p99_ms": v["p99_ms"], "kill": v["kill"],
+           "survivor": v["survivor"], "swap": v["swap"], "gates": v["gates"],
+           "survivor_prefills": k["prefills"], "launches": launches,
+           "memory_before": before, "memory_after": after}
+    log(res)
+    return res
+
+
+def phase_chaos_soak(seed: int, device="cuda", args=None, running=None) -> dict:
+    """The chaos soak's checks; ``running``: a soak :func:`start_chaos_soak`
+    started earlier (it ran beside another phase), else one started here."""
+    run = running or start_chaos_soak(seed, device, args)
+    args, device, before = run["args"], run["device"], run["memory_before"]
+    try:
+        rc = run["proc"].wait()
+    finally:
+        stop_soak(run["proc"])
+    wall_s = time.perf_counter() - run["t0"]
+    s = _soak_verdict("chaos_soak", rc, run["work"], run["out"])
+    after = _free_memory(device)
+    cuda = torch.device(device).type == "cuda"
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    # Every learn is one forward and one backward through each block, and
+    # the warm-up pass one more.
+    for what, k in (("phase 4's resumed peer", s["ckpt_distributed"]["resumed_kernel_launches"]),
+                    ("phase 2's peer A", s["cohort"]["kernel_launches"])):
+        want = _layers(args) * (k["learns"] + 1) if cuda else 0
+        if any(k[n] != want for n in kernels) or not k["learns"]:
+            raise AssertionError(f"chaos_soak: {what} launched {k}, each kernel must be exactly "
+                                 f"{want} ({_layers(args)} x ({k['learns']} learns + 1))")
+    d = s["ckpt_distributed"]
+    res = {"phase": "chaos_soak", "args": args, "envpool": s["envpool"],
+           "recovery_s": s["cohort"]["recovery_s"],
+           "recovery_bound_s": s["cohort"]["recovery_bound_s"],
+           "recovered": s["cohort"]["recovered"], "frame_faults": s["cohort"]["frame_faults"],
+           "kill_resume": s["kill_resume"], "committed": d["committed"], "torn": d["torn"],
+           "ckpt_async": d["ckpt_async"], "stall_per_capture_s": d["stall_per_capture_s"],
+           "step_s": d["step_s"], "resumed_from": d["resumed_from"],
+           "peer_a_launches": s["cohort"]["kernel_launches"],
+           "launches": {n: d["resumed_kernel_launches"][n] for n in kernels},
+           "resumed_learns": d["resumed_kernel_launches"]["learns"], "wall_s": wall_s,
+           "memory_before": before, "memory_after": after}
+    log(res)
+    return res
+
+
 def make_pool() -> EnvPool:
     """The data path's EnvPool, forked before the first CUDA call."""
     return EnvPool(SyntheticAtariEnv, **POOL)
@@ -4551,7 +4728,7 @@ def main(argv=None) -> None:
     pool = make_pool()
     try:
         (kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded, mp_lm, tp_lm,
-         sebulba, dis) = _phases(pool, args.seed)
+         sebulba, dis, soaks) = _phases(pool, args.seed)
     finally:
         pool.close()
     case = kern["train"]
@@ -4586,7 +4763,8 @@ def main(argv=None) -> None:
                              **{path: tp_lm[path][name] for path in tp_lm},
                              "sebulba": sebulba[name],
                              "disagg_engine_prefill": dis["prefill_rank"][name],
-                             "disagg_engine_decode": dis["decode_rank"][name]},
+                             "disagg_engine_decode": dis["decode_rank"][name],
+                             **{path: soaks[path][name] for path in soaks}},
         "max_abs_err": kern["worst"][name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
@@ -4601,6 +4779,8 @@ def main(argv=None) -> None:
         "tp_shapes": _shape_rows(kern, name, ("tp_serve", "tp_train") if name == "flash_fwd"
                                  else ("tp_train",)),
         "sp_shapes": _shape_rows(kern, name, ("sp_diagonal", "sp_past")),
+        "soak_shapes": _shape_rows(kern, name, ("serve_soak", "chaos_soak") if name == "flash_fwd"
+                                   else ("chaos_soak",)),
     } for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
@@ -4609,8 +4789,9 @@ def main(argv=None) -> None:
 def _shape_rows(kern: dict, name: str, arms: tuple) -> dict:
     """A kernel's times at the per-rank shapes of the kernels phase's cases
     ``arms`` (bf16): tp_lm's (causal; the forward at both, the backward
-    passes at the training one) and sharded_lm's sp_overlap ring chunks
-    (the causal diagonal and the non-causal past chunk)."""
+    passes at the training one), sharded_lm's sp_overlap ring chunks
+    (the causal diagonal and the non-causal past chunk) and the soaks'
+    (causal; serve_soak's prefill runs the forward only)."""
     rows = {}
     for arm in arms:
         c = kern[arm]
@@ -4696,16 +4877,30 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     # rank 0 resets in _cohort_child, its other rank starts fresh).
     sharded = timed("sharded_lm", phase_sharded_lm, seed)
     torch.cuda.empty_cache()
-    # The mp_lm paths: every rank process counts from 0 before each arm
-    # (_mp_rank).
-    mp_lm = timed("mp_lm", phase_mp_lm, seed)["launches"]
+    # The soaks' paths: every process they start counts from 0 (a replica
+    # after its warm-up).  The chaos soak's peers are host-bound and spend
+    # most of its time starting (~15-25 s a process on the card), so it runs
+    # beside mp_lm, tp_lm and serve_soak: its phase seconds are what it took
+    # beyond them, its log line its own wall seconds.
+    chaos = start_chaos_soak(seed)
+    try:
+        # The mp_lm paths: every rank process counts from 0 before each arm
+        # (_mp_rank).
+        mp_lm = timed("mp_lm", phase_mp_lm, seed)["launches"]
+        torch.cuda.empty_cache()
+        # The tp_lm paths: every rank process counts from 0 before each arm
+        # (_tp_serve_rank, _tp_train_rank).
+        tp_lm = timed("tp_lm", phase_tp_lm, seed)["launches"]
+        torch.cuda.empty_cache()
+        soaks = {"serve_soak": timed("serve_soak", phase_serve_soak, seed)["launches"]}
+    except BaseException:
+        stop_soak(chaos["proc"])
+        raise
     torch.cuda.empty_cache()
-    # The tp_lm paths: every rank process counts from 0 before each arm
-    # (_tp_serve_rank, _tp_train_rank).
-    tp_lm = timed("tp_lm", phase_tp_lm, seed)["launches"]
+    soaks["chaos_soak"] = timed("chaos_soak", phase_chaos_soak, seed, running=chaos)["launches"]
     log({"phase_seconds": PHASE_SECONDS, "total_s": round(sum(PHASE_SECONDS.values()), 1)})
     return (kern, sass, train, sl, en, rl, cl, acl, r2, fleet, anakin, sharded, mp_lm, tp_lm,
-            sebulba, dis)
+            sebulba, dis, soaks)
 
 
 if __name__ == "__main__":

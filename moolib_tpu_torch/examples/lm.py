@@ -173,6 +173,10 @@ def make_flags(argv=None):
                    help="elastic: after this peer's first applied step, idle "
                    "while the cohort has fewer members (a peer that seeded the "
                    "model and AdamW state waits for the peers that sync it)")
+    p.add_argument("--form_cohort", type=int, default=1,
+                   help="elastic: after this peer's first applied step, idle "
+                   "until the cohort has had this many members once (then "
+                   "step on alone if they leave)")
     p.add_argument("--shard_grads", action="store_true",
                    help="hierarchical reduce plane: the step reduces the grads over "
                    "the in-mesh dp axis and returns them fsdp-sharded; the "
@@ -388,6 +392,9 @@ def train(flags, on_stats=None, _dist_args=()) -> dict:
     telemetry.init_from_env()  # opt-in exporters (docs/TELEMETRY.md)
     # kill -USR2 toggles an on-demand torch.profiler window.
     telemetry.profiling.install_signal_toggle()
+    from ..testing import faults as _faults
+
+    _faults.install_from_env()  # opt-in chaos (MOOLIB_FAULTS; no-op unset)
     mesh = None
     if _dist_args is not None:
         coordinator, world, rank = _dist_args
@@ -1098,6 +1105,22 @@ def _counter(reg, name: str) -> float:
     return float(sum(s.get("value", 0.0) for s in fam.get("series", ())))
 
 
+def _print_exit_counts(learns: int) -> None:
+    """The lines a soak reads from a peer that exits: each flash kernel's
+    launches in this process beside the learn steps they came from (the
+    warm-up pass launches once more), and the seeded frame faults' counts
+    when ``MOOLIB_FAULTS`` installed them."""
+    import json
+
+    from ..ops import flash_attention as fa
+    from ..testing import faults as _faults
+
+    print(f"kernel_launches: {json.dumps(dict(fa.launch_counts(), learns=learns))}", flush=True)
+    injected = _faults.install_from_env()  # idempotent: the process's injector, or None
+    if injected is not None:
+        print(f"frame_faults: {json.dumps(injected.counts)}", flush=True)
+
+
 def _hist_sum(reg, name: str) -> float:
     fam = reg.snapshot().get(name) or {}
     return float(sum(s["value"].get("sum", 0.0) for s in fam.get("series", ())
@@ -1218,6 +1241,7 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
         "train_steps_total", "train-step invocations"
     )
     recovery_printed = False
+    formed = False  # the cohort has had --form_cohort members
     timer = StepTimer()
     wd = Watchdog(timeout=flags.watchdog, name="lm")
     # Whole-run deadman: fed on every optimizer step, so a run whose
@@ -1284,7 +1308,9 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
                         _load_adamw_state(opt, st["opt_state"])
                     acc.set_parameters(named)
                     steps_done = max(steps_done, int(st["steps"]))
-            if not acc.connected() or (applied and acc.cohort_size() < flags.min_cohort):
+            formed = formed or acc.cohort_size() >= flags.form_cohort
+            if not acc.connected() or (applied and (acc.cohort_size() < flags.min_cohort
+                                                    or not formed)):
                 time.sleep(0.02)
                 continue
             if acc.has_gradients():
@@ -1375,7 +1401,20 @@ def _train_elastic(flags, model, opt, rng, fwd_bwd, step_cost, device,
     finally:
         wd.close()
         if dckpt is not None:
+            # Soak harnesses parse this line, the JAX example's byte for
+            # byte: the async-capture overhead claim (stall < 10% of step
+            # time during a snapshot) is measured here.
+            s = dckpt.stats()
+            print(
+                "ckpt_async: captures=%d commits=%d stall_s=%.4f "
+                "write_s=%.4f train_s=%.1f steps=%d" % (
+                    s["captures"], s["commits"], s["stall_s"], s["write_s"],
+                    time.time() - start, steps_done - start_step,
+                ),
+                flush=True,
+            )
             dckpt.close()
+        _print_exit_counts(learns=learns)
         if save_checkpoint is not None and steps_done > start_step and acc.is_leader():
             try:
                 save_checkpoint(steps_done)

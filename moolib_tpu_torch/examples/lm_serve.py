@@ -81,6 +81,9 @@ _M_BATCH_RETRY = telemetry.get_registry().counter(
 )
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def make_model(flags, device=None, generator: Optional[torch.Generator] = None):
     return TransformerLM(
         vocab_size=flags.vocab,
@@ -88,8 +91,8 @@ def make_model(flags, device=None, generator: Optional[torch.Generator] = None):
         num_heads=flags.heads,
         num_kv_heads=getattr(flags, "kv_heads", 0) or None,
         num_layers=flags.layers,
-        attention="dense",
-        dtype=torch.float32,
+        attention=getattr(flags, "attention", "dense"),
+        dtype=_DTYPES[getattr(flags, "dtype", "float32")],
         pos_embedding="rotary",
         max_len=flags.seq_len + flags.max_new_tokens,
         device=device,
@@ -423,6 +426,11 @@ def _engine_replica(flags, rpc, model, broker_list, mesh=None):
 
     engine = _make_engine(flags, model, mesh)
     engine.warmup()
+    # Count the kernels of served requests only, as from here (the exit
+    # line sets them beside the engine's prefills).
+    from ..ops import flash_attention as fa
+
+    fa.reset_launches()
     if flags.service_delay_ms > 0:
         _eng_step = engine.step
 
@@ -532,6 +540,10 @@ def main(argv=None):
     p.add_argument("--heads", type=int, default=2)
     p.add_argument("--kv_heads", type=int, default=0,
                    help="grouped-query attention (0 = heads)")
+    p.add_argument("--attention", default="dense", choices=["dense", "flash"],
+                   help="the model's attention: flash runs the prefill on the flash kernel")
+    p.add_argument("--dtype", default="float32", choices=sorted(_DTYPES),
+                   help="the model's compute dtype")
     p.add_argument("--max_new_tokens", type=int, default=16)
     p.add_argument("--batch_size", type=int, default=16,
                    help="dynamic-batching cap: batches pad to power-of-two buckets")
@@ -659,6 +671,20 @@ def _serve_main(flags, model, device, broker_list, mesh=None) -> None:
         if engine is not None:
             engine.close()  # a split engine's other ranks leave follow()
         rpc.close()
+        _print_launches(engine)
+
+
+def _print_launches(engine) -> None:
+    """The exit line a soak reads: each flash kernel's launches in this
+    process, with the engine's prefills (counted from its warm-up on)."""
+    import json
+
+    from ..ops import flash_attention as fa
+
+    launches = fa.launch_counts()
+    if engine is not None:
+        launches["prefills"] = engine.stats()["joins"]
+    print(f"kernel_launches: {json.dumps(launches)}", flush=True)
 
 
 if __name__ == "__main__":

@@ -53,6 +53,11 @@ def flash_bwd_dkv_launches() -> int:
     return _launches["flash_bwd_dkv"]
 
 
+def launch_counts() -> dict:
+    """Every kernel's launches since the last reset, by name."""
+    return dict(_launches)
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     for name in _launches:
