@@ -331,6 +331,33 @@ exits non-zero, and no result line is printed):
    broker-hosting peer of phase 2 launched each kernel exactly 2 x (their
    learns + the warm-up).  The kernels phase also holds the kernels at the
    two soaks' shapes, [1, 512, 8, 128] and [2, 256, 2, 128].
+27. trace_smoke — the port's distributed-tracing smoke (moolib_tpu_torch.
+   scripts.trace_smoke --smoke) at the JAX script's sizes: 3 cohort peer
+   processes x 2 rounds of gradients on the card, then a replica process
+   (its step a scale on the card) answering 4 requests.  Checks: the
+   script's own gates, and both host-trace sets merged again here through
+   the port's trace_merge with at least one cross-process parent/child
+   edge and the span names accum.reduce_gradients, serve.request and
+   serve.batch generate; prints each merge's edges, trace count and
+   per-pid skew offsets.
+28. timeline_smoke — the port's timeline smoke (moolib_tpu_torch.scripts.
+   timeline_smoke --smoke): two cohort peer processes, 48 steps of a
+   192 x 192 matmul on the card with a share-down and a cohort round each,
+   a timeline window every 8 dispatches of 0.4 s, then mtop --once over
+   the live cohort.  Checks: each peer's last window's fractions sum to
+   1 +- 0.02, exposed comm finite and not negative, the comm/psum ratio in
+   [0.5, 2.0]; the window holds CUDA kernel records (seconds inside its
+   steps) on a device track of its bubble, and devmon sampled the card's
+   memory; mtop shows both peers with a memory reading.  Both tools launch
+   no flash kernel, and run beside anakin and sebulba.
+
+The phases run in a forked child of the script's process, which is the
+reaper of every orphan below it (prctl PR_SET_CHILD_SUBREAPER) and reaps
+them as they end; every process the run starts carries RUN_MARK in its
+environment.  Once the child has exited, failed or not, the script gives
+the run's processes 5 s to end (a resource tracker whose owner ended
+unlinks what it tracked), stops any still alive, reaps them, prints
+{"leftover_processes": [...]} on stderr and exits with the child's code.
 
 The last two lines are the kernel summary {"kernels": [...]}, with each
 kernel's time, TFLOP/s, share of bound and tensor-core instruction count
@@ -1693,6 +1720,113 @@ def stop_process(proc) -> None:
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=10)
+
+
+RUN_MARK = "MOOLIB_CHIP_SMOKE_RUN"  # its value: this run's own, inherited by every child
+PR_SET_CHILD_SUBREAPER = 36  # linux/prctl.h
+
+
+def _proc_entry(pid: str, name: str) -> bytes:
+    try:
+        with open(f"/proc/{pid}/{name}", "rb") as f:
+            return f.read()
+    except OSError:
+        return b""
+
+
+def _marked_processes() -> dict:
+    """``{pid: command line}`` of every live process but this one whose
+    environment carries this run's RUN_MARK (zombies are dead already)."""
+    mark = f"{RUN_MARK}={os.environ[RUN_MARK]}".encode()
+    found = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        if int(pid) == os.getpid() or mark not in _proc_entry(pid, "environ").split(b"\0"):
+            continue
+        stat = _proc_entry(pid, "stat")
+        if not stat or stat[stat.rfind(b")") + 2:][:1] in (b"Z", b"X"):
+            continue
+        found[int(pid)] = _proc_entry(pid, "cmdline").replace(b"\0", b" ").decode(
+            errors="replace").strip()[:300]
+    return found
+
+
+def _reap() -> None:
+    """Reap every child of this process that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_leftovers(settle: float = 5.0, grace: float = 10.0) -> list:
+    """Give the run's processes ``settle`` seconds to end, then stop those
+    still alive (SIGTERM, SIGKILL after ``grace`` seconds), reaping this
+    process's children throughout.  Returns the ones it had to stop,
+    ``[{"pid", "cmd"}]``."""
+    deadline = time.monotonic() + settle
+    while True:
+        _reap()
+        found = _marked_processes()
+        if not found or time.monotonic() >= deadline:
+            break
+        time.sleep(0.05)
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in found:
+            try:
+                os.kill(pid, sig)
+            except OSError:
+                pass
+        deadline = time.monotonic() + grace
+        while set(found) & set(_marked_processes()) and time.monotonic() < deadline:
+            _reap()
+            time.sleep(0.05)
+    _reap()
+    return [{"pid": p, "cmd": c} for p, c in sorted(found.items())]
+
+
+def supervise(fn, settle: float = 5.0) -> int:
+    """Run ``fn()`` in a forked child and return its exit code.  This
+    process becomes the reaper of every orphan below it and reaps each as
+    it ends, forwards SIGINT and SIGTERM to the child, and once the child
+    has exited stops and reaps what the run left (:func:`stop_leftovers`),
+    so no process of the run outlives the script."""
+    import ctypes
+    import traceback
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+    os.environ[RUN_MARK] = f"{os.getpid()}-{time.time_ns()}"
+    sys.stdout.flush()
+    sys.stderr.flush()
+    child = os.fork()
+    if child == 0:
+        code = 0
+        try:
+            fn()
+        except SystemExit as e:
+            code = e.code
+        except BaseException:
+            traceback.print_exc()
+            code = 1
+        sys.exit(code)  # a normal exit: the child's atexit handlers run
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda signum, frame: os.kill(child, signum))
+    while True:
+        try:
+            pid, status = os.waitpid(-1, 0)
+        except InterruptedError:
+            continue
+        if pid == child:
+            break
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, signal.SIG_DFL)
+    left = stop_leftovers(settle)
+    print(json.dumps({"leftover_processes": left}), file=sys.stderr, flush=True)
+    return os.waitstatus_to_exitcode(status)
 
 
 def _join_group(name: str, addr: str, group: str):
@@ -4717,6 +4851,142 @@ def phase_chaos_soak(seed: int, device="cuda", args=None, running=None) -> dict:
     return res
 
 
+# ------------------------------------------------------- observability tools
+# The port's trace_smoke and timeline_smoke (moolib_tpu_torch.scripts) at
+# the JAX scripts' own sizes, each in a process of its own (they spawn
+# their peers, replica and mtop) that never touches CUDA itself.  Both are
+# host-bound, so they run beside other phases (see _phases).
+OBS_TIMEOUT_S = 600.0
+
+
+def start_obs_tool(name: str, device="cuda") -> dict:
+    """Start ``python -m moolib_tpu_torch.scripts.<name> --smoke`` on
+    ``device`` with a fresh work directory; its output goes to a log there."""
+    import tempfile
+
+    from moolib_tpu_torch.scripts import _soak
+
+    work = tempfile.mkdtemp(prefix=f"{name}_")
+    log_path = os.path.join(work, "tool.log")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", f"moolib_tpu_torch.scripts.{name}",
+                                 "--smoke", "--device", str(torch.device(device)),
+                                 "--workdir", work], stdout=f, stderr=subprocess.STDOUT,
+                                env=_soak.child_env(), cwd=ROOT, start_new_session=True)
+    return {"name": name, "proc": proc, "work": work, "log": log_path, "device": device}
+
+
+def _obs_output(run: dict) -> str:
+    """Wait for a tool started by :func:`start_obs_tool`; its output, or an
+    AssertionError with the tail when it failed or outran the limit (then
+    SIGINT first, so the tool's cleanup stops the processes it started)."""
+    from moolib_tpu_torch.scripts import _soak
+
+    try:
+        rc = run["proc"].wait(timeout=OBS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        stop_soak(run["proc"])
+    text = _soak.read(run["log"])
+    # The tool's own clock at its last line (it may have ended well before
+    # this wait, beside other phases).
+    stamps = re.findall(rf"^\[{run['name']} \+\s*([0-9.]+)s\]", text, re.M)
+    run["tool_s"] = float(stamps[-1]) if stamps else None
+    if rc != 0:
+        raise AssertionError(f"{run['name']}: exit code {rc} (work dir {run['work']}):\n"
+                             f"{text[-4000:]}")
+    return text
+
+
+def phase_trace_smoke(device="cuda", running=None) -> dict:
+    """The distributed-tracing smoke: 3 cohort peers x 2 rounds of gradients
+    on ``device``, then a replica on ``device`` answering 4 requests; both
+    host-trace sets merged again here through the port's trace_merge."""
+    from moolib_tpu_torch.scripts import trace_merge
+
+    run = running or start_obs_tool("trace_smoke", device)
+    text = _obs_output(run)
+    if not text.rstrip().endswith("TRACE SMOKE OK"):
+        raise AssertionError(f"trace_smoke: no TRACE SMOKE OK line:\n{text[-2000:]}")
+    want = {"allreduce": (["peer0.json", "peer1.json", "peer2.json"], {"accum.reduce_gradients"}),
+            "serve": (["client.json", "replica.json"], {"serve.request", "serve.batch generate"})}
+    merges = {}
+    for phase, (files, names) in want.items():
+        merged, stats = trace_merge.merge([os.path.join(run["work"], phase, f) for f in files])
+        got = {e.get("name") for e in merged["traceEvents"]}
+        if stats["cross_process_edges"] < 1 or not names <= got:
+            raise AssertionError(f"trace_smoke {phase}: {stats}, missing {names - got}")
+        merges[phase] = {k: stats[k] for k in ("files", "spans_with_ids", "traces",
+                                               "cross_process_edges", "skew_offsets_us",
+                                               "anchor_only_pids")}
+    res = {"phase": "trace_smoke", "device": str(torch.device(device)), "peers": 3, "rounds": 2,
+           "requests": 4, "merges": merges, "tool_s": run["tool_s"]}
+    log(res)
+    return res
+
+
+def _mtop_rows(frame: str) -> dict:
+    """``{peer: {column: cell}}`` of an mtop plain frame's peer rows."""
+    from moolib_tpu_torch.scripts import mtop
+
+    rows = {}
+    for line in frame.splitlines():
+        cells, at = {}, 0
+        for title, width in mtop.COLUMNS:
+            cells[title] = line[at:at + width].strip()
+            at += width + 1
+        if cells["PEER"].lstrip("~").startswith("tl-peer-"):
+            rows[cells["PEER"]] = cells
+    return rows
+
+
+def phase_timeline_smoke(device="cuda", running=None) -> dict:
+    """The timeline smoke: two cohort peers, 48 steps of a matmul on
+    ``device`` with a share-down and a cohort round each, windows every 8
+    dispatches of 0.4 s; each peer's last window must partition its steps,
+    hold the comm/psum ratio in [0.5, 2.0] and, on a card, CUDA kernel
+    records on a device track; mtop --once shows both peers with a memory
+    reading."""
+    run = running or start_obs_tool("timeline_smoke", device)
+    text = _obs_output(run)
+    rows = {}
+    for line in text.splitlines():
+        if line.startswith("{"):
+            row = json.loads(line)
+            rows.setdefault(row["metric"], {})[row["peer"]] = row
+    overlap, dev_rows = rows.get("step_overlap", {}), rows.get("step_overlap_device", {})
+    peers = ["tl-peer-0", "tl-peer-1"]
+    if sorted(overlap) != peers or sorted(dev_rows) != peers or "TIMELINE SMOKE OK" not in text:
+        raise AssertionError(f"timeline_smoke: rows {sorted(overlap)}, {sorted(dev_rows)}:\n"
+                             f"{text[-2000:]}")
+    cuda = torch.device(device).type == "cuda"
+    for peer in peers:
+        o, d = overlap[peer], dev_rows[peer]
+        fracs = sum(o[f"frac_{b}"] for b in ("compute", "comm", "host", "idle"))
+        if (abs(fracs - 1.0) > 0.02 or not 0.0 <= o["exposed_comm_seconds"] < float("inf")
+                or not 0.5 <= o["comm_vs_psum_ratio"] <= 2.0):
+            raise AssertionError(f"timeline_smoke {peer}: {o}")
+        if cuda and not (d["kernel_records"] and d["kernel_seconds_in_steps"] > 0
+                         and set(d["device_tracks"]) & set(d["bubble"])
+                         and any(m.startswith("cuda") for m in d["memory"])):
+            raise AssertionError(f"timeline_smoke {peer}: no device slices of the card: {d}")
+    with open(os.path.join(run["work"], "mtop.log")) as f:
+        frame = f.read()
+    shown = _mtop_rows(frame)
+    for peer in peers:
+        hbm = shown.get(peer, {}).get("HBM", "-")
+        if hbm in ("", "-"):
+            raise AssertionError(f"timeline_smoke: mtop shows {peer} without memory:\n{frame}")
+    res = {"phase": "timeline_smoke", "device": str(torch.device(device)), "steps": 48,
+           "interval": 8, "window_s": 0.4, "step_overlap": overlap, "device_rows": dev_rows,
+           "mtop": {p: {k: shown[p][k] for k in ("MFU%", "HBM", "PEAK", "SKEW", "EXPC%")}
+                    for p in peers},
+           "tool_s": run["tool_s"]}
+    log(res)
+    return res
+
+
 def make_pool() -> EnvPool:
     """The data path's EnvPool, forked before the first CUDA call."""
     return EnvPool(SyntheticAtariEnv, **POOL)
@@ -4862,16 +5132,28 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
     fleet["timeline_lm"] = timed("timeline_lm", phase_timeline_lm, seed)
     timed("compile_cache", phase_compile_cache)
     torch.cuda.empty_cache()
-    # The anakin path: counts start at 0 here and are read right after.
-    fa.reset_launches()
-    ak = timed("anakin", phase_anakin, seed)
-    anakin = _counts()
-    torch.cuda.empty_cache()
-    # The sebulba path: counts start at 0 here and are read right after (the
-    # spawned ranks run the catch MLP, which reaches no kernel).
-    fa.reset_launches()
-    timed("sebulba", phase_sebulba, seed, anakin=ak)
-    sebulba = _counts()
+    # The observability tools launch no flash kernel and spend most of their
+    # time starting processes: they run beside anakin and sebulba (whose
+    # unroll times are medians), and their phase seconds are what they took
+    # beyond them.
+    obs = [start_obs_tool("trace_smoke"), start_obs_tool("timeline_smoke")]
+    try:
+        # The anakin path: counts start at 0 here and are read right after.
+        fa.reset_launches()
+        ak = timed("anakin", phase_anakin, seed)
+        anakin = _counts()
+        torch.cuda.empty_cache()
+        # The sebulba path: counts start at 0 here and are read right after
+        # (the spawned ranks run the catch MLP, which reaches no kernel).
+        fa.reset_launches()
+        timed("sebulba", phase_sebulba, seed, anakin=ak)
+        sebulba = _counts()
+        timed("trace_smoke", phase_trace_smoke, running=obs[0])
+        timed("timeline_smoke", phase_timeline_smoke, running=obs[1])
+    except BaseException:
+        for run in obs:
+            stop_soak(run["proc"])
+        raise
     torch.cuda.empty_cache()
     # The sharded_lm path: every rank process counts from 0 (each host's
     # rank 0 resets in _cohort_child, its other rank starts fresh).
@@ -4904,4 +5186,4 @@ def _phases(pool: EnvPool, seed: int) -> tuple:
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(supervise(main))

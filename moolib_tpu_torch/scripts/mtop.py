@@ -1,0 +1,338 @@
+"""mtop — live cohort console over the telemetry aggregator's RPC pull.
+
+The port of the JAX package's ``scripts/mtop.py``: ``top`` for a cohort of
+JAX or port peers.  Connect one throwaway ``Rpc`` to the broker, discover
+the cohort (members and observers) through
+:class:`~moolib_tpu_torch.telemetry.CohortAggregator`, and render one row
+per peer from its ``__telemetry_snapshot``:
+
+- step rate (``train_steps_total`` deltas between refreshes),
+- MFU and HBM in-use/peak from the device performance plane (devmon),
+- per-peer fused step seconds and the cohort ``cohort_step_skew_ratio``
+  (straggler attribution, ``CohortAggregator.step_skew``),
+- exposed-comm fraction from the fused step timeline
+  (``step_time_fraction{bucket="comm"}``, telemetry.timeline),
+- serving QPS / phase p99 / engine slot occupancy for serve replicas,
+- the tail of every peer's flight-recorder ring, merged and time-sorted.
+
+A peer that leaves the cohort is greyed out (curses) or marked ``gone``
+(plain), not dropped — a vanished row IS the incident.  The curses UI is
+optional: ``--once`` renders one plain-text frame and exits (the CI
+smoke), ``--plain`` loops without curses, and a non-tty stdout falls back
+to plain automatically.  mtop only scrapes: it never initialises CUDA.
+
+Usage::
+
+    python -m moolib_tpu_torch.scripts.mtop --broker 127.0.0.1:4431 --group mygroup
+    python -m moolib_tpu_torch.scripts.mtop --broker 127.0.0.1:4431 --once
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+
+# --------------------------------------------------------- snapshot readers
+def _series(met: Dict[str, Any], name: str) -> List[Dict[str, Any]]:
+    fam = met.get(name) or {}
+    return list(fam.get("series") or ())
+
+
+def _gauge_max(met: Dict[str, Any], name: str) -> Optional[float]:
+    vals = [s.get("value") for s in _series(met, name)
+            if isinstance(s.get("value"), (int, float))]
+    return max(vals) if vals else None
+
+
+def _gauge_sum(met: Dict[str, Any], name: str) -> Optional[float]:
+    vals = [s.get("value") for s in _series(met, name)
+            if isinstance(s.get("value"), (int, float))]
+    return sum(vals) if vals else None
+
+
+def _counter_total(met: Dict[str, Any], name: str) -> Optional[float]:
+    return _gauge_sum(met, name)
+
+
+def _labeled_gauge(
+    met: Dict[str, Any], name: str, key: str, value: str
+) -> Optional[float]:
+    out = None
+    for s in _series(met, name):
+        if (s.get("labels") or {}).get(key) == value:
+            v = s.get("value")
+            if isinstance(v, (int, float)):
+                out = v if out is None else max(out, v)
+    return out
+
+
+def _hist_quantile(met: Dict[str, Any], name: str, q: float) -> Optional[float]:
+    """Approximate quantile over ALL series of one histogram family,
+    merged (bucket upper-bound interpolation — console precision)."""
+    fam = met.get(name) or {}
+    bounds = list(fam.get("buckets") or ())
+    if not bounds:
+        return None
+    counts = [0.0] * (len(bounds) + 1)
+    for s in _series(met, name):
+        v = s.get("value")
+        if isinstance(v, dict):
+            for i, n in enumerate(list(v.get("buckets") or ())[: len(counts)]):
+                counts[i] += n
+    total = sum(counts)
+    if total <= 0:
+        return None
+    target = q * total
+    cum = 0.0
+    for i, n in enumerate(counts):
+        cum += n
+        if cum >= target:
+            return bounds[i] if i < len(bounds) else bounds[-1]
+    return bounds[-1]
+
+
+# ------------------------------------------------------------- formatting
+def _fmt_bytes(v: Optional[float]) -> str:
+    if v is None:
+        return "-"
+    for unit in ("B", "K", "M", "G", "T"):
+        if abs(v) < 1024 or unit == "T":
+            return f"{v:.0f}{unit}" if unit == "B" else f"{v:.1f}{unit}"
+        v /= 1024.0
+    return "-"
+
+
+def _fmt(v: Optional[float], spec: str = ".2f", scale: float = 1.0) -> str:
+    if v is None:
+        return "-"
+    return format(v * scale, spec)
+
+
+COLUMNS = (
+    ("PEER", 18), ("ROLE", 8), ("ST/S", 7), ("MFU%", 6), ("HBM", 8),
+    ("PEAK", 8), ("STEP_S", 8), ("SKEW", 5), ("EXPC%", 6), ("QPS", 7),
+    ("P99MS", 7), ("OCC%", 5),
+)
+
+
+class Console:
+    """Aggregator-fed model for the console: refresh() pulls one fused
+    scrape and returns renderable state; departed peers are retained."""
+
+    def __init__(self, agg):
+        self._agg = agg
+        self._last_steps: Dict[str, Tuple[float, float]] = {}
+        self._seen: Dict[str, Dict[str, Any]] = {}  # peer -> last display row
+
+    def refresh(self) -> Dict[str, Any]:
+        fused = self._agg.scrape()
+        skew = self._agg.step_skew()
+        peers = fused.get("peers") or {}
+        flights: List[Tuple[float, str, str, Any]] = []
+        for name, row in sorted(peers.items()):
+            disp = self._peer_row(name, row, skew)
+            disp["gone"] = False
+            disp["error"] = None
+            self._seen[name] = disp
+            for ev in row.get("flight") or ():
+                if isinstance(ev, dict):
+                    flights.append(
+                        (ev.get("time", 0.0), name, str(ev.get("name", "")),
+                         ev.get("args"))
+                    )
+        for name, why in (fused.get("errors") or {}).items():
+            if name in self._seen:
+                self._seen[name]["error"] = why
+        for name, disp in self._seen.items():
+            if name not in peers:
+                disp["gone"] = True
+        flights.sort(key=lambda f: f[0])
+        return {
+            "time": fused.get("time", time.time()),
+            "rows": [self._seen[n] for n in sorted(self._seen)],
+            "skew_ratio": skew.get("ratio"),
+            "straggler": skew.get("straggler"),
+            "errors": fused.get("errors") or {},
+            "flights": flights[-10:],
+            "live": len(peers),
+        }
+
+    def _peer_row(
+        self, name: str, row: Dict[str, Any], skew: Dict[str, Any]
+    ) -> Dict[str, Any]:
+        met = row.get("metrics") or {}
+        now = row.get("time", time.time())
+        steps = _counter_total(met, "train_steps_total")
+        rate = None
+        if steps is not None:
+            prev = self._last_steps.get(name)
+            # Counter regression = peer restart; skip one delta.
+            if prev and now > prev[0] and steps >= prev[1]:
+                rate = (steps - prev[1]) / (now - prev[0])
+            self._last_steps[name] = (now, steps)
+        sk = (skew.get("peers") or {}).get(name) or {}
+        return {
+            "name": name,
+            "role": row.get("role", "member"),
+            "step_rate": rate,
+            "mfu": _gauge_max(met, "step_mfu"),
+            "hbm": _gauge_sum(met, "hbm_bytes_in_use"),
+            "hbm_peak": _gauge_sum(met, "hbm_bytes_peak"),
+            "step_s": sk.get("step_seconds"),
+            "exposed": _labeled_gauge(met, "step_time_fraction", "bucket", "comm"),
+            "qps": _gauge_max(met, "serve_qps"),
+            "p99": _hist_quantile(met, "serve_phase_seconds", 0.99),
+            "occupancy": _gauge_max(met, "serve_engine_slot_occupancy"),
+        }
+
+
+def _row_cells(disp: Dict[str, Any]) -> List[str]:
+    name = disp["name"]
+    if disp["gone"]:
+        name = "~" + name
+    return [
+        name,
+        ("gone" if disp["gone"] else disp["role"])[: COLUMNS[1][1]],
+        _fmt(disp["step_rate"], ".1f"),
+        _fmt(disp["mfu"], ".2f", 100.0),
+        _fmt_bytes(disp["hbm"]),
+        _fmt_bytes(disp["hbm_peak"]),
+        _fmt(disp["step_s"], ".4f"),
+        "-",  # per-row skew flag filled by the caller (straggler mark)
+        _fmt(disp["exposed"], ".1f", 100.0),
+        _fmt(disp["qps"], ".1f"),
+        _fmt(disp["p99"], ".1f", 1000.0),
+        _fmt(disp["occupancy"], ".0f", 100.0),
+    ]
+
+
+def _frame_lines(state: Dict[str, Any]) -> List[Tuple[str, bool]]:
+    """(line, dim) pairs for one frame — shared by plain and curses."""
+    ts = time.strftime("%H:%M:%S", time.localtime(state["time"]))
+    head = (
+        f"mtop {ts}  peers live={state['live']} "
+        f"shown={len(state['rows'])}  skew_ratio="
+        f"{_fmt(state['skew_ratio'], '.2f')}"
+    )
+    if state["straggler"]:
+        head += f"  straggler={state['straggler']}"
+    if state["errors"]:
+        head += f"  scrape_errors={len(state['errors'])}"
+    lines: List[Tuple[str, bool]] = [(head, False)]
+    lines.append(
+        ("".join(t.ljust(w + 1) for t, w in COLUMNS), False)
+    )
+    for disp in state["rows"]:
+        cells = _row_cells(disp)
+        if state["straggler"] == disp["name"]:
+            cells[7] = "SLOW"
+        line = "".join(
+            c[: w].ljust(w + 1) for c, (_t, w) in zip(cells, COLUMNS)
+        )
+        if disp.get("error") and not disp["gone"]:
+            line += f" !{disp['error'][:24]}"
+        lines.append((line, disp["gone"]))
+    if state["flights"]:
+        lines.append(("-- flight ring (merged tail) --", False))
+        for t, peer, name, args in state["flights"]:
+            at = time.strftime("%H:%M:%S", time.localtime(t))
+            extra = f" {args}" if args else ""
+            lines.append((f"{at} [{peer}] {name}{extra}"[:200], False))
+    return lines
+
+
+def render_plain(state: Dict[str, Any]) -> str:
+    return "\n".join(line for line, _dim in _frame_lines(state))
+
+
+def _curses_loop(console: Console, interval: float) -> None:
+    import curses
+
+    def run(scr):
+        curses.curs_set(0)
+        scr.timeout(int(interval * 1000))
+        while True:
+            state = console.refresh()
+            scr.erase()
+            maxy, maxx = scr.getmaxyx()
+            for y, (line, dim) in enumerate(_frame_lines(state)):
+                if y >= maxy:
+                    break
+                attr = curses.A_DIM if dim else (
+                    curses.A_BOLD if y == 1 else curses.A_NORMAL
+                )
+                try:
+                    scr.addnstr(y, 0, line, maxx - 1, attr)
+                except curses.error:
+                    pass
+            scr.refresh()
+            ch = scr.getch()
+            if ch in (ord("q"), ord("Q")):
+                return
+
+    curses.wrapper(run)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--broker", required=True, metavar="HOST:PORT",
+                    help="broker address to connect to")
+    ap.add_argument("--broker-name", default="broker",
+                    help="broker peer name (default: broker)")
+    ap.add_argument("--group", default="default", help="accumulator group")
+    ap.add_argument("--interval", type=float, default=2.0,
+                    help="refresh period, seconds")
+    ap.add_argument("--timeout", type=float, default=2.0,
+                    help="scrape deadline per refresh, seconds")
+    ap.add_argument("--once", action="store_true",
+                    help="render one plain frame and exit (CI smoke)")
+    ap.add_argument("--plain", action="store_true",
+                    help="loop printing plain frames (no curses)")
+    ap.add_argument("--frames", type=int, default=0,
+                    help="stop after N plain frames (0 = forever)")
+    ap.add_argument("--require-peers", type=int, default=0, metavar="N",
+                    help="exit non-zero unless >= N live peers (CI gate)")
+    args = ap.parse_args(argv)
+
+    from .. import Rpc, telemetry
+
+    rpc = Rpc()
+    rpc.set_name(f"mtop-{os.getpid()}")
+    rpc.connect(args.broker)
+    agg = telemetry.CohortAggregator(
+        rpc, args.broker_name, group=args.group, scrape_timeout=args.timeout
+    )
+    console = Console(agg)
+    # First discovery can race the connect; give the roster a moment.
+    deadline = time.monotonic() + max(args.timeout, 2.0)
+    while not agg.discover() and time.monotonic() < deadline:
+        time.sleep(0.1)
+
+    try:
+        if args.once:
+            state = console.refresh()
+            print(render_plain(state))
+            return 0 if state["live"] >= args.require_peers else 2
+        if args.plain or not sys.stdout.isatty():
+            n = 0
+            while True:
+                state = console.refresh()
+                print(render_plain(state), flush=True)
+                n += 1
+                if args.frames and n >= args.frames:
+                    return 0 if state["live"] >= args.require_peers else 2
+                time.sleep(args.interval)
+        _curses_loop(console, args.interval)
+        return 0
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        rpc.close()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

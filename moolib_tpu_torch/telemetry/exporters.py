@@ -230,8 +230,8 @@ def dump_diagnostics(
     run-loop watchdog: the registry in
     Prometheus text, the python stack of every live thread (wedge triage:
     *where* is each thread blocked?), the flight recorder's tail, the
-    lock-order graph's findings, and — when a run dir is known — the
-    host Chrome trace.  Only formats already-collected data, so it is safe
+    lock-order graph's findings, the device monitor's summary, and — when
+    a run dir is known — the host Chrome trace.  Only formats already-collected data, so it is safe
     from a signal handler or a monitor thread."""
     registry = registry or get_registry()
     tracer = tracer or get_tracer()
@@ -252,6 +252,14 @@ def dump_diagnostics(
         from ..testing import lockgraph as _lockgraph
 
         parts.append(_lockgraph.diagnostics_tail())
+    except Exception:  # noqa: BLE001 — diagnostics must never throw
+        pass
+    # Device performance plane: memory watermarks and the counted step
+    # costs — the "why is the card idle" tail.
+    try:
+        from . import devmon as _devmon
+
+        parts.append(_devmon.summary_text())
     except Exception:  # noqa: BLE001 — diagnostics must never throw
         pass
     parts.append("--- end telemetry dump ---\n")

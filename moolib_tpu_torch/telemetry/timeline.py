@@ -66,6 +66,7 @@ from .flightrec import flight_event
 
 __all__ = [
     "BUCKETS",
+    "DEVICE_CATS",
     "begin_window",
     "classify_name",
     "comm_span",
@@ -219,7 +220,7 @@ def _find_trace_file(logdir: str) -> Optional[str]:
 
 # Kineto trace categories of work on the card; a trace without any of them
 # (a CPU-only run) is read through its CPU operator events instead.
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def _read_anchor(logdir: str) -> Optional[Dict[str, Any]]:
@@ -234,8 +235,9 @@ def _read_anchor(logdir: str) -> Optional[Dict[str, Any]]:
 
 def load_profiler_trace(logdir: Optional[str]) -> List[Dict[str, Any]]:
     """Device slices from the newest Chrome trace JSON under ``logdir``:
-    ``[{"name", "ts_us", "dur_us", "track", "bucket"}, ...]`` ("X" events
-    only; metadata resolves pid/tid to a readable track label).
+    ``[{"name", "ts_us", "dur_us", "track", "bucket", "cat"}, ...]`` ("X"
+    events only; metadata resolves pid/tid to a readable track label;
+    ``cat`` is the trace's category, e.g. ``kernel``).
 
     Torch's trace carries CPU operators, CUDA runtime calls and the card's
     own work; the card's (categories ``kernel``, ``gpu_memcpy``,
@@ -283,7 +285,7 @@ def load_profiler_trace(logdir: Optional[str]) -> List[Dict[str, Any]]:
                 off_us = unix_us - float(ev["ts"])
                 break
     xs = [ev for ev in events if ev.get("ph") == "X"]
-    cats = _DEVICE_CATS if any(ev.get("cat") in _DEVICE_CATS for ev in xs) else ("cpu_op",)
+    cats = DEVICE_CATS if any(ev.get("cat") in DEVICE_CATS for ev in xs) else ("cpu_op",)
     out: List[Dict[str, Any]] = []
     for ev in xs:
         cat = ev.get("cat")
@@ -309,6 +311,7 @@ def load_profiler_trace(logdir: Optional[str]) -> List[Dict[str, Any]]:
                 "dur_us": dur,
                 "track": track,
                 "bucket": bucket,
+                "cat": cat,
             }
         )
     return out
